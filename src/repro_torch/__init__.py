@@ -1,0 +1,32 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro``'s compression path.
+
+A separate package beside the JAX reference: it keeps its own copy of the
+wire format, engine, codecs and coder-table builders, and imports nothing of
+``repro`` or ``jax``.  Frames are byte-identical to the reference's.
+
+Entry points::
+
+    from repro_torch import compress, decompress, numeric, numeric_profile
+    frame = compress(numeric_profile(), numeric(column))        # on the card
+    frame = compress(numeric_profile(), numeric(column), device="cpu")
+    (out,) = decompress(frame)
+
+On the card every codec that had a TPU kernel in the reference launches a
+hand-written CUDA kernel (``repro_torch.kernels.ops``); with ``device="cpu"``
+the same codecs take the kernels' plain PyTorch versions.
+"""
+from .codecs.profiles import numeric_profile  # noqa: F401
+from .core import (  # noqa: F401
+    CompressionCtx,
+    GraphBuilder,
+    Plan,
+    Stream,
+    SType,
+    compress,
+    decompress,
+    numeric,
+    pipeline,
+    plan_from_dict,
+    serial,
+    struct,
+)

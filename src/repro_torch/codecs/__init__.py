@@ -1,0 +1,14 @@
+"""The port's codec and selector suite.  Importing this package registers
+every codec of the slice (wire-stable ids, the reference's) and its
+selectors.
+
+Codec ids in this slice:
+   1 store   3 delta   4 zigzag   5 transpose   9 tokenize
+  13 range_pack   14 huffman   15 fse   17 zlib_backend
+"""
+from . import basic  # noqa: F401
+from . import numeric  # noqa: F401
+from . import entropy  # noqa: F401
+from . import lz  # noqa: F401
+from . import selectors  # noqa: F401
+from . import profiles  # noqa: F401

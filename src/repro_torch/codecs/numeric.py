@@ -1,0 +1,285 @@
+"""Numeric transforms: delta, zigzag, transpose, range_pack, tokenize.
+
+The port's copy of the slice's codecs from ``repro.codecs.numeric``: same
+codec ids, same headers, same output streams.  Encoders are PyTorch on the
+device the stream lives on — ``delta`` and ``transpose`` through their
+kernels (``kernels/ops.py``), the others as plain tensor ops, since the
+reference ran them on the host and they had no TPU kernel.  Decoders are the
+reference's numpy decoders.
+
+Unsigned semantics on signed carriers: values are widened to int64 (widths
+1, 2, 4) or handled as 64-bit patterns in 32-bit halves (width 8), so no
+result relies on signed overflow.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.codec import CodecSpec, register_codec
+from ..core.message import (
+    Stream,
+    SType,
+    UNSIGNED_NP,
+    join_u32,
+    narrow_unsigned,
+    sub_u64,
+    widen_unsigned,
+)
+from ..kernels import ops
+from ._util import (
+    HeaderReader,
+    HeaderWriter,
+    fixed_records,
+    host_stream,
+    numeric_stream,
+    rebuild_like,
+)
+
+_SIGN = -(1 << 63)  # int64 sign bit: x ^ _SIGN orders bit patterns as unsigned
+_M32 = 0xFFFFFFFF
+
+
+def _require_numeric(s: Stream, op: str) -> torch.Tensor:
+    if s.stype != SType.NUMERIC:
+        raise ValueError(f"{op}: numeric streams only, got {s.stype.name}")
+    return s.data
+
+
+def _host_numeric(arr: np.ndarray) -> Stream:
+    return host_stream(SType.NUMERIC, arr.dtype.itemsize, np.ascontiguousarray(arr).tobytes())
+
+
+def _unsigned_min(u: torch.Tensor) -> int:
+    """Unsigned minimum of int64 bit patterns, as the int64 pattern."""
+    return int((u ^ _SIGN).min()) ^ _SIGN
+
+
+def _unsigned_max(u: torch.Tensor) -> int:
+    """Unsigned maximum of int64 bit patterns, as a Python int >= 0."""
+    return (int((u ^ _SIGN).max()) ^ _SIGN) & ((1 << 64) - 1)
+
+
+# --------------------------------------------------------------------- delta
+def _delta_enc(streams, params):
+    x = _require_numeric(streams[0], "delta")
+    return [numeric_stream(ops.delta_encode(x))], b""
+
+
+def _delta_dec(outs, header):
+    d = outs[0].numpy()
+    with np.errstate(over="ignore"):
+        x = np.cumsum(d, dtype=d.dtype)
+    return [_host_numeric(x)]
+
+
+register_codec(
+    CodecSpec(
+        "delta",
+        codec_id=3,
+        encode=_delta_enc,
+        decode=_delta_dec,
+        doc="wrapping first-difference on the unsigned view (kernel K1)",
+    )
+)
+
+
+# -------------------------------------------------------------------- zigzag
+def _zigzag_enc(streams, params):
+    s = streams[0]
+    t = _require_numeric(s, "zigzag")
+    if s.width == 8:
+        # (u << 1) mod 2^64 from 32-bit halves, xor the sign mask (0 or ~0)
+        lo, hi = t & _M32, (t >> 32) & _M32
+        shl = join_u32((lo << 1) & _M32, ((hi << 1) | (lo >> 31)) & _M32)
+        return [numeric_stream(shl ^ (t >> 63))], b""
+    sv = (t.view(torch.int8) if s.width == 1 else t).to(torch.int64)
+    zz = (sv * 2) ^ (sv >> 63)
+    return [numeric_stream(narrow_unsigned(zz, s.width))], b""
+
+
+def _zigzag_dec(outs, header):
+    u = outs[0].numpy()
+    one = u.dtype.type(1)
+    x = (u >> one) ^ (np.zeros_like(u) - (u & one))
+    return [_host_numeric(x)]
+
+
+register_codec(
+    CodecSpec(
+        "zigzag",
+        codec_id=4,
+        encode=_zigzag_enc,
+        decode=_zigzag_dec,
+        doc="signed -> small-unsigned mapping ((x<<1) ^ (x>>w-1))",
+    )
+)
+
+
+# ----------------------------------------------------------------- transpose
+def _transpose_enc(streams, params):
+    s = streams[0]
+    if s.stype not in (SType.STRUCT, SType.NUMERIC):
+        raise ValueError("transpose wants struct/numeric input")
+    mat, w = fixed_records(s)
+    planes = ops.byteshuffle(mat)
+    h = HeaderWriter().u8(int(s.stype)).varint(w).done()
+    return [Stream(planes.reshape(-1), SType.SERIAL, 1)], h
+
+
+def _transpose_dec(outs, header):
+    r = HeaderReader(header)
+    stype = SType(r.u8())
+    w = r.varint()
+    r.expect_end()
+    planes = outs[0].numpy()
+    n = planes.size // w
+    raw = np.ascontiguousarray(planes.reshape(w, n).T).reshape(-1)
+    return [host_stream(stype, w, raw.tobytes())]
+
+
+register_codec(
+    CodecSpec(
+        "transpose",
+        codec_id=5,
+        encode=_transpose_enc,
+        decode=_transpose_dec,
+        doc="byte-plane shuffle (Blosc-style) (kernel K3)",
+    )
+)
+
+
+# ---------------------------------------------------------------- range_pack
+def _pack_bits(vals: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack int64 values (< 2^bits) LSB-first into bytes.  bits <= 57 so a
+    single unaligned 8-byte window always covers a value (see _unpack_bits).
+
+    Each value touches at most ceil(bits/8)+1 bytes; each pass scatter-adds
+    one of those byte contributions.  Every bit has one writer, so the adds
+    never carry and equal the reference's bitwise OR.
+    """
+    if bits > 57:
+        raise ValueError("bitpack supports <= 57 bits per value; store instead")
+    n = vals.numel()
+    nbytes = (n * bits + 7) // 8
+    out = torch.zeros(nbytes + 8, dtype=torch.int64, device=vals.device)
+    offs = torch.arange(n, dtype=torch.int64, device=vals.device) * bits
+    base, r = offs >> 3, offs & 7
+    for b in range((bits + 7) // 8 + 1):
+        if b == 0:
+            contrib = (vals & 0xFF) << r
+        else:
+            contrib = vals >> (8 * b - r).clamp(max=63)  # values < 2^57
+        out.index_add_(0, base + b, contrib & 0xFF)
+    return out[:nbytes].to(torch.uint8)
+
+
+def _unpack_bits(buf: np.ndarray, bits: int, n: int, out_width: int) -> np.ndarray:
+    padded = np.zeros(buf.size + 8, dtype=np.uint8)
+    padded[: buf.size] = buf
+    offs = np.arange(n, dtype=np.int64) * bits
+    byte0 = offs >> 3
+    # gather 8 consecutive bytes -> u64 window, shift, mask
+    gathered = np.zeros(n, dtype=np.uint64)
+    for b in range(8):
+        gathered |= padded[byte0 + b].astype(np.uint64) << np.uint64(8 * b)
+    vals = (gathered >> (offs & 7).astype(np.uint64)) & np.uint64((1 << bits) - 1)
+    return vals.astype(UNSIGNED_NP[out_width])
+
+
+def _range_pack_enc(streams, params):
+    s = streams[0]
+    u = widen_unsigned(_require_numeric(s, "range_pack"))
+    n = u.numel()
+    lo = _unsigned_min(u) if n else 0
+    shifted = sub_u64(u, torch.full_like(u, lo))
+    maxv = _unsigned_max(shifted) if n else 0
+    bits = max(maxv.bit_length(), 1)
+    packed = _pack_bits(shifted, bits)
+    h = HeaderWriter().u8(bits).u8(s.width).varint(n).varint(lo & ((1 << 64) - 1)).done()
+    return [Stream(packed, SType.SERIAL, 1)], h
+
+
+def _range_pack_dec(outs, header):
+    r = HeaderReader(header)
+    bits = r.u8()
+    width = r.u8()
+    n = r.varint()
+    lo = r.varint()
+    r.expect_end()
+    vals = _unpack_bits(outs[0].numpy(), bits, n, 8)
+    vals = (vals + np.uint64(lo)).astype(UNSIGNED_NP[width])
+    return [_host_numeric(vals)]
+
+
+register_codec(
+    CodecSpec(
+        "range_pack",
+        codec_id=13,
+        encode=_range_pack_enc,
+        decode=_range_pack_dec,
+        doc="bounded ints: subtract min then bitpack",
+    )
+)
+
+
+# ------------------------------------------------------------------ tokenize
+def _tokenize_enc(streams, params):
+    s = streams[0]
+    if s.stype == SType.STRING:
+        raise ValueError("tokenize: string streams are not yet ported to repro_torch")
+    mat, w = fixed_records(s)
+    n = mat.shape[0]
+    dev = mat.device
+    if n == 0:
+        alphabet = rebuild_like(s.stype, s.width, mat.reshape(-1))
+        indices = numeric_stream(torch.zeros(0, dtype=torch.int32, device=dev))
+    else:
+        if w <= 8:  # one int64 key per record: a 1-D unique
+            key = torch.zeros((n, 8), dtype=torch.uint8, device=dev)
+            key[:, :w] = mat
+            _, inv = torch.unique(key.view(torch.int64).reshape(-1), return_inverse=True)
+        else:
+            _, inv = torch.unique(mat, dim=0, return_inverse=True)
+        k = int(inv.max()) + 1
+        pos = torch.arange(n, dtype=torch.int64, device=dev)
+        first = torch.full((k,), n, dtype=torch.int64, device=dev)
+        first.scatter_reduce_(0, inv, pos, reduce="amin")
+        # first-occurrence ordering keeps the alphabet stable for delta-friendly ids
+        order = torch.argsort(first)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(k, dtype=torch.int64, device=dev)
+        alphabet = rebuild_like(s.stype, s.width, mat[first[order]].reshape(-1))
+        # indices are ALWAYS u32: predictable output types keep the graph
+        # type system static (downstream range_pack reclaims the bits)
+        indices = numeric_stream(narrow_unsigned(rank[inv], 4))
+    h = HeaderWriter().u8(0).u8(4).done()
+    return [alphabet, indices], h
+
+
+def _tokenize_dec(outs, header):
+    alphabet, indices = outs
+    r = HeaderReader(header)
+    is_string = r.u8()
+    _iw = r.u8()
+    r.expect_end()
+    if is_string:
+        raise ValueError("tokenize: string alphabets are not yet ported to repro_torch")
+    idx = indices.numpy().astype(np.int64)
+    w = alphabet.width if alphabet.stype != SType.SERIAL else 1
+    mat = np.frombuffer(alphabet.content_bytes(), dtype=np.uint8).reshape(-1, w)
+    out = np.ascontiguousarray(mat[idx]).reshape(-1)
+    return [host_stream(alphabet.stype, alphabet.width, out.tobytes())]
+
+
+register_codec(
+    CodecSpec(
+        "tokenize",
+        codec_id=9,
+        encode=_tokenize_enc,
+        decode=_tokenize_dec,
+        n_outputs=2,
+        min_version=2,
+        doc="(alphabet, indices) split",
+    )
+)

@@ -1,0 +1,98 @@
+"""Standard selectors — the port's copy of ``repro.codecs.selectors``.
+
+The trial selector compresses a bounded sample of the stream with each
+candidate graph of its menu and commits to the smallest.  The menus and
+levels are the reference's, so both packages pick the same graph and write
+the same frame.  Trials run on the sample's device, through the same
+kernels as the real compression.
+
+Only a codec's own refusal (a ``ValueError``) marks a candidate as
+inapplicable; any other error — a CUDA fault, a failed kernel build —
+propagates.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+from ..core.engine import CompressionCtx, compress
+from ..core.graph import GraphBuilder, Plan, pipeline
+from ..core.message import Stream, SType
+from ..core.selector import SelectorSpec, register_selector
+
+SAMPLE_BYTES = 1 << 16  # trial compressions run on a bounded prefix
+
+
+def _sample(s: Stream) -> Stream:
+    if s.stype == SType.STRING:
+        raise ValueError("string streams are not yet ported to repro_torch")
+    n_elts = min(s.n_elts, max(SAMPLE_BYTES // max(s.width, 1), 1))
+    if s.stype == SType.NUMERIC:
+        return Stream(s.data[:n_elts], s.stype, s.width)
+    return Stream(s.data[: n_elts * (s.width if s.stype == SType.STRUCT else 1)], s.stype, s.width)
+
+
+def _trial_size(plan: Plan, s: Stream, ctx: CompressionCtx) -> int:
+    try:
+        trial_ctx = CompressionCtx(ctx.format_version, ctx.level)
+        return len(compress(plan, [s], ctx=trial_ctx, device=s.device))
+    except ValueError:
+        return 1 << 62  # candidate inapplicable to this data
+
+
+def choose_best(candidates: Sequence[Tuple[str, Plan]], streams, ctx) -> Plan:
+    sample = _sample(streams[0])
+    best_plan, best_sz = None, 1 << 63
+    for _name, plan in candidates:
+        sz = _trial_size(plan, sample, ctx)
+        if sz < best_sz:
+            best_plan, best_sz = plan, sz
+    if best_plan is None:
+        return pipeline("store")
+    return best_plan
+
+
+# ---------------------------------------------------------------- candidates
+def entropy_candidates(level: int) -> List[Tuple[str, Plan]]:
+    cands = [("store", pipeline("store")), ("huffman", pipeline("huffman"))]
+    if level >= 3:
+        cands.append(("fse", pipeline("fse")))
+    if level >= 5:
+        cands.append(("zlib", pipeline(("zlib_backend", {"level": min(level, 9)}))))
+    if level >= 7:
+        raise NotImplementedError("entropy_auto above level 6 needs lzma_backend, not yet ported")
+    return cands
+
+
+def numeric_candidates(level: int) -> List[Tuple[str, Plan]]:
+    cands: List[Tuple[str, Plan]] = [
+        ("store", pipeline("store")),
+        ("range_pack", pipeline("range_pack")),
+        ("delta+range_pack", pipeline("delta", "range_pack")),
+        ("transpose+huffman", pipeline("transpose", "huffman")),
+        ("delta+transpose+huffman", pipeline("delta", "transpose", "huffman")),
+    ]
+    if level >= 3:
+        g = GraphBuilder(1)
+        alpha, idx = g.add("tokenize", g.input(0))
+        g.add("transpose", alpha)
+        g.add("range_pack", idx)
+        cands.append(("tokenize", g.build("tokenize_backend")))
+        cands.append(("delta+zigzag+range_pack", pipeline("delta", "zigzag", "range_pack")))
+    if level >= 5:
+        zl = ("zlib_backend", {"level": min(level, 9)})
+        cands.append(("transpose+zlib", pipeline("transpose", zl)))
+        cands.append(("delta+transpose+zlib", pipeline("delta", "transpose", zl)))
+    return cands
+
+
+# ------------------------------------------------------------ the selectors
+def _entropy_auto(streams, params, ctx):
+    return choose_best(entropy_candidates(ctx.level), streams, ctx)
+
+
+def _numeric_auto(streams, params, ctx):
+    return choose_best(numeric_candidates(ctx.level), streams, ctx)
+
+
+register_selector(SelectorSpec("entropy_auto", _entropy_auto, doc="store/huffman/fse/zlib by trial"))
+register_selector(SelectorSpec("numeric_auto", _numeric_auto, doc="numeric backend by trial"))

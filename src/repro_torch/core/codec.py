@@ -1,0 +1,111 @@
+"""Codec registry — the node vocabulary of the graph model.
+
+The port's copy of ``repro.core.codec``'s spec and registries.  A codec is a
+reversible pair ``(encode, decode)`` over tuples of streams; codec ids are
+wire-stable and ``min_version`` gates each codec by format version.
+
+There is one encoder per codec.  It runs on the device its input tensors
+live on: a codec with a kernel launches it for a CUDA tensor and takes the
+kernel's plain PyTorch version for a CPU tensor (see ``kernels/ops.py``).
+There is no per-backend twin registry and no silent fallback to the host.
+Decoders are host numpy, as the reference's universal decoder is.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Sequence, Tuple
+
+from .message import Stream
+
+__all__ = ["CodecSpec", "register_codec", "get_codec", "get_codec_by_id", "all_codecs"]
+
+EncodeFn = Callable[..., Tuple[List[Stream], bytes]]
+DecodeFn = Callable[[Sequence[Stream], bytes], List[Stream]]
+
+
+@dataclass(frozen=True)
+class CodecSpec:
+    name: str
+    codec_id: int  # wire-stable; never reuse
+    encode: EncodeFn
+    decode: DecodeFn
+    n_inputs: int = 1  # -1 => variadic
+    n_outputs: int = 1  # -1 => variadic (actual count recorded per node on wire)
+    min_version: int = 1  # first format version that understands this codec
+    doc: str = ""
+
+    def run_encode(self, streams: Sequence[Stream], params=None):
+        params = dict(params or {})
+        if self.n_inputs >= 0 and len(streams) != self.n_inputs:
+            raise ValueError(
+                f"codec {self.name}: expected {self.n_inputs} inputs, got {len(streams)}"
+            )
+        outs, header = self.encode(list(streams), params)
+        if self.n_outputs >= 0 and len(outs) != self.n_outputs:
+            raise AssertionError(
+                f"codec {self.name}: produced {len(outs)} outputs, spec says {self.n_outputs}"
+            )
+        if not isinstance(header, (bytes, bytearray)):
+            raise AssertionError(f"codec {self.name}: header must be bytes")
+        return [o.validate() for o in outs], bytes(header)
+
+    def run_decode(self, out_streams: Sequence[Stream], header: bytes):
+        ins = self.decode(list(out_streams), header)
+        return [s.validate() for s in ins]
+
+
+_BY_NAME: Dict[str, CodecSpec] = {}
+_BY_ID: Dict[int, CodecSpec] = {}
+
+
+def register_codec(spec: CodecSpec) -> CodecSpec:
+    if spec.name in _BY_NAME:
+        raise ValueError(f"duplicate codec name {spec.name!r}")
+    if spec.codec_id in _BY_ID:
+        raise ValueError(
+            f"duplicate codec id {spec.codec_id} ({spec.name!r} vs"
+            f" {_BY_ID[spec.codec_id].name!r})"
+        )
+    _BY_NAME[spec.name] = spec
+    _BY_ID[spec.codec_id] = spec
+    return spec
+
+
+def get_codec(name: str) -> CodecSpec:
+    _ensure_standard_library()
+    try:
+        return _BY_NAME[name]
+    except KeyError:
+        raise KeyError(
+            f"codec {name!r} is not in repro_torch (not yet ported, or unknown);"
+            f" ported: {sorted(_BY_NAME)}"
+        ) from None
+
+
+def get_codec_by_id(codec_id: int) -> CodecSpec:
+    _ensure_standard_library()
+    try:
+        return _BY_ID[codec_id]
+    except KeyError:
+        raise KeyError(f"unknown codec id {codec_id}") from None
+
+
+def all_codecs() -> Dict[str, CodecSpec]:
+    _ensure_standard_library()
+    return dict(_BY_NAME)
+
+
+_loaded = False
+_load_lock = threading.RLock()
+
+
+def _ensure_standard_library() -> None:
+    """Lazily import the codec suite so ``core`` has no import cycle."""
+    global _loaded
+    if not _loaded:
+        with _load_lock:
+            if not _loaded:
+                from repro_torch import codecs as _  # noqa: F401  (registers on import)
+
+                _loaded = True

@@ -1,0 +1,162 @@
+"""Plain PyTorch versions of the port's kernels and of their glue.
+
+Each function here computes exactly what its CUDA kernel in ``csrc/``
+computes (and what the reference's jnp oracle in ``repro/kernels/ref.py``
+computes).  ``kernels/ops.py`` takes them for tensors on the CPU, and
+``chip_smoke.py`` holds every kernel against them on the card.
+
+The glue — the exact histogram, the exclusive bit offsets, the tANS lane
+offsets and the bit packer — was XLA glue outside Pallas in the reference;
+here it is these PyTorch ops on whatever device the data is on.
+
+Unsigned arithmetic: PyTorch's ``uint32`` lacks subtraction, shifts and
+comparisons, so 32-bit unsigned data is carried as int64 masked to 32 bits,
+and wrapping is done in int64 and masked, never left to signed overflow.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..core.message import narrow_unsigned, sub_u64, widen_unsigned
+
+_U32 = 0xFFFFFFFF
+
+
+# ------------------------------------------------------------------ K1 delta
+def delta_encode(x: torch.Tensor) -> torch.Tensor:
+    """out[0] = x[0]; out[i] = x[i] - x[i-1] (wrapping, unsigned), any width."""
+    w = x.element_size()
+    u = widen_unsigned(x)
+    if w == 8:
+        return torch.cat([u[:1], sub_u64(u[1:], u[:-1])])
+    return narrow_unsigned(torch.cat([u[:1], u[1:] - u[:-1]]), w)
+
+
+# ------------------------------------------------------------ K3 byteshuffle
+def byteshuffle(x: torch.Tensor) -> torch.Tensor:
+    """(n, w) uint8 records -> (w, n) byte planes."""
+    return x.t().contiguous()
+
+
+# ------------------------------------------------------------ K14 huffman map
+def huffman_map(
+    x: torch.Tensor, codes: torch.Tensor, lens: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-symbol (canonical code, code length) table gathers, both int32."""
+    xi = x.long()
+    return codes[xi], lens[xi]
+
+
+# ------------------------------------------------------------ K9 tANS encode
+def compact_encode_table(
+    norm: torch.Tensor, enc_flat: torch.Tensor, width: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack the reference's (256, width) encode table to its live entries.
+
+    Symbol s owns entries [sym_start[s], sym_start[s] + norm[s]), in rank
+    order; together they are exactly ``total`` entries.  Returns
+    (sym_start int32[256], enc_compact int32[total]).
+    """
+    live = torch.arange(width, device=norm.device)[None, :] < norm[:, None]
+    enc_compact = enc_flat.reshape(256, width)[live].to(torch.int32).contiguous()
+    sym_start = (torch.cumsum(norm, 0) - norm).to(torch.int32).contiguous()
+    return sym_start, enc_compact
+
+
+def fse_encode_lanes(
+    lanesT: torch.Tensor,
+    rem: torch.Tensor,
+    nb0: torch.Tensor,
+    thr: torch.Tensor,
+    st0: torch.Tensor,
+    norm: torch.Tensor,
+    sym_start: torch.Tensor,
+    enc_compact: torch.Tensor,
+    width: int,
+    total: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """tANS backward state walk, every lane at once, one position per step.
+
+    ``lanesT`` is (max_rem, n_lanes) symbols; a lane of length r starts its
+    state at position r-1 and emits the low bits of ``X = state + total`` for
+    every earlier position, then steps through the compact encode table
+    (:func:`compact_encode_table`).  Returns the (vals, nbits) planes, int32,
+    and the final lane states, int32.
+    """
+    max_rem, n_lanes = lanesT.shape
+    dev = lanesT.device
+    nb0, thr, st0, norm, sym_start, enc, rem = (
+        t.to(torch.int64) for t in (nb0, thr, st0, norm, sym_start, enc_compact, rem)
+    )
+    vals = torch.zeros((max_rem, n_lanes), dtype=torch.int32, device=dev)
+    nbs = torch.zeros((max_rem, n_lanes), dtype=torch.int32, device=dev)
+    state = torch.zeros(n_lanes, dtype=torch.int64, device=dev)
+    one = torch.ones(n_lanes, dtype=torch.int64, device=dev)
+    for i in range(max_rem - 1, -1, -1):
+        s = lanesT[i].long()
+        emit = rem > i + 1
+        X = state + total
+        nb = nb0[s] - (X < thr[s]).long()
+        nbe = torch.where(emit, nb, 0)
+        vals[i] = (X & ((one << nbe) - 1)).to(torch.int32)
+        nbs[i] = nbe.to(torch.int32)
+        # clip as the reference does; its table is zero past norm[s]
+        xprime = ((X >> nb) - norm[s]).clamp(0, width - 1)
+        idx = (sym_start[s] + xprime).clamp(max=total - 1)
+        new_state = torch.where(xprime < norm[s], enc[idx], 0)
+        state = torch.where(emit, new_state, torch.where(rem == i + 1, st0[s], state))
+    return vals, nbs, state.to(torch.int32)
+
+
+# ----------------------------------------------------------------------- glue
+def histogram_exact(x: torch.Tensor) -> torch.Tensor:
+    """256-bin byte histogram with integer counts (int64), exact at any size."""
+    return torch.bincount(x, minlength=256)
+
+
+def exclusive_offsets(nbits: torch.Tensor) -> torch.Tensor:
+    """int64 bit offsets [n+1]: offs[i] = sum(nbits[:i]); offs[-1] is the total."""
+    offs = torch.zeros(nbits.numel() + 1, dtype=torch.int64, device=nbits.device)
+    offs[1:] = torch.cumsum(nbits, 0, dtype=torch.int64)
+    return offs
+
+
+def fse_lane_offsets(
+    nbs: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Wire placement of every tANS emission, all int64.
+
+    Emission order is decreasing position, so an emission's offset inside
+    its lane is the suffix sum of later positions' bit counts; lanes are
+    concatenated at byte granularity.  Returns (global bit offsets planes,
+    per-lane bit lengths, lane byte offsets [n_lanes+1]).
+    """
+    nbs = nbs.to(torch.int64)
+    bitpos = nbs.sum(0)
+    suffix = torch.flip(torch.cumsum(torch.flip(nbs, [0]), 0), [0])
+    intra = suffix - nbs
+    byte_off = exclusive_offsets((bitpos + 7) >> 3)
+    goffs = byte_off[None, :-1] * 8 + intra
+    return goffs, bitpos, byte_off
+
+
+def pack_bits(vals: torch.Tensor, offs: torch.Tensor, total_bytes: int) -> torch.Tensor:
+    """Place pre-masked values (< 2^32) LSB-first at int64 bit offsets -> uint8.
+
+    The device twin of the host codecs' bit writer.  Each value, shifted to
+    its offset inside a 32-bit word, spans at most two words; both halves are
+    scatter-added into int64 words.  Every output bit has exactly one writer,
+    so no add ever carries: the sum equals the bitwise OR, in any order.
+    """
+    dev = vals.device
+    n_words = (total_bytes + 3) // 4 + 2
+    words = torch.zeros(n_words, dtype=torch.int64, device=dev)
+    if vals.numel():
+        v = vals.reshape(-1).to(torch.int64) << (offs.reshape(-1) & 31)
+        w0 = offs.reshape(-1) >> 5
+        words.index_add_(0, w0, v & _U32)
+        words.index_add_(0, w0 + 1, v >> 32)
+    # low 4 bytes of each little-endian int64 word are the 32-bit word
+    return words.view(torch.uint8).view(-1, 8)[:, :4].reshape(-1)[:total_bytes]

@@ -1,0 +1,77 @@
+"""The port stands alone: no ``jax``, no ``repro``, no ``msgpack``, no CPU default.
+
+An AST scan of every module of ``src/repro_torch/`` and of ``chip_smoke.py``
+finds no import of the three, and a fresh interpreter that imports the port
+has none of them in ``sys.modules`` and has not initialised CUDA.  Without a
+card, an entry point called without ``device="cpu"`` raises instead of
+running on the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch import _device  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "repro", "msgpack")
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _top_level_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_nothing_forbidden(path):
+    bad = sorted(set(_top_level_imports(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_importing_the_port_loads_nothing_forbidden_and_no_cuda():
+    code = (
+        "import sys, torch, repro_torch, repro_torch.codecs, repro_torch.kernels.ops,"
+        " repro_torch.kernels._build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad, torch.cuda.is_initialized())\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False"
+
+
+def test_entry_point_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ops.reset_launches()
+    col = repro_torch.numeric(np.arange(1000, dtype=np.uint32))
+    with pytest.raises(_device.NoCardError):
+        repro_torch.compress(repro_torch.numeric_profile(), col)
+    with pytest.raises(_device.NoCardError):
+        repro_torch.compress(repro_torch.numeric_profile(), col, device="cuda")
+    assert _device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    meta = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.delta_encode(meta)
