@@ -7,22 +7,30 @@ Usage (from the repository root, on a machine with one CUDA card):
 Phases, in order; any failure exits non-zero, and no result line is printed:
 
 1. build   — compile the port's CUDA kernels from ``src/repro_torch/csrc``.
-2. kernels — each kernel (delta, byte shuffle, Huffman map, tANS encode) at
-             the main path's shapes, held bit-exactly (tolerance 0) against
-             its plain PyTorch version on the same card, and timed beside the
-             plain version and a one-call PyTorch yardstick where one exists.
+2. kernels — each kernel at the main path's shapes, held bit-exactly
+             (tolerance 0) against its plain PyTorch version on the same
+             card, and timed beside the plain version and a one-call PyTorch
+             yardstick where one exists: the encode kernels (delta, byte
+             shuffle, Huffman map, tANS encode) and the decode kernels (delta
+             decode, byte unshuffle, Huffman decode and tANS decode on column
+             A's entropy-coded streams, and the lane refill they share).
 3. main    — two 64 MiB numeric columns (A: 2^23 int64 nanosecond timestamps
              with jittered gaps; B: 2^24 zipf-distributed uint32 ids), made
              from ``--seed``, each through ``numeric_profile()`` at level 5,
              ``delta+transpose+huffman`` and ``delta+transpose+fse`` via
              ``repro_torch.compress(..., device="cuda")``.  Every frame
              decodes to its column; the frame of a 4 MiB prefix written on
-             the card equals the one written on the CPU; every kernel's
-             launch counter rose during this phase.
-4. profile — one more compress per plan and column under torch.profiler
-             (the card's busy time and its top kernels) and cProfile (the
-             host's time by function), for the "where the time goes" record.
-5. identity — the card's name and power limit.
+             the card equals the one written on the CPU; every encode
+             kernel's launch counter rose during this phase.
+4. decode  — each of the six frames through ``repro_torch.decompress(frame,
+             device="cuda")``, timed (decompress MB/s) and checked against
+             its column on the card; the delta decode, byte unshuffle,
+             Huffman decode and tANS decode counters rose during this phase.
+5. profile — one more compress and one decompress per plan and column under
+             torch.profiler (the card's busy time and its top kernels) and
+             cProfile (the host's time by function), for the "where the time
+             goes" record.
+6. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name/power line, and as the last line
@@ -42,6 +50,16 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+# the entropy decoders' dependent chain: at least one shared-memory table
+# lookup per symbol, taken as 30 cycles (an assumption, not a measurement)
+STEP_CYCLES = 30
+ENCODE_KERNELS = ("delta_encode", "byteshuffle", "huffman_map", "fse_encode")
+DECODE_KERNELS = ("delta_decode", "byteunshuffle", "huffman_decode", "fse_decode")
+PLANS = {
+    "numeric_l5": lambda rt: rt.numeric_profile(),
+    "delta+transpose+huffman": lambda rt: rt.pipeline("delta", "transpose", "huffman"),
+    "delta+transpose+fse": lambda rt: rt.pipeline("delta", "transpose", "fse"),
+}
 COLUMN_BYTES = 64 << 20
 PREFIX_BYTES = 4 << 20
 
@@ -92,7 +110,7 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def kernel_phase(cols, ops, ref, entropy):
+def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     """Each kernel at the main path's shapes against its plain version."""
     import torch
 
@@ -101,7 +119,7 @@ def kernel_phase(cols, ops, ref, entropy):
     col_b = torch.from_numpy(cols["B_zipf_ids_u32"].view(np.int32)).to(dev)
     rows = []
 
-    def row(name, source, replaces, err, ms, plain_ms, nbytes, nops, library_ms):
+    def row(name, source, replaces, err, ms, plain_ms, nbytes, nops, library_ms, **extra):
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
         rows.append({
@@ -116,9 +134,11 @@ def kernel_phase(cols, ops, ref, entropy):
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": library_ms,
+            **extra,
         })
         print(f"kernel {name}: max_abs_err={err} ms={ms} plain_ms={plain_ms}"
-              f" bound_ms={rows[-1]['bound_ms']} library_ms={library_ms}")
+              f" bound_ms={rows[-1]['bound_ms']} library_ms={library_ms}"
+              + "".join(f" {k}={v}" for k, v in extra.items()))
 
     # K1 delta on both columns' widths (int64 timestamps, uint32 ids)
     err = max_abs_err([ops.delta_encode(col_a), ops.delta_encode(col_b)],
@@ -175,21 +195,113 @@ def kernel_phase(cols, ops, ref, entropy):
         cuda_ms(lambda: ref.fse_encode_lanes(*args), 2),
         n_sym * (1 + 4 + 4) + n_lanes * 8 + (5 * 256 + (1 << table_log)) * 4,
         n_sym * 12, None)
+
+    # K2 delta decode: the inverse of K1 on both columns' widths
+    d_a, d_b = ops.delta_encode(col_a), ops.delta_encode(col_b)
+    got = [ops.delta_decode(d_a), ops.delta_decode(d_b)]
+    err = max_abs_err(got, [ref.delta_decode(d_a), ref.delta_decode(d_b)])
+    err = max(err, max_abs_err(got, [col_a, col_b]))
+    row("delta_decode", "src/repro_torch/csrc/delta.cu", "src/repro/kernels/delta.py:56",
+        err, cuda_ms(lambda: ops.delta_decode(d_a), 20),
+        cuda_ms(lambda: ref.delta_decode(d_a), 5),
+        2 * COLUMN_BYTES, col_a.numel(),
+        cuda_ms(lambda: torch.cumsum(d_a, 0), 20),
+        u32_ms=cuda_ms(lambda: ops.delta_decode(d_b), 20))
+
+    # K15 Huffman decode and K10 tANS decode on column A's entropy-coded
+    # streams, as decompress hands them over
+    col_a_np = cols["A_timestamps_i64"]
+    huff = entropy.huffman_lanes(*node_streams(
+        rt.compress(rt.pipeline("delta", "transpose", "huffman"), rt.numeric(col_a_np),
+                    device="cuda"),
+        "huffman"))
+    buf, pos, lut, max_rem, n_sym_a, _stype = huff
+    h_planes = ops.huffman_decode(buf, pos, lut, max_rem)
+    err = max_abs_err([h_planes], [ref.huffman_decode_lanes(buf, pos, lut, max_rem)])
+    stream_bytes = buf.numel()
+    row("huffman_decode", "src/repro_torch/csrc/huffman.cu", "src/repro/kernels/huffman.py:84",
+        err, cuda_ms(lambda: ops.huffman_decode(buf, pos, lut, max_rem), 5),
+        cuda_ms(lambda: ref.huffman_decode_lanes(buf, pos, lut, max_rem), 1),
+        stream_bytes + pos.numel() * 8 + lut.numel() * 2 + h_planes.numel(),
+        n_sym_a * 8, None,
+        shape=f"{pos.numel()} lanes x {max_rem}",
+        latency_bound_ms=max_rem * STEP_CYCLES / sm_hz * 1e3)
+
+    fse = entropy.fse_lanes(*node_streams(
+        rt.compress(rt.pipeline("delta", "transpose", "fse"), rt.numeric(col_a_np),
+                    device="cuda"),
+        "fse"))
+    fbuf, lane_base, bitlen, state0, table, f_rem, _n, _stype = fse
+    f_planes = ops.fse_decode(fbuf, lane_base, bitlen, state0, table, f_rem)
+    f_args = (fbuf, lane_base, bitlen, state0, table, f_rem)
+    err = max_abs_err([f_planes], [ref.fse_decode_lanes(*f_args)])
+    row("fse_decode", "src/repro_torch/csrc/fse.cu", "src/repro/kernels/fse.py:167",
+        err, cuda_ms(lambda: ops.fse_decode(*f_args), 10),
+        cuda_ms(lambda: ref.fse_decode_lanes(*f_args), 1),
+        fbuf.numel() + bitlen.numel() * (8 + 8 + 4) + table.numel() * 4 + f_planes.numel(),
+        f_planes.numel() * 8, None,
+        shape=f"{bitlen.numel()} lanes x {f_rem}",
+        latency_bound_ms=f_rem * STEP_CYCLES / sm_hz * 1e3)
+
+    # K4 byte unshuffle: column A's and B's planes, and both decoders' lanes
+    shapes = {
+        "(8, 2^23)": ops.byteshuffle(recs),
+        "(4, 2^24)": ops.byteshuffle(col_b.view(torch.uint8).view(-1, 4)),
+        f"{tuple(h_planes.shape)}": h_planes,
+        f"{tuple(f_planes.shape)}": f_planes,
+    }
+    err = max_abs_err([ops.byteunshuffle(p) for p in shapes.values()],
+                      [ref.byteunshuffle(p) for p in shapes.values()])
+    err = max(err, max_abs_err([ops.byteunshuffle(shapes["(8, 2^23)"])], [recs]))
+    if not torch.equal(ops.byteunshuffle(h_planes).reshape(-1)[:n_sym_a],
+                       ops.byteunshuffle(f_planes).reshape(-1)[:n_sym_a]):
+        fail("the Huffman and tANS decoders disagree on column A's planes")
+    planes_a = shapes["(8, 2^23)"]
+    other_ms = {k: cuda_ms(lambda p=p: ops.byteunshuffle(p), 10) for k, p in shapes.items()}
+    row("byteunshuffle", "src/repro_torch/csrc/byteshuffle.cu",
+        "src/repro/kernels/byteshuffle.py:36",
+        err, cuda_ms(lambda: ops.byteunshuffle(planes_a), 20),
+        cuda_ms(lambda: ref.byteunshuffle(planes_a), 20),
+        2 * COLUMN_BYTES, 0, cuda_ms(lambda: planes_a.t().contiguous(), 20),
+        ms_by_shape=other_ms)
+
+    # K16 lane refill on 65,536 cursors into column A's Huffman bitstream
+    rng = np.random.default_rng(seed)
+    cursors = torch.from_numpy(rng.integers(0, 8 * (stream_bytes - 16), 1 << 16)).to(dev)
+    err = max_abs_err([ops.lane_refill(buf, cursors)], [ref.lane_refill(buf, cursors)])
+    row("lane_refill", "src/repro_torch/csrc/lane_refill.cu",
+        "src/repro/kernels/lane_refill.py:39",
+        err, cuda_ms(lambda: ops.lane_refill(buf, cursors), 20),
+        cuda_ms(lambda: ref.lane_refill(buf, cursors), 20),
+        cursors.numel() * (8 + 5 + 4), cursors.numel() * 8, None,
+        runs_inside=["huffman_decode", "fse_decode"])
+
     for r in rows:
         if r["max_abs_err"] != 0:
             fail(f"kernel {r['name']} disagrees with its plain version")
     return rows
 
 
+def node_streams(frame: bytes, codec: str):
+    """The stored output streams (on the card) and the header of a frame's
+    node of ``codec``."""
+    from repro_torch.core.codec import get_codec_by_id
+    from repro_torch.core.wire import read_frame
+
+    _version, n_inputs, nodes, stored = read_frame(frame, "cuda")
+    first = n_inputs
+    for node in nodes:
+        if get_codec_by_id(node.codec_id).name == codec:
+            return [stored[e] for e in range(first, first + node.n_out)], node.header
+        first += node.n_out
+    fail(f"the frame has no {codec} node")
+
+
 def main_path(cols, rt, ops):
     """The three plans on both columns through the port's entry points."""
     import torch
 
-    plans = {
-        "numeric_l5": rt.numeric_profile(),
-        "delta+transpose+huffman": rt.pipeline("delta", "transpose", "huffman"),
-        "delta+transpose+fse": rt.pipeline("delta", "transpose", "fse"),
-    }
+    plans = {name: make(rt) for name, make in PLANS.items()}
     # warm the allocator, the kernels and PyTorch's lazily loaded modules on
     # small prefixes, outside the counted and timed run
     for col in cols.values():
@@ -210,12 +322,12 @@ def main_path(cols, rt, ops):
                   f" compress_MBps={col.nbytes / dt / 1e6} seconds={dt}")
     launches = ops.launch_counts()
     print(f"main launches {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ENCODE_KERNELS if launches[k] == 0]
     if missing:
         fail(f"the main path never launched {missing}")
     for (cname, pname), frame in frames.items():
         col = cols[cname]
-        (out,) = rt.decompress(frame)
+        (out,) = rt.decompress(frame, device="cuda")
         if out.content_bytes() != col.tobytes():
             fail(f"{cname} {pname}: decompress did not return the column")
         prefix = col[: PREFIX_BYTES // col.itemsize]
@@ -225,6 +337,40 @@ def main_path(cols, rt, ops):
             fail(f"{cname} {pname}: the card's 4 MiB frame differs from the CPU's")
         print(f"check {cname} {pname}: roundtrip ok, 4 MiB card frame == cpu frame"
               f" ({len(on_card)} bytes)")
+    return launches, frames
+
+
+def decode_phase(cols, frames, rt, ops):
+    """Every frame of the main path through the card's universal decoder."""
+    import torch
+
+    # warm the decoders, their table caches and the kernels on small frames,
+    # outside the counted and timed run
+    for (cname, pname), _ in frames.items():
+        prefix = cols[cname][: (1 << 16) // cols[cname].itemsize]
+        frame = rt.compress(PLANS[pname](rt), rt.numeric(prefix), device="cuda")
+        rt.decompress(frame, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    results = []
+    for (cname, pname), frame in frames.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (out,) = rt.decompress(frame, device="cuda")
+        torch.cuda.synchronize()
+        results.append((cname, pname, out, time.perf_counter() - t0))
+    launches = ops.launch_counts()
+    print(f"decode launches {json.dumps(launches)}")
+    for cname, pname, out, dt in results:
+        col = cols[cname]
+        want = rt.numeric(col).data.to("cuda")
+        if out.data.device.type != "cuda" or not torch.equal(out.data, want):
+            fail(f"{cname} {pname}: decompress on the card did not return the column")
+        print(f"decode {cname} {pname}: decompress_MBps={col.nbytes / dt / 1e6} seconds={dt}"
+              f" output on {out.data.device}, equal to the column on the card")
+    missing = [k for k in DECODE_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"the decode path never launched {missing}")
     return launches
 
 
@@ -236,10 +382,23 @@ def frame_codecs(rt, frame: bytes) -> str:
     return "+".join(get_codec_by_id(node.codec_id).name for node in read_frame(frame)[2])
 
 
-def profile_phase(cols, rt) -> None:
-    """Where one compress call's time goes: the card's busy time from
-    ``torch.profiler`` (its kernels, by name) and the host's time from
-    ``cProfile`` (its functions, by cumulative time)."""
+def profile_phase(cols, frames, rt) -> None:
+    """Where one compress and one decompress call's time goes: the card's busy
+    time from ``torch.profiler`` (its kernels, by name) and the host's time
+    from ``cProfile`` (its functions, by cumulative time)."""
+    plans = {name: make(rt) for name, make in PLANS.items()}
+    for cname, col in cols.items():
+        for pname, plan in plans.items():
+            stream = rt.numeric(col)
+            codecs = frame_codecs(rt, frames[cname, pname])
+            profile_call(f"{cname} {pname} [{codecs}]",
+                         lambda: rt.compress(plan, stream, device="cuda"))
+            frame = frames[cname, pname]
+            profile_call(f"decompress {cname} {pname} [{codecs}]",
+                         lambda: rt.decompress(frame, device="cuda"))
+
+
+def profile_call(label: str, fn) -> None:
     import cProfile
     import pstats
 
@@ -247,44 +406,46 @@ def profile_phase(cols, rt) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    plans = {
-        "numeric_l5": rt.numeric_profile(),
-        "delta+transpose+huffman": rt.pipeline("delta", "transpose", "huffman"),
-        "delta+transpose+fse": rt.pipeline("delta", "transpose", "fse"),
-    }
-    for cname, col in cols.items():
-        for pname, plan in plans.items():
-            stream = rt.numeric(col)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                frame = rt.compress(plan, stream, device="cuda")
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            # kernels and copies as the card ran them (op-level rows would
-            # count the same time twice; the buffer request is the tracer's own)
-            dev = [
-                (e.self_device_time_total / 1e3, e.key[:48])
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.key != "Activity Buffer Request"
-            ]
-            busy_ms = sum(ms for ms, _ in dev)
-            top = ", ".join(f"{k}={ms:.3f}" for ms, k in sorted(dev, reverse=True)[:5])
-            print(f"profile {cname} {pname} [{frame_codecs(rt, frame)}]: wall_ms={wall_ms}"
-                  f" device_busy_ms={busy_ms} idle_share={1 - busy_ms / wall_ms}"
-                  f" top_device_ms: {top}")
-            host = cProfile.Profile()
-            host.enable()
-            rt.compress(plan, stream, device="cuda")
-            torch.cuda.synchronize()
-            host.disable()
-            stats = pstats.Stats(host).stats  # (file, line, name) -> (cc, nc, tottime, cumtime, ..)
-            rows = sorted(
-                ((v[2] * 1e3, f"{os.path.basename(k[0])}:{k[2]}") for k, v in stats.items()),
-                reverse=True,
-            )
-            print(f"profile {cname} {pname} host_self_ms: "
-                  + ", ".join(f"{name}={ms:.1f}" for ms, name in rows[:8]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels and copies as the card ran them (op-level rows would count the
+    # same time twice; the buffer request is the tracer's own)
+    dev = [
+        (e.self_device_time_total / 1e3, e.key[:48])
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.key != "Activity Buffer Request"
+    ]
+    busy_ms = sum(ms for ms, _ in dev)
+    top = ", ".join(f"{k}={ms:.3f}" for ms, k in sorted(dev, reverse=True)[:5])
+    print(f"profile {label}: wall_ms={wall_ms} device_busy_ms={busy_ms}"
+          f" idle_share={1 - busy_ms / wall_ms} top_device_ms: {top}")
+    host = cProfile.Profile()
+    host.enable()
+    fn()
+    torch.cuda.synchronize()
+    host.disable()
+    stats = pstats.Stats(host).stats  # (file, line, name) -> (cc, nc, tottime, cumtime, ..)
+    rows = sorted(
+        ((v[2] * 1e3, f"{os.path.basename(k[0])}:{k[2]}") for k, v in stats.items()),
+        reverse=True,
+    )
+    print(f"profile {label} host_self_ms: "
+          + ", ".join(f"{name}={ms:.1f}" for ms, name in rows[:8]))
+
+
+def nvidia_smi(query: str) -> str:
+    """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
+    smi = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def main() -> None:
@@ -309,23 +470,23 @@ def main() -> None:
             if "registers" in line or line.startswith("=="):
                 print(f"build {line.strip()}")
 
+    max_sm = nvidia_smi("clocks.max.sm")
+    sm_hz = float(max_sm.split()[0]) * 1e6
+    print(f"card max SM clock {max_sm}")
+
     t0 = time.perf_counter()
     cols = columns(args.seed)
     print(f"data seconds={time.perf_counter() - t0} seed={args.seed}")
-    rows = kernel_phase(cols, ops, ref, entropy)
-    launches = main_path(cols, rt, ops)
+    rows = kernel_phase(cols, rt, ops, ref, entropy, args.seed, sm_hz)
+    launches, frames = main_path(cols, rt, ops)
+    launches.update({k: v for k, v in decode_phase(cols, frames, rt, ops).items()
+                     if k not in ENCODE_KERNELS})
     for r in rows:
         r["launches"] = launches[r["name"]]
-    profile_phase(cols, rt)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    profile_phase(cols, frames, rt)
+    identity = nvidia_smi("name,power.limit")
     print(json.dumps({"kernels": rows}))
-    print(smi.stdout.strip().splitlines()[0])
+    print(identity)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,4 +1,4 @@
-"""repro_torch — the PyTorch/CUDA port of ``repro``'s compression path.
+"""repro_torch — the PyTorch/CUDA port of ``repro``'s compressor and decoder.
 
 A separate package beside the JAX reference: it keeps its own copy of the
 wire format, engine, codecs and coder-table builders, and imports nothing of
@@ -9,11 +9,14 @@ Entry points::
     from repro_torch import compress, decompress, numeric, numeric_profile
     frame = compress(numeric_profile(), numeric(column))        # on the card
     frame = compress(numeric_profile(), numeric(column), device="cpu")
-    (out,) = decompress(frame)
+    (out,) = decompress(frame)                   # on the card; out.data is a CUDA tensor
+    (out,) = decompress(frame, device="cpu")
 
-On the card every codec that had a TPU kernel in the reference launches a
-hand-written CUDA kernel (``repro_torch.kernels.ops``); with ``device="cpu"``
-the same codecs take the kernels' plain PyTorch versions.
+Both entry points run on the card unless the caller names the CPU, and
+raise without a card.  On the card every codec whose encoder or decoder had
+a TPU kernel in the reference launches a hand-written CUDA kernel
+(``repro_torch.kernels.ops``); with ``device="cpu"`` the same codecs take
+the kernels' plain PyTorch versions.
 """
 from .codecs.profiles import numeric_profile  # noqa: F401
 from .core import (  # noqa: F401

@@ -1,6 +1,7 @@
 """The port's codec and selector suite.  Importing this package registers
-every codec of the slice (wire-stable ids, the reference's) and its
-selectors.
+every codec of the port (wire-stable ids, the reference's) and its
+selectors.  Each codec encodes and decodes on the device its streams lie
+on.
 
 Codec ids in this slice:
    1 store   3 delta   4 zigzag   5 transpose   9 tokenize

@@ -1,7 +1,9 @@
 """Shared helpers for codec implementations: header packing, stream views.
 
-The port's copy of ``repro.codecs._util``'s header reader and writer.  Stream payloads are tensors, so the helpers that build or view
-streams work on tensors and keep them on their device.
+The port's copy of ``repro.codecs._util``'s header reader and writer.
+Stream payloads are tensors, so the helpers that build or view streams work
+on tensors and keep them on their device; decoders build their results on
+the device their inputs lie on.
 """
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from ..core.message import CARRIER, Stream, SType, from_wire
+from ..core.message import CARRIER, Stream, SType
 from ..core.wire import read_varint, write_varint
 
 
@@ -73,13 +75,11 @@ def fixed_records(s: Stream) -> Tuple[torch.Tensor, int]:
 
 
 def rebuild_like(template_stype: SType, width: int, raw: torch.Tensor) -> Stream:
-    """Rebuild a stream of (stype, width) from raw little-endian uint8 bytes."""
+    """Rebuild a stream of (stype, width) from raw little-endian uint8 bytes,
+    on the device ``raw`` lies on."""
     raw = raw.reshape(-1).contiguous()
     if template_stype == SType.NUMERIC:
+        if width not in CARRIER or raw.numel() % width:
+            raise ValueError(f"numeric({width}) payload of {raw.numel()} bytes")
         return Stream(raw.view(CARRIER[width]), template_stype, width).validate()
     return Stream(raw, template_stype, width).validate()
-
-
-def host_stream(stype: SType, width: int, payload: bytes) -> Stream:
-    """A decoder's result: a host stream rebuilt from little-endian bytes."""
-    return from_wire(stype, width, payload, None)

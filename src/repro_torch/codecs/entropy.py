@@ -26,18 +26,13 @@ import numpy as np
 import torch
 
 from ..core.codec import CodecSpec, register_codec
-from ..core.message import Stream, SType, narrow_unsigned
+from ..core.message import Stream, SType, narrow_unsigned, widen_unsigned
 from ..kernels import ops, ref
-from ._util import HeaderReader, HeaderWriter, host_stream, numeric_stream
+from ._util import HeaderReader, HeaderWriter, numeric_stream, rebuild_like
 
 BLOCK_LOG = 12  # 4096 symbols per Huffman lane-block
 MAX_CODE_LEN = 15
 FSE_BLOCK_LOG = 10  # 1024 symbols per tANS lane (fixed by the wire)
-_DEC_GROUP_BYTES = 1 << 22  # decoded bytes per lane-decoder group
-
-_U64_1 = np.uint64(1)
-_U64_7 = np.uint64(7)
-_U64_3 = np.uint64(3)
 
 
 # --------------------------------------------------------------- table cache
@@ -59,6 +54,14 @@ def _cached(key: tuple, build: Callable[[], object]):
         while len(_TABLES) > _TABLES_MAX:
             _TABLES.popitem(last=False)
     return value
+
+
+def _on_device(key: tuple, build: Callable[[], torch.Tensor], device: torch.device):
+    """A cached host table, and its copy on ``device`` (cached as well)."""
+    host = _cached(key, build)
+    if device.type == "cpu":
+        return host
+    return _cached(key + (str(device),), lambda: host.to(device))
 
 
 def _freeze(*arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
@@ -205,7 +208,23 @@ def _huffman_enc(streams, params):
     return [Stream(packed, SType.SERIAL, 1), numeric_stream(block_offs)], h.done()
 
 
-def _huffman_dec(outs, header):
+def _lane_symbols(planes: torch.Tensor, n: int, stype: SType) -> Stream:
+    """(max_rem, n_lanes) decoded lanes -> the stream of their first n symbols.
+
+    K4 lays the lanes back to back; every lane but the last is full, so the
+    symbols are the first n bytes.
+    """
+    records = ops.byteunshuffle(planes)
+    return rebuild_like(stype, 1, records.reshape(-1)[:n])
+
+
+def huffman_lanes(outs, header):
+    """A huffman node's K15 inputs on its streams' device.
+
+    Returns (buf, pos, lut, max_rem, n, stype): the bitstream padded with
+    16 + (15 * max_rem + 7) // 8 zero bytes, the lanes' int64 first bits, the
+    packed decode LUT, the longest lane, the symbol count and the stream type.
+    """
     bitstream, block_offs_s = outs
     r = HeaderReader(header)
     n = r.varint()
@@ -213,69 +232,42 @@ def _huffman_dec(outs, header):
     stype_tag = r.u8()
     nib_raw = bytes(r.bytes_())
     r.expect_end()
-    nib = np.frombuffer(nib_raw, dtype=np.uint8)
-    lens = np.zeros(256, dtype=np.uint8)
-    lens[0::2] = nib & 0xF
-    lens[1::2] = nib >> 4
-    lut_sym, lut_len = _cached(("huff_dec", nib_raw), lambda: _huffman_decode_lut(lens))
-    data = bitstream.numpy()
+    if len(nib_raw) != 128:
+        raise ValueError("huffman: the header holds 256 nibble-packed code lengths")
+    if (block_offs_s.stype, block_offs_s.width) != (SType.NUMERIC, 8):
+        raise ValueError("huffman: block offsets are a numeric(8) stream")
 
+    def build():
+        nib = np.frombuffer(nib_raw, dtype=np.uint8)
+        lens = np.zeros(256, dtype=np.uint8)
+        lens[0::2] = nib & 0xF
+        lens[1::2] = nib >> 4
+        lut_sym, lut_len = _huffman_decode_lut(lens)
+        return ref.pack_huffman_lut(torch.from_numpy(lut_sym.copy()), torch.from_numpy(lut_len.copy()))
+
+    data = bitstream.raw()
+    dev = data.device
+    lut = _on_device(("huff_dec", nib_raw), build, dev)
     block = 1 << block_log
     n_blocks = (n + block - 1) // block
-    pos_all = block_offs_s.numpy().astype(np.uint64).copy()
-    if pos_all.size != n_blocks:
+    pos = block_offs_s.data
+    if pos.numel() != n_blocks:
         raise ValueError("huffman: block offset count mismatch")
-    rem = np.minimum(n - np.arange(n_blocks, dtype=np.int64) * block, block)
-    max_rem = int(rem.max()) if n_blocks else 0
-    # mask-free loop: exhausted lanes keep decoding zero bits from the pad
-    # region (never OOB; the pad absorbs <= 15 bits/symbol of overrun) and
-    # their surplus columns are trimmed at concatenation.
+    # fail closed on a lane that starts outside its bitstream (one scalar sync)
+    if n_blocks and not bool(((pos >= 0) & (pos <= 8 * data.numel())).all()):
+        raise ValueError("huffman: a block offset lies past the bitstream")
+    max_rem = min(n, block)
+    # exhausted lanes decode the pad's zero bits (<= 15 bits per symbol of
+    # overrun, never out of bounds); their surplus rows are trimmed
     pad = 16 + ((MAX_CODE_LEN * max_rem + 7) >> 3)
-    buf = np.zeros(data.size + pad, dtype=np.uint8)
-    buf[: data.size] = data
-    sliding = np.lib.stride_tricks.sliding_window_view(buf, 8)
-    out = np.empty((block, n_blocks), dtype=np.uint8)  # row-major hot stores
-    low_mask = np.uint64((1 << MAX_CODE_LEN) - 1)
-    G = max(1, _DEC_GROUP_BYTES // block)
-    for g0 in range(0, n_blocks, G):
-        g1 = min(g0 + G, n_blocks)
-        pos = pos_all[g0:g1].copy()
-        max_rem_g = int(rem[g0:g1].max())
-        i = 0
-        while i < max_rem_g:
-            # one gather refills >= 57 valid bits -> up to 3 symbols/refill
-            w = sliding[(pos >> _U64_3)].view(np.uint64)[:, 0]
-            w >>= pos & _U64_7
-            low = w & low_mask
-            ln = lut_len[low]
-            out[i, g0:g1] = lut_sym[low]
-            if i + 1 < max_rem_g:
-                w >>= ln
-                low = w & low_mask
-                l2 = lut_len[low]
-                out[i + 1, g0:g1] = lut_sym[low]
-                ln += l2
-                if i + 2 < max_rem_g:
-                    w >>= l2
-                    low = w & low_mask
-                    out[i + 2, g0:g1] = lut_sym[low]
-                    ln += lut_len[low]
-                    pos += ln
-                    i += 3
-                    continue
-                pos += ln
-                i += 2
-                continue
-            pos += ln
-            i += 1
-    if n_blocks:
-        lanes = out.T  # (n_blocks, block); full lanes except possibly the last
-        result = np.concatenate(
-            [np.ascontiguousarray(lanes[:-1]).reshape(-1), lanes[-1, : rem[-1]]]
-        )
-    else:
-        result = np.zeros(0, np.uint8)
-    return [host_stream(SType(stype_tag), 1, result.tobytes())]
+    buf = torch.zeros(data.numel() + pad, dtype=torch.uint8, device=dev)
+    buf[: data.numel()] = data
+    return buf, pos, lut, max_rem, n, SType(stype_tag)
+
+
+def _huffman_dec(outs, header):
+    buf, pos, lut, max_rem, n, stype = huffman_lanes(outs, header)
+    return [_lane_symbols(ops.huffman_decode(buf, pos, lut, max_rem), n, stype)]
 
 
 register_codec(
@@ -286,7 +278,7 @@ register_codec(
         decode=_huffman_dec,
         n_outputs=2,
         min_version=2,
-        doc="canonical Huffman, lane-blocked for parallel decode (kernel K14)",
+        doc="canonical Huffman, lane-blocked for parallel decode (kernels K14, K15, K4)",
     )
 )
 
@@ -426,8 +418,8 @@ def _fse_enc(streams, params):
     return [Stream(stream_out, SType.SERIAL, 1), numeric_stream(narrow_unsigned(meta, 4))], header
 
 
-def _fse_dec(outs, header):
-    bitstream, meta_s = outs
+def _fse_dec_header(header):
+    """(n, block_log, table_log, stype, norm int64[256]) of an fse header."""
     r = HeaderReader(header)
     n = r.varint()
     block_log = r.u8()
@@ -435,58 +427,62 @@ def _fse_dec(outs, header):
     stype_tag = r.u8()
     tbl = HeaderReader(r.bytes_())
     r.expect_end()
-    if n == 0:
-        return [host_stream(SType(stype_tag), 1, b"")]
     norm = np.zeros(256, dtype=np.int64)
-    for _ in range(tbl.varint()):
-        s = tbl.varint()
-        norm[s] = tbl.varint()
-    dec_sym, dec_nb, dec_base, _enc, _nb0, _thr, _st0 = _fse_tables_cached(norm, table_log)
+    if n:
+        for _ in range(tbl.varint()):
+            s = tbl.varint()
+            norm[s] = tbl.varint()
+    return n, block_log, table_log, SType(stype_tag), norm
 
+
+def fse_lanes(outs, header):
+    """An fse node's K10 inputs on its streams' device (for n > 0).
+
+    Returns (buf, lane_base, bitlen, state0, table, max_rem, n, stype): the
+    concatenated lane bitstreams padded by 8 zero bytes, each lane's int64
+    byte offset (the exclusive sum of (bitlen + 7) // 8) and bit length, its
+    int32 final encoder state, the packed decode table, the longest lane,
+    the symbol count and the stream type.
+    """
+    bitstream, meta_s = outs
+    n, block_log, table_log, stype, norm = _fse_dec_header(header)
+    if (meta_s.stype, meta_s.width) != (SType.NUMERIC, 4):
+        raise ValueError("fse: block meta is a numeric(4) stream")
+    if not 1 <= table_log <= ref.FSE_MAX_DECODE_TABLE_LOG:
+        raise ValueError(f"fse: table_log {table_log} is outside 1..{ref.FSE_MAX_DECODE_TABLE_LOG}")
+
+    def build():
+        dec_sym, dec_nb, dec_base, *_ = _fse_tables_cached(norm, table_log)
+        return ref.pack_fse_table(*(torch.from_numpy(a.copy()) for a in (dec_sym, dec_nb, dec_base)))
+
+    data = bitstream.raw()
+    dev = data.device
+    table = _on_device(("fse_dec", norm.tobytes(), table_log), build, dev)
     block = 1 << block_log
     n_blocks = (n + block - 1) // block
-    meta = meta_s.numpy().astype(np.int64)
-    bitlen = meta[0::2]
-    state_all = meta[1::2]
-    nbytes = (bitlen + 7) // 8
-    offsets = np.zeros(n_blocks + 1, dtype=np.int64)
-    np.cumsum(nbytes, out=offsets[1:])
-    # per-lane padded buffers for vectorized backward reads, filled with one
-    # ragged scatter
-    cap = int(nbytes.max()) + 16 if n_blocks else 16
-    bitbuf = np.zeros((n_blocks, cap), dtype=np.uint8)
-    flat = bitbuf.reshape(-1)
-    lane_base = np.arange(n_blocks, dtype=np.int64) * cap
-    total_bytes = int(offsets[-1])
-    intra = np.arange(total_bytes, dtype=np.int64) - np.repeat(offsets[:-1], nbytes)
-    flat[np.repeat(lane_base, nbytes) + intra] = bitstream.numpy()
-    sliding = np.lib.stride_tricks.sliding_window_view(flat, 8)
-    rem = np.minimum(n - np.arange(n_blocks, dtype=np.int64) * block, block)
-    out = np.empty((block, n_blocks), dtype=np.uint8)
-    # mask-free: exhausted lanes walk garbage states over the zero pad —
-    # always in-table (base+bits stays in [0, total)), trimmed at the end.
-    G = max(1, _DEC_GROUP_BYTES // block)
-    for g0 in range(0, n_blocks, G):
-        g1 = min(g0 + G, n_blocks)
-        state = state_all[g0:g1].copy()
-        cursor = bitlen[g0:g1].copy()  # read backward from the end
-        lb = lane_base[g0:g1]
-        for i in range(int(rem[g0:g1].max())):
-            out[i, g0:g1] = dec_sym[state]
-            nb = dec_nb[state]
-            base = dec_base[state]
-            cursor -= nb
-            byte0 = np.maximum(cursor >> 3, 0)
-            w = sliding[lb + byte0].view(np.uint64)[:, 0]
-            bits = (w >> (cursor & 7).astype(np.uint64)) & (
-                (_U64_1 << nb.astype(np.uint64)) - _U64_1
-            )
-            state = base + bits.astype(np.int64)
-    lanes = out.T
-    result = np.concatenate(
-        [np.ascontiguousarray(lanes[:-1]).reshape(-1), lanes[-1, : rem[-1]]]
-    )
-    return [host_stream(SType(stype_tag), 1, result.tobytes())]
+    if meta_s.data.numel() != 2 * n_blocks:
+        raise ValueError("fse: block meta count mismatch")
+    meta = widen_unsigned(meta_s.data).view(n_blocks, 2)
+    bitlen = meta[:, 0].contiguous()
+    lane_base = ref.exclusive_offsets((bitlen + 7) >> 3)
+    # fail closed unless the lanes tile the bitstream and every state lies
+    # in the table (one scalar sync)
+    ok = (lane_base[-1] == data.numel()) & (meta[:, 1] < table.numel()).all()
+    if not bool(ok):
+        raise ValueError("fse: block meta does not match the bitstream or the table")
+    buf = torch.zeros(data.numel() + 8, dtype=torch.uint8, device=dev)
+    buf[: data.numel()] = data
+    state0 = meta[:, 1].to(torch.int32)
+    return buf, lane_base[:-1], bitlen, state0, table, min(n, block), n, stype
+
+
+def _fse_dec(outs, header):
+    n, _block_log, _table_log, stype, _norm = _fse_dec_header(header)
+    if n == 0:
+        return [rebuild_like(stype, 1, outs[0].raw()[:0])]
+    buf, lane_base, bitlen, state0, table, max_rem, n, stype = fse_lanes(outs, header)
+    planes = ops.fse_decode(buf, lane_base, bitlen, state0, table, max_rem)
+    return [_lane_symbols(planes, n, stype)]
 
 
 register_codec(
@@ -497,6 +493,6 @@ register_codec(
         decode=_fse_dec,
         n_outputs=2,
         min_version=2,
-        doc="tANS (FSE), lane-blocked (kernels K3 + K9)",
+        doc="tANS (FSE), lane-blocked (kernels K3 + K9, K10 + K4)",
     )
 )

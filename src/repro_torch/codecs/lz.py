@@ -2,7 +2,9 @@
 
 The port's copy of ``repro.codecs.lz``'s zlib backend.  zlib is a host
 library, so this codec copies its input to the host, and returns the
-compressed bytes on the input's device like every other codec.  The LZ77
+compressed bytes on the input's device like every other codec; its decoder
+likewise inflates on the host and returns the stream on its input's device.
+It is the one decoder that leaves the device.  The LZ77
 coder and the lzma/bz2 leaves are not in this slice.
 """
 from __future__ import annotations
@@ -13,8 +15,8 @@ import numpy as np
 import torch
 
 from ..core.codec import CodecSpec, register_codec
-from ..core.message import Stream, SType
-from ._util import HeaderReader, HeaderWriter, host_stream
+from ..core.message import Stream, SType, from_wire
+from ._util import HeaderReader, HeaderWriter
 
 
 def _zlib_enc(streams, params):
@@ -33,7 +35,8 @@ def _zlib_dec(outs, header):
     stype = SType(r.u8())
     width = r.varint()
     r.expect_end()
-    return [host_stream(stype, width, zlib.decompress(outs[0].content_bytes()))]
+    payload = zlib.decompress(outs[0].content_bytes())
+    return [from_wire(stype, width, payload, None, outs[0].device)]
 
 
 register_codec(

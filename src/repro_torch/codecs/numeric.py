@@ -4,8 +4,10 @@ The port's copy of the slice's codecs from ``repro.codecs.numeric``: same
 codec ids, same headers, same output streams.  Encoders are PyTorch on the
 device the stream lives on — ``delta`` and ``transpose`` through their
 kernels (``kernels/ops.py``), the others as plain tensor ops, since the
-reference ran them on the host and they had no TPU kernel.  Decoders are the
-reference's numpy decoders.
+reference ran them on the host and they had no TPU kernel.  Decoders run
+the same way on the device their input lies on: ``delta`` through K2,
+``transpose`` through K4, ``zigzag``, ``range_pack`` and ``tokenize`` as
+tensor ops (the unsigned helpers, a byte gather with shifts, a row gather).
 
 Unsigned semantics on signed carriers: values are widened to int64 (widths
 1, 2, 4) or handled as 64-bit patterns in 32-bit halves (width 8), so no
@@ -13,14 +15,12 @@ result relies on signed overflow.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..core.codec import CodecSpec, register_codec
 from ..core.message import (
     Stream,
     SType,
-    UNSIGNED_NP,
     join_u32,
     narrow_unsigned,
     sub_u64,
@@ -31,7 +31,6 @@ from ._util import (
     HeaderReader,
     HeaderWriter,
     fixed_records,
-    host_stream,
     numeric_stream,
     rebuild_like,
 )
@@ -44,10 +43,6 @@ def _require_numeric(s: Stream, op: str) -> torch.Tensor:
     if s.stype != SType.NUMERIC:
         raise ValueError(f"{op}: numeric streams only, got {s.stype.name}")
     return s.data
-
-
-def _host_numeric(arr: np.ndarray) -> Stream:
-    return host_stream(SType.NUMERIC, arr.dtype.itemsize, np.ascontiguousarray(arr).tobytes())
 
 
 def _unsigned_min(u: torch.Tensor) -> int:
@@ -67,10 +62,8 @@ def _delta_enc(streams, params):
 
 
 def _delta_dec(outs, header):
-    d = outs[0].numpy()
-    with np.errstate(over="ignore"):
-        x = np.cumsum(d, dtype=d.dtype)
-    return [_host_numeric(x)]
+    d = _require_numeric(outs[0], "delta")
+    return [numeric_stream(ops.delta_decode(d))]
 
 
 register_codec(
@@ -79,7 +72,7 @@ register_codec(
         codec_id=3,
         encode=_delta_enc,
         decode=_delta_dec,
-        doc="wrapping first-difference on the unsigned view (kernel K1)",
+        doc="wrapping first-difference on the unsigned view (kernels K1, K2)",
     )
 )
 
@@ -99,10 +92,13 @@ def _zigzag_enc(streams, params):
 
 
 def _zigzag_dec(outs, header):
-    u = outs[0].numpy()
-    one = u.dtype.type(1)
-    x = (u >> one) ^ (np.zeros_like(u) - (u & one))
-    return [_host_numeric(x)]
+    s = outs[0]
+    t = _require_numeric(s, "zigzag")
+    if s.width == 8:
+        # logical shift of the 64-bit pattern, xor the sign mask (0 or ~0)
+        return [numeric_stream(((t >> 1) & ~_SIGN) ^ -(t & 1))]
+    u = widen_unsigned(t)
+    return [numeric_stream(narrow_unsigned((u >> 1) ^ -(u & 1), s.width))]
 
 
 register_codec(
@@ -132,10 +128,11 @@ def _transpose_dec(outs, header):
     stype = SType(r.u8())
     w = r.varint()
     r.expect_end()
-    planes = outs[0].numpy()
-    n = planes.size // w
-    raw = np.ascontiguousarray(planes.reshape(w, n).T).reshape(-1)
-    return [host_stream(stype, w, raw.tobytes())]
+    planes = outs[0].raw()
+    if w < 1 or planes.numel() % w:
+        raise ValueError(f"transpose: {planes.numel()} plane bytes for width {w}")
+    records = ops.byteunshuffle(planes.view(w, planes.numel() // w))
+    return [rebuild_like(stype, w, records)]
 
 
 register_codec(
@@ -144,7 +141,7 @@ register_codec(
         codec_id=5,
         encode=_transpose_enc,
         decode=_transpose_dec,
-        doc="byte-plane shuffle (Blosc-style) (kernel K3)",
+        doc="byte-plane shuffle (Blosc-style) (kernels K3, K4)",
     )
 )
 
@@ -174,17 +171,29 @@ def _pack_bits(vals: torch.Tensor, bits: int) -> torch.Tensor:
     return out[:nbytes].to(torch.uint8)
 
 
-def _unpack_bits(buf: np.ndarray, bits: int, n: int, out_width: int) -> np.ndarray:
-    padded = np.zeros(buf.size + 8, dtype=np.uint8)
-    padded[: buf.size] = buf
-    offs = np.arange(n, dtype=np.int64) * bits
-    byte0 = offs >> 3
-    # gather 8 consecutive bytes -> u64 window, shift, mask
-    gathered = np.zeros(n, dtype=np.uint64)
-    for b in range(8):
-        gathered |= padded[byte0 + b].astype(np.uint64) << np.uint64(8 * b)
-    vals = (gathered >> (offs & 7).astype(np.uint64)) & np.uint64((1 << bits) - 1)
-    return vals.astype(UNSIGNED_NP[out_width])
+def _unpack_bits(buf: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """Unpack n LSB-first values of ``bits`` <= 57 bits -> int64, on buf's device.
+
+    A value starts at bit r < 8 of byte ``offs >> 3`` and ends below bit 64,
+    so the eight bytes from there hold it.  They are gathered as two 32-bit
+    halves; the high half contributes only the value's bits above 32 - r, so
+    no intermediate leaves int64.
+    """
+    if bits > 57:
+        raise ValueError(f"range_pack: {bits} bits per value (at most 57)")
+    if buf.numel() < (n * bits + 7) // 8:
+        raise ValueError("range_pack: packed payload shorter than its values")
+    padded = torch.zeros(buf.numel() + 8, dtype=torch.uint8, device=buf.device)
+    padded[: buf.numel()] = buf
+    offs = torch.arange(n, dtype=torch.int64, device=buf.device) * bits
+    byte0, r = offs >> 3, offs & 7
+    half = [
+        sum(padded[byte0 + 4 * h + k].to(torch.int64) << (8 * k) for k in range(4))
+        for h in (0, 1)
+    ]
+    hi_bits = (bits - 32 + r).clamp(min=0)
+    hi = (half[1] & ((1 << hi_bits) - 1)) << (32 - r)
+    return ((half[0] >> r) | hi) & ((1 << bits) - 1)
 
 
 def _range_pack_enc(streams, params):
@@ -207,9 +216,14 @@ def _range_pack_dec(outs, header):
     n = r.varint()
     lo = r.varint()
     r.expect_end()
-    vals = _unpack_bits(outs[0].numpy(), bits, n, 8)
-    vals = (vals + np.uint64(lo)).astype(UNSIGNED_NP[width])
-    return [_host_numeric(vals)]
+    if width not in (1, 2, 4, 8):
+        raise ValueError(f"range_pack: numeric width {width}")
+    vals = _unpack_bits(outs[0].raw(), bits, n)
+    if width == 8:  # (vals + lo) mod 2^64 in 32-bit halves
+        low = (vals & _M32) + (lo & _M32)
+        high = (vals >> 32) + ((lo >> 32) & _M32) + (low >> 32)
+        return [numeric_stream(join_u32(low & _M32, high & _M32))]
+    return [numeric_stream(narrow_unsigned(vals + (lo & ((1 << 8 * width) - 1)), width))]
 
 
 register_codec(
@@ -265,11 +279,11 @@ def _tokenize_dec(outs, header):
     r.expect_end()
     if is_string:
         raise ValueError("tokenize: string alphabets are not yet ported to repro_torch")
-    idx = indices.numpy().astype(np.int64)
-    w = alphabet.width if alphabet.stype != SType.SERIAL else 1
-    mat = np.frombuffer(alphabet.content_bytes(), dtype=np.uint8).reshape(-1, w)
-    out = np.ascontiguousarray(mat[idx]).reshape(-1)
-    return [host_stream(alphabet.stype, alphabet.width, out.tobytes())]
+    idx = widen_unsigned(_require_numeric(indices, "tokenize indices"))
+    mat, _w = fixed_records(alphabet)
+    if idx.numel() and int(idx.max()) >= mat.shape[0]:  # one scalar sync, fail closed
+        raise ValueError("tokenize: an index lies past the alphabet")
+    return [rebuild_like(alphabet.stype, alphabet.width, mat[idx])]
 
 
 register_codec(

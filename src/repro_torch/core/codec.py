@@ -8,7 +8,11 @@ There is one encoder per codec.  It runs on the device its input tensors
 live on: a codec with a kernel launches it for a CUDA tensor and takes the
 kernel's plain PyTorch version for a CPU tensor (see ``kernels/ops.py``).
 There is no per-backend twin registry and no silent fallback to the host.
-Decoders are host numpy, as the reference's universal decoder is.
+Decoders follow the same rule: a decoder takes its streams on one device
+and returns the regenerated streams on that device, launching the decode
+kernels for CUDA tensors and taking their plain versions for CPU tensors.
+Only the ``zlib_backend`` leaf goes through the host, since zlib is a host
+library.
 """
 from __future__ import annotations
 

@@ -11,9 +11,10 @@ Compression is split into:
     from codec to codec; on the card every codec with a kernel launches it.
 
 ``compress()`` composes the two on the device the caller names (the card by
-default).  ``decompress()`` is the universal decoder: parse the frame, run
-the numpy decoders in reverse topological order — no parameters, no
-selectors, no device.
+default).  ``decompress()`` is the universal decoder, on the card by default
+too: parse the frame on the host, copy each stored payload to the device
+once, and run every codec's decoder there in reverse topological order —
+no parameters and no selectors.
 
 Not in this slice: the delta+bitpack fusion pass (``bitpack`` is not ported,
 so no plan can ask for it) and chunked compression into multi-chunk
@@ -280,13 +281,20 @@ def compress(
     return execute(resolved, streams)
 
 
-def decompress(frame: bytes) -> List[Stream]:
-    """The universal decoder: frame -> regenerated inputs (host streams)."""
+def decompress(
+    frame: bytes, device: Union[str, torch.device, None] = "cuda"
+) -> List[Stream]:
+    """The universal decoder: frame -> regenerated inputs on ``device``.
+
+    The card unless the caller names the CPU; without a card, the default
+    raises.  The returned streams' tensors lie on that device.
+    """
+    dev = _device.resolve_device(device)
     if bytes(frame[:4]) == b"OZLC":
         raise wire.FrameError(
             "multi-chunk container frames are not yet ported to repro_torch"
         )
-    version, n_inputs, nodes, stored = wire.read_frame(frame)
+    version, n_inputs, nodes, stored = wire.read_frame(frame, dev)
     check_decode_version(version)
 
     edges: Dict[int, Stream] = dict(stored)

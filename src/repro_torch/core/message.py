@@ -15,6 +15,7 @@ reference's numpy code uses ``view(uint*)``.
 from __future__ import annotations
 
 import enum
+import warnings
 from dataclasses import dataclass, replace
 from typing import Optional, Union
 
@@ -242,12 +243,28 @@ def from_numpy(arr: np.ndarray, stype: SType, width: int) -> Stream:
 
 
 def from_wire(
-    stype: SType, width: int, payload: bytes, lengths: Optional[np.ndarray]
+    stype: SType,
+    width: int,
+    payload,
+    lengths: Optional[np.ndarray],
+    device: Union[str, torch.device] = "cpu",
 ) -> Stream:
-    """Rebuild a host stream from wire-format fields."""
-    raw = np.frombuffer(bytearray(payload), dtype=np.uint8)
-    if stype == SType.NUMERIC:
-        if width not in _NP_CARRIER or raw.size % width:
-            raise ValueError(f"numeric({width}) payload of {raw.size} bytes")
-        return from_numpy(raw, stype, width)
-    return Stream(torch.from_numpy(raw), stype, width, lengths).validate()
+    """Rebuild a stream of (stype, width) from wire bytes, on ``device``.
+
+    ``payload`` is any buffer (bytes, or a memoryview into a frame).  For the
+    CPU it is copied once into a private host tensor; for the card it goes
+    from the caller's buffer to the device in one host-to-card copy.
+    """
+    nbytes = memoryview(payload).nbytes
+    if stype == SType.NUMERIC and (width not in CARRIER or nbytes % width):
+        raise ValueError(f"numeric({width}) payload of {nbytes} bytes")
+    dev = torch.device(device)
+    if dev.type == "cpu" or nbytes == 0:
+        raw = torch.from_numpy(np.frombuffer(bytearray(payload), dtype=np.uint8)).to(dev)
+    else:
+        with warnings.catch_warnings():
+            # a read-only view of the frame, copied to the card at once
+            warnings.simplefilter("ignore", UserWarning)
+            raw = torch.frombuffer(payload, dtype=torch.uint8).to(dev)
+    data = raw.view(CARRIER[width]) if stype == SType.NUMERIC else raw
+    return Stream(data, stype, width, lengths).validate()

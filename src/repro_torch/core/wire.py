@@ -21,16 +21,19 @@ Frame layout (all varints LEB128, little-endian payloads):
     u32     crc32 of everything above
 
 Frames are byte-identical to the reference's.  This is where a stream's
-payload leaves the device: ``write_frame`` copies each stored stream to the
-host once.  Multi-chunk containers (``OZLC``) are not part of this slice.
+payload crosses between host and device: ``write_frame`` copies each stored
+stream to the host once, and ``read_frame`` parses a frame on the host and
+copies each stored payload to the decode device once.  Multi-chunk
+containers (``OZLC``) are not part of this slice.
 """
 from __future__ import annotations
 
 import struct as _struct
 import zlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from .message import Stream, SType, from_wire
 
@@ -110,8 +113,12 @@ def write_frame(
     return bytes(out)
 
 
-def read_frame(frame: bytes):
-    """Parse a frame -> (version, n_inputs, [ResolvedNode], {edge_id: Stream})."""
+def read_frame(frame: bytes, device: Union[str, torch.device] = "cpu"):
+    """Parse a frame -> (version, n_inputs, [ResolvedNode], {edge_id: Stream}).
+
+    The headers are parsed on the host; each stored stream's payload is
+    copied from the frame to ``device`` once.
+    """
     from .engine import ResolvedNode  # local import to avoid cycle
 
     if len(frame) < 9 or frame[:4] != MAGIC:
@@ -162,11 +169,11 @@ def read_frame(frame: bytes):
         plen, pos = read_varint(frame, pos)
         if pos + plen > len(body):
             raise FrameError("truncated stream payload")
-        payload = frame[pos : pos + plen]
+        payload = memoryview(frame)[pos : pos + plen]
         pos += plen
         if eid in stored:
             raise FrameError(f"edge {eid} stored twice")
-        stored[eid] = from_wire(stype, width, payload, lengths)
+        stored[eid] = from_wire(stype, width, payload, lengths, device)
     if pos != len(body):
         raise FrameError("trailing garbage in frame")
     return version, n_inputs, nodes, stored

@@ -20,3 +20,21 @@ static inline unsigned int repro_grid(long long n, int threads, long long cap) {
   if (blocks < 1) blocks = 1;
   return (unsigned int)blocks;
 }
+
+// K16's body: the LSB-first 32-bit window of `buf` at bit cursor `bitpos`.
+//
+// Reads the five bytes that straddle the cursor (the caller pads `buf` so
+// that five bytes past every cursor are readable) and stitches them as the
+// reference's lane_refill kernel does.  `(b4 << 1) << (31 - r)` is
+// b4 << (32 - r) written so that it stays defined at r == 0 (a shift by 32 of
+// a 32-bit value is undefined).  K15 (Huffman decode) and K10 (tANS decode)
+// call it for every refill; csrc/lane_refill.cu launches it on its own.
+__device__ __forceinline__ uint32_t refill32(const uint8_t* __restrict__ buf,
+                                             long long bitpos) {
+  const uint8_t* p = buf + (bitpos >> 3);
+  const uint32_t r = (uint32_t)(bitpos & 7);
+  const uint32_t lo = (uint32_t)p[0] | ((uint32_t)p[1] << 8) |
+                      ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
+  const uint32_t b4 = p[4];
+  return (lo >> r) | ((b4 << 1) << (31u - r));
+}

@@ -89,3 +89,69 @@ REPRO_API int repro_fse_encode(const void* lanesT, const void* rem, const void* 
       (int*)vals, (int*)nbs, (int*)state, max_rem, n_lanes, total, width);
   return (int)cudaGetLastError();
 }
+
+// K10 — tANS (FSE) decode: the forward state walk of every 1024-symbol lane,
+// reading the lane's bits backward from its end.
+//
+// Replaces the TPU kernel src/repro/kernels/fse.py, fse_decode_pallas
+// (_decode_kernel), which ran 256 lanes per grid step over per-lane padded
+// buffers built on the host, with int32 cursors.
+//
+// Per step a lane emits dec_sym[state], moves its cursor back by
+// nb = dec_nb[state] bits, takes the 32-bit window there (refill32, the K16
+// body in common.cuh) and steps to dec_base[state] + (window & (2^nb - 1)).
+// A cursor that falls below the lane's start reads the lane's first byte at
+// bit (cursor & 7), as the reference clamps it (max(cursor >> 3, 0)); only
+// the step after a lane's last symbol does that, and its state is unused.
+//
+// Bound: latency.  Each lane is a chain of 1024 dependent table steps.
+// Design: one thread per lane.  The three decode tables are packed into one
+// u32 per state (symbol | nb << 8 | base << 13) and held in dynamic shared
+// memory (8 KiB at table_log 11, 128 KiB at table_log 15, the most the
+// wrapper takes; above 48 KB the launch sets the attribute).  Lanes read the
+// concatenated wire bitstream at their own byte offsets (lane_base, the
+// exclusive sum of (bitlen + 7) / 8): every unmasked bit a step uses lies
+// inside its own lane, and the caller pads the tail by 8 bytes.  The output is
+// the (max_rem, n_lanes) plane layout, coalesced per step; K4 puts it back
+// into symbol order.
+__global__ void fse_decode_kernel(const uint8_t* __restrict__ buf,
+                                  const long long* __restrict__ lane_base,
+                                  const long long* __restrict__ bitlen,
+                                  const int* __restrict__ state0,
+                                  const uint32_t* __restrict__ table,
+                                  uint8_t* __restrict__ out, int max_rem,
+                                  long long n_lanes, int total) {
+  extern __shared__ uint32_t s_tab[];
+  for (int i = threadIdx.x; i < total; i += blockDim.x) s_tab[i] = table[i];
+  __syncthreads();
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n_lanes) return;
+  const uint8_t* lb = buf + lane_base[lane];
+  long long cursor = bitlen[lane];
+  uint32_t state = (uint32_t)state0[lane];
+  uint8_t* o = out + lane;
+  for (int i = 0; i < max_rem; ++i) {
+    const uint32_t e = s_tab[state];
+    o[(long long)i * n_lanes] = (uint8_t)e;
+    const uint32_t nb = (e >> 8) & 0x1Fu;
+    cursor -= nb;
+    const uint32_t win = refill32(lb, cursor >= 0 ? cursor : (cursor & 7));
+    state = (e >> 13) + (win & ((1u << nb) - 1u));
+  }
+}
+
+REPRO_API int repro_fse_decode(const void* buf, const void* lane_base, const void* bitlen,
+                               const void* state0, const void* table, void* out,
+                               int max_rem, long long n_lanes, int total, void* stream) {
+  const int threads = 128;
+  const size_t smem = (size_t)total * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      fse_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_lanes + threads - 1) / threads;
+  if (blocks < 1 || blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  fse_decode_kernel<<<(unsigned int)blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)buf, (const long long*)lane_base, (const long long*)bitlen,
+      (const int*)state0, (const uint32_t*)table, (uint8_t*)out, max_rem, n_lanes, total);
+  return (int)cudaGetLastError();
+}

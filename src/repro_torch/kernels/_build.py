@@ -3,7 +3,10 @@
 The sources in ``repro_torch/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` (Hopper) — one ``nvcc -c`` per source, all started together —
 and linked into one shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at first use, from the repository's sources
+``ctypes``.  Kernels that need more than 48 KB of shared memory (the tANS
+tables, the Huffman decode LUT) set ``cudaFuncAttributeMaxDynamicSharedMemorySize``
+in their C entry point before each launch, and every entry point returns
+``cudaGetLastError()``.  The build happens at first use, from the repository's sources
 alone, into ``build/`` at the repository root; the library's name carries a
 digest of the sources and flags, so an edited source builds anew and an
 unchanged one loads the existing file.  The library is staged under a
@@ -36,6 +39,11 @@ SIGNATURES = {
     "repro_byteshuffle": [_P, _P, _I64, _I64, _P],
     "repro_huffman_map": [_P, _P, _P, _P, _P, _I64, _P],
     "repro_fse_encode": [_P] * 11 + [_I32, _I64, _I32, _I32, _P],
+    "repro_delta_decode": [_P, _P, _P, _I64, _I32, _P],
+    "repro_byteunshuffle": [_P, _P, _I64, _I64, _P],
+    "repro_huffman_decode": [_P, _P, _P, _P, _I32, _I64, _P],
+    "repro_fse_decode": [_P] * 6 + [_I32, _I64, _I32, _P],
+    "repro_lane_refill": [_P, _P, _P, _I64, _P],
 }
 
 _lock = threading.Lock()

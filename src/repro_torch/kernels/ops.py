@@ -13,10 +13,18 @@ Kernels and the TPU kernels they replace:
   wrapper              TPU kernel (``src/repro/kernels``)
   ===================  ===========================================================
   ``delta_encode``     ``delta.py`` ``delta_encode_pallas`` (K1)
+  ``delta_decode``     ``delta.py`` ``delta_decode_pallas`` (K2)
   ``byteshuffle``      ``byteshuffle.py`` ``byteshuffle_pallas`` (K3)
-  ``huffman_map``      ``huffman.py`` ``huffman_map_pallas`` (K14)
+  ``byteunshuffle``    ``byteshuffle.py`` ``byteunshuffle_pallas`` (K4)
   ``fse_encode``       ``fse.py`` ``fse_encode_pallas`` (K9)
+  ``fse_decode``       ``fse.py`` ``fse_decode_pallas`` (K10)
+  ``huffman_map``      ``huffman.py`` ``huffman_map_pallas`` (K14)
+  ``huffman_decode``   ``huffman.py`` ``huffman_decode_pallas`` (K15)
+  ``lane_refill``      ``lane_refill.py`` ``lane_refill_pallas`` (K16)
   ===================  ===========================================================
+
+K16's body is the ``__device__`` function ``refill32`` (``csrc/common.cuh``)
+that K15 and K10 call at every step; ``lane_refill`` launches it on its own.
 """
 from __future__ import annotations
 
@@ -26,8 +34,13 @@ import torch
 
 from . import ref
 
-KERNELS = ("delta_encode", "byteshuffle", "huffman_map", "fse_encode")
-FSE_MAX_TABLE_LOG = 15  # the encode table must fit in one block's shared memory
+KERNELS = (
+    "delta_encode", "byteshuffle", "huffman_map", "fse_encode",
+    "delta_decode", "byteunshuffle", "huffman_decode", "fse_decode", "lane_refill",
+)
+FSE_MAX_TABLE_LOG = 15  # the tANS tables must fit in one block's shared memory
+DELTA_DECODE_TILE = 2048  # elements per block of the K2 scan (DTILE in csrc/delta.cu)
+HUFFMAN_LUT_ENTRIES = 1 << 15
 
 
 def _lib():
@@ -97,6 +110,31 @@ def delta_encode(x: torch.Tensor) -> torch.Tensor:
 delta_encode.launches = 0
 
 
+# ----------------------------------------------------------- K2 delta decode
+def delta_decode(d: torch.Tensor) -> torch.Tensor:
+    """Wrapping inclusive prefix sum of a 1-D uint8/int16/int32/int64 carrier."""
+    if d.dim() != 1 or d.element_size() not in (1, 2, 4, 8) or d.is_floating_point():
+        raise TypeError(f"delta_decode: 1-D integer tensor of width 1/2/4/8, got {d.dtype}")
+    if _on_cpu(d):
+        return ref.delta_decode(d)
+    _need(d, d.dtype, "delta_decode")
+    n = d.numel()
+    out = torch.empty_like(d)
+    if n:
+        sums = torch.empty(-(-n // DELTA_DECODE_TILE), dtype=torch.int64, device=d.device)
+        _launched(
+            _lib().repro_delta_decode(
+                d.data_ptr(), out.data_ptr(), sums.data_ptr(), n, d.element_size(), _stream(d)
+            ),
+            "delta_decode",
+        )
+        delta_decode.launches += 1
+    return out
+
+
+delta_decode.launches = 0
+
+
 # ------------------------------------------------------------ K3 byteshuffle
 def byteshuffle(x: torch.Tensor) -> torch.Tensor:
     """(n, w) uint8 records -> (w, n) byte planes, for any w >= 1."""
@@ -117,6 +155,28 @@ def byteshuffle(x: torch.Tensor) -> torch.Tensor:
 
 
 byteshuffle.launches = 0
+
+
+# ---------------------------------------------------------- K4 byteunshuffle
+def byteunshuffle(p: torch.Tensor) -> torch.Tensor:
+    """(w, n) uint8 planes -> (n, w) records, for any w >= 1."""
+    if p.dim() != 2:
+        raise ValueError(f"byteunshuffle: (w, n) tensor expected, got {tuple(p.shape)}")
+    if _on_cpu(p):
+        return ref.byteunshuffle(p)
+    _need(p, torch.uint8, "byteunshuffle")
+    w, n = p.shape
+    out = torch.empty((n, w), dtype=torch.uint8, device=p.device)
+    if p.numel():
+        _launched(
+            _lib().repro_byteunshuffle(p.data_ptr(), out.data_ptr(), w, n, _stream(p)),
+            "byteunshuffle",
+        )
+        byteunshuffle.launches += 1
+    return out
+
+
+byteunshuffle.launches = 0
 
 
 # ------------------------------------------------------------ K14 huffman map
@@ -205,3 +265,122 @@ def fse_encode(
 
 
 fse_encode.launches = 0
+
+
+# -------------------------------------------------------- K15 huffman decode
+def huffman_decode(
+    buf: torch.Tensor, pos: torch.Tensor, lut: torch.Tensor, max_rem: int
+) -> torch.Tensor:
+    """Lane-parallel Huffman decode -> (max_rem, n_lanes) uint8 symbols.
+
+    ``buf`` is the uint8 bitstream padded with zeros past every cursor (the
+    decoder pads by 16 + (15 * max_rem + 7) // 8 bytes), ``pos`` the lanes'
+    int64 first bits, ``lut`` the int16 decode LUT of 2^15 entries
+    (``ref.pack_huffman_lut``).
+    """
+    if buf.dim() != 1 or pos.dim() != 1 or lut.shape != (HUFFMAN_LUT_ENTRIES,):
+        raise ValueError("huffman_decode: 1-D buffer and cursors, 2^15-entry LUT expected")
+    if max_rem < 0:
+        raise ValueError("huffman_decode: max_rem must be >= 0")
+    if _on_cpu(buf, pos, lut):
+        return ref.huffman_decode_lanes(buf, pos, lut, max_rem)
+    _need(buf, torch.uint8, "huffman_decode bitstream")
+    _need(pos, torch.int64, "huffman_decode cursors")
+    _need(lut, torch.int16, "huffman_decode LUT")
+    if lut.data_ptr() % 16:
+        raise ValueError("huffman_decode: the LUT must be 16-byte aligned")
+    n_lanes = pos.numel()
+    out = torch.empty((max_rem, n_lanes), dtype=torch.uint8, device=buf.device)
+    if n_lanes and max_rem:
+        _launched(
+            _lib().repro_huffman_decode(
+                buf.data_ptr(), pos.data_ptr(), lut.data_ptr(), out.data_ptr(),
+                max_rem, n_lanes, _stream(buf),
+            ),
+            "huffman_decode",
+        )
+        huffman_decode.launches += 1
+    return out
+
+
+huffman_decode.launches = 0
+
+
+# ----------------------------------------------------------- K10 tANS decode
+def fse_decode(
+    buf: torch.Tensor,
+    lane_base: torch.Tensor,
+    bitlen: torch.Tensor,
+    state0: torch.Tensor,
+    table: torch.Tensor,
+    max_rem: int,
+) -> torch.Tensor:
+    """Lane-parallel tANS decode -> (max_rem, n_lanes) uint8 symbols.
+
+    ``buf`` is the concatenated lane bitstreams padded by 8 zero bytes,
+    ``lane_base`` each lane's int64 byte offset, ``bitlen`` its int64 bit
+    length, ``state0`` its int32 final encoder state, and ``table`` the int32
+    packed decode table of 2^table_log entries (``ref.pack_fse_table``).
+    """
+    n_lanes = bitlen.numel()
+    total = table.numel()
+    if buf.dim() != 1 or bitlen.dim() != 1 or any(
+        t.shape != (n_lanes,) for t in (lane_base, state0)
+    ):
+        raise ValueError("fse_decode: 1-D buffer and n_lanes-long lane vectors expected")
+    if table.dim() != 1 or total < 1 or total & (total - 1) or max_rem < 0:
+        raise ValueError("fse_decode: a 2^table_log-entry table and max_rem >= 0 expected")
+    if _on_cpu(buf, lane_base, bitlen, state0, table):
+        return ref.fse_decode_lanes(buf, lane_base, bitlen, state0, table, max_rem)
+    if total > 1 << FSE_MAX_TABLE_LOG:
+        raise ValueError(
+            f"fse_decode: table_log above {FSE_MAX_TABLE_LOG} does not fit the"
+            " kernel's shared-memory decode table"
+        )
+    _need(buf, torch.uint8, "fse_decode bitstream")
+    for t, what in ((lane_base, "lane offsets"), (bitlen, "bit lengths")):
+        _need(t, torch.int64, f"fse_decode {what}")
+    _need(state0, torch.int32, "fse_decode states")
+    _need(table, torch.int32, "fse_decode table")
+    out = torch.empty((max_rem, n_lanes), dtype=torch.uint8, device=buf.device)
+    if n_lanes and max_rem:
+        _launched(
+            _lib().repro_fse_decode(
+                buf.data_ptr(), lane_base.data_ptr(), bitlen.data_ptr(), state0.data_ptr(),
+                table.data_ptr(), out.data_ptr(), max_rem, n_lanes, total, _stream(buf),
+            ),
+            "fse_decode",
+        )
+        fse_decode.launches += 1
+    return out
+
+
+fse_decode.launches = 0
+
+
+# ---------------------------------------------------------------- K16 refill
+def lane_refill(buf: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
+    """The LSB-first 32-bit window at each int64 bit cursor (uint32 bits, int32).
+
+    ``buf`` must hold five readable bytes past every cursor.
+    """
+    if buf.dim() != 1 or bitpos.dim() != 1:
+        raise ValueError("lane_refill: 1-D buffer and cursors expected")
+    if _on_cpu(buf, bitpos):
+        return ref.lane_refill(buf, bitpos)
+    _need(buf, torch.uint8, "lane_refill bitstream")
+    _need(bitpos, torch.int64, "lane_refill cursors")
+    n = bitpos.numel()
+    out = torch.empty(n, dtype=torch.int32, device=buf.device)
+    if n:
+        _launched(
+            _lib().repro_lane_refill(
+                buf.data_ptr(), bitpos.data_ptr(), out.data_ptr(), n, _stream(buf)
+            ),
+            "lane_refill",
+        )
+        lane_refill.launches += 1
+    return out
+
+
+lane_refill.launches = 0

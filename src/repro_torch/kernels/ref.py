@@ -19,9 +19,10 @@ from typing import Tuple
 
 import torch
 
-from ..core.message import narrow_unsigned, sub_u64, widen_unsigned
+from ..core.message import join_u32, narrow_unsigned, sub_u64, widen_unsigned
 
 _U32 = 0xFFFFFFFF
+FSE_MAX_DECODE_TABLE_LOG = 18  # the packed tANS decode entry's width
 
 
 # ------------------------------------------------------------------ K1 delta
@@ -34,10 +35,32 @@ def delta_encode(x: torch.Tensor) -> torch.Tensor:
     return narrow_unsigned(torch.cat([u[:1], u[1:] - u[:-1]]), w)
 
 
+# ----------------------------------------------------------- K2 delta decode
+def delta_decode(d: torch.Tensor) -> torch.Tensor:
+    """x[i] = d[0] + ... + d[i] (wrapping, unsigned), any width.
+
+    Widths 1, 2 and 4 sum exactly in int64 (fewer than 2^31 values below
+    2^32) and keep the low bits; width 8 sums its 32-bit halves apart and
+    carries the low half's overflow into the high half.
+    """
+    w = d.element_size()
+    if w < 8:
+        return narrow_unsigned(torch.cumsum(widen_unsigned(d), 0), w)
+    lo = torch.cumsum(d & _U32, 0)
+    hi = torch.cumsum((d >> 32) & _U32, 0) + (lo >> 32)
+    return join_u32(lo & _U32, hi & _U32)
+
+
 # ------------------------------------------------------------ K3 byteshuffle
 def byteshuffle(x: torch.Tensor) -> torch.Tensor:
     """(n, w) uint8 records -> (w, n) byte planes."""
     return x.t().contiguous()
+
+
+# ---------------------------------------------------------- K4 byteunshuffle
+def byteunshuffle(p: torch.Tensor) -> torch.Tensor:
+    """(w, n) uint8 byte planes -> (n, w) records."""
+    return p.t().contiguous()
 
 
 # ------------------------------------------------------------ K14 huffman map
@@ -108,6 +131,99 @@ def fse_encode_lanes(
         new_state = torch.where(xprime < norm[s], enc[idx], 0)
         state = torch.where(emit, new_state, torch.where(rem == i + 1, st0[s], state))
     return vals, nbs, state.to(torch.int32)
+
+
+# -------------------------------------------------------------- K16 refill
+def _refill(buf: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
+    """int64 windows in [0, 2^32): the 32 bits of ``buf`` at each bit cursor."""
+    byte0 = bitpos >> 3
+    r = bitpos & 7
+    b = [buf[byte0 + k].to(torch.int64) for k in range(5)]
+    lo = b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)
+    return ((lo >> r) | (b[4] << (32 - r))) & _U32
+
+
+def lane_refill(buf: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
+    """The LSB-first 32-bit window of ``buf`` at each int64 bit cursor.
+
+    ``buf`` must hold five readable bytes past every cursor.  Returns the
+    windows' uint32 bits in an int32 tensor.
+    """
+    return narrow_unsigned(_refill(buf, bitpos.to(torch.int64)), 4)
+
+
+# ------------------------------------------------------- K15 huffman decode
+def pack_huffman_lut(lut_sym: torch.Tensor, lut_len: torch.Tensor) -> torch.Tensor:
+    """The 2^15-entry decode LUT packed as int16 ``symbol | length << 8``."""
+    return (lut_sym.to(torch.int32) | (lut_len.to(torch.int32) << 8)).to(torch.int16)
+
+
+def huffman_decode_lanes(
+    buf: torch.Tensor, pos: torch.Tensor, lut: torch.Tensor, max_rem: int
+) -> torch.Tensor:
+    """Lane-parallel Huffman decode, one symbol per 32-bit refill.
+
+    ``buf`` is the bitstream padded past every cursor (16 + (15 * max_rem + 7)
+    // 8 zero bytes), ``pos`` each lane's first bit, ``lut`` the packed LUT
+    (:func:`pack_huffman_lut`).  Returns (max_rem, n_lanes) uint8; the
+    surplus rows of a short lane decode the pad's zeros.
+    """
+    n_lanes = pos.numel()
+    out = torch.empty((max_rem, n_lanes), dtype=torch.uint8, device=buf.device)
+    p = pos.to(torch.int64)
+    table = lut.to(torch.int64)
+    for i in range(max_rem):
+        e = table[_refill(buf, p) & 0x7FFF]
+        out[i] = (e & 0xFF).to(torch.uint8)
+        p = p + (e >> 8)
+    return out
+
+
+# ---------------------------------------------------------- K10 tANS decode
+def pack_fse_table(
+    dec_sym: torch.Tensor, dec_nb: torch.Tensor, dec_base: torch.Tensor
+) -> torch.Tensor:
+    """The decode tables packed per state as int32 ``sym | nb << 8 | base << 13``.
+
+    ``nb <= table_log`` takes five bits and ``base < 2^table_log`` the rest,
+    so an entry stays positive up to table_log 18 (``FSE_MAX_DECODE_TABLE_LOG``).
+    """
+    return (
+        dec_sym.to(torch.int32) | (dec_nb.to(torch.int32) << 8) | (dec_base.to(torch.int32) << 13)
+    )
+
+
+def fse_decode_lanes(
+    buf: torch.Tensor,
+    lane_base: torch.Tensor,
+    bitlen: torch.Tensor,
+    state0: torch.Tensor,
+    table: torch.Tensor,
+    max_rem: int,
+) -> torch.Tensor:
+    """Lane-parallel tANS decode: forward symbol order, backward bit reads.
+
+    Lane k reads ``buf`` from byte ``lane_base[k]``; its cursor starts at
+    ``bitlen[k]`` and walks backward, and a cursor below 0 reads byte 0 at
+    bit ``cursor & 7``, as the reference clamps it.  ``table`` is the packed
+    decode table (:func:`pack_fse_table`).  Returns (max_rem, n_lanes) uint8;
+    surplus rows walk states that stay in the table.
+    """
+    n_lanes = bitlen.numel()
+    out = torch.empty((max_rem, n_lanes), dtype=torch.uint8, device=buf.device)
+    tab = table.to(torch.int64)
+    state = state0.to(torch.int64)
+    cursor = bitlen.to(torch.int64)
+    base_bits = lane_base.to(torch.int64) * 8
+    one = torch.ones_like(cursor)
+    for i in range(max_rem):
+        e = tab[state]
+        out[i] = (e & 0xFF).to(torch.uint8)
+        nb = (e >> 8) & 0x1F
+        cursor = cursor - nb
+        win = _refill(buf, base_bits + torch.where(cursor >= 0, cursor, cursor & 7))
+        state = (e >> 13) + (win & ((one << nb) - 1))
+    return out
 
 
 # ----------------------------------------------------------------------- glue

@@ -61,7 +61,7 @@ def test_port_frame_equals_reference_device_frame(kind, plan_name):
         use_resolve_cache=False,
     )
     assert frame == ref_frame
-    (ours,) = repro_torch.decompress(ref_frame)
+    (ours,) = repro_torch.decompress(ref_frame, device="cpu")
     assert ours.content_bytes() == col.tobytes()
     (theirs,) = ref_decompress(frame)
     assert theirs.content_bytes() == col.tobytes()
@@ -82,7 +82,7 @@ def test_empty_and_tiny_columns_roundtrip():
     for col in (np.zeros(0, np.uint32), np.array([5], np.uint64), np.arange(3, dtype=np.uint16)):
         frame = repro_torch.compress(repro_torch.numeric_profile(), repro_torch.numeric(col), device="cpu")
         assert frame == ref_compress(ref_numeric_profile(), ref_numeric(col), use_resolve_cache=False)
-        (out,) = repro_torch.decompress(frame)
+        (out,) = repro_torch.decompress(frame, device="cpu")
         assert out.content_bytes() == col.tobytes()
 
 
