@@ -14,6 +14,10 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              shuffle, Huffman map, tANS encode) and the decode kernels (delta
              decode, byte unshuffle, Huffman decode and tANS decode on column
              A's entropy-coded streams, and the lane refill they share).
+             tANS at table_log 16, whose tables the kernels read from global
+             memory, is checked on a 4 MiB prefix as well: the card's frame
+             equals the CPU's, K10 equals its plain version, and the frame
+             decodes on the card.
 3. main    — two 64 MiB numeric columns (A: 2^23 int64 nanosecond timestamps
              with jittered gaps; B: 2^24 zipf-distributed uint32 ids), made
              from ``--seed``, each through ``numeric_profile()`` at level 5,
@@ -51,7 +55,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 # the entropy decoders' dependent chain: at least one shared-memory table
-# lookup per symbol, taken as 30 cycles (an assumption, not a measurement)
+# lookup per symbol, taken as 30 cycles (an assumption, not a measurement);
+# the latency floor it gives is printed on a line of its own, apart from the
+# measured numbers of the kernels line
 STEP_CYCLES = 30
 ENCODE_KERNELS = ("delta_encode", "byteshuffle", "huffman_map", "fse_encode")
 DECODE_KERNELS = ("delta_decode", "byteunshuffle", "huffman_decode", "fse_decode")
@@ -224,24 +230,38 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         cuda_ms(lambda: ref.huffman_decode_lanes(buf, pos, lut, max_rem), 1),
         stream_bytes + pos.numel() * 8 + lut.numel() * 2 + h_planes.numel(),
         n_sym_a * 8, None,
-        shape=f"{pos.numel()} lanes x {max_rem}",
-        latency_bound_ms=max_rem * STEP_CYCLES / sm_hz * 1e3)
+        shape=f"{pos.numel()} lanes x {max_rem}")
 
-    fse = entropy.fse_lanes(*node_streams(
+    f_args, _n, _stype = entropy.fse_lanes(*node_streams(
         rt.compress(rt.pipeline("delta", "transpose", "fse"), rt.numeric(col_a_np),
                     device="cuda"),
         "fse"))
-    fbuf, lane_base, bitlen, state0, table, f_rem, _n, _stype = fse
-    f_planes = ops.fse_decode(fbuf, lane_base, bitlen, state0, table, f_rem)
-    f_args = (fbuf, lane_base, bitlen, state0, table, f_rem)
+    fbuf, _base, bitlen, _state0, sym, _nbb, f_rem = f_args
+    f_planes = ops.fse_decode(*f_args)
     err = max_abs_err([f_planes], [ref.fse_decode_lanes(*f_args)])
+    # table_log 16: K9 and K10 read tables of 2^16 entries from global memory
+    wide = rt.pipeline("delta", "transpose", ("fse", {"table_log": 16}))
+    prefix_a = col_a_np[: PREFIX_BYTES // 8]
+    wide_frame = rt.compress(wide, rt.numeric(prefix_a), device="cuda")
+    if wide_frame != rt.compress(wide, rt.numeric(prefix_a), device="cpu"):
+        fail("table_log 16: the card's frame differs from the CPU's")
+    w_args, _n, _stype = entropy.fse_lanes(*node_streams(wide_frame, "fse"))
+    err = max(err, max_abs_err([ops.fse_decode(*w_args)], [ref.fse_decode_lanes(*w_args)]))
+    (wide_out,) = rt.decompress(wide_frame, device="cuda")
+    if not torch.equal(wide_out.data, rt.numeric(prefix_a).data.to(dev)):
+        fail("table_log 16: decompress on the card did not return the prefix")
     row("fse_decode", "src/repro_torch/csrc/fse.cu", "src/repro/kernels/fse.py:167",
         err, cuda_ms(lambda: ops.fse_decode(*f_args), 10),
         cuda_ms(lambda: ref.fse_decode_lanes(*f_args), 1),
-        fbuf.numel() + bitlen.numel() * (8 + 8 + 4) + table.numel() * 4 + f_planes.numel(),
+        fbuf.numel() + bitlen.numel() * (8 + 8 + 4) + sym.numel() * 5 + f_planes.numel(),
         f_planes.numel() * 8, None,
         shape=f"{bitlen.numel()} lanes x {f_rem}",
-        latency_bound_ms=f_rem * STEP_CYCLES / sm_hz * 1e3)
+        table_log_16_ms=cuda_ms(lambda: ops.fse_decode(*w_args), 10),
+        table_log_16_shape=f"{w_args[2].numel()} lanes x {w_args[6]}")
+    print(f"latency floor, from an assumed {STEP_CYCLES} cycles per dependent step at"
+          f" the max SM clock (derived, not measured):"
+          f" huffman_decode_ms={max_rem * STEP_CYCLES / sm_hz * 1e3}"
+          f" fse_decode_ms={f_rem * STEP_CYCLES / sm_hz * 1e3}")
 
     # K4 byte unshuffle: column A's and B's planes, and both decoders' lanes
     shapes = {

@@ -6,8 +6,10 @@ are copied verbatim so the header descriptors match the reference byte for
 byte.  Encoding runs where the stream lives: the exact 256-bin histogram on
 the device, the O(256) tables on the host, then the kernels — the Huffman
 symbol map (K14), or the byte shuffle (K3) that lays out the tANS lanes and
-the tANS lane walk (K9) — and the bit packer, all on the device.  Decoders
-are the reference's numpy lane decoders.
+the tANS lane walk (K9) — and the bit packer, all on the device.  Decoding
+runs there too: the decode tables are built on the host and copied once,
+then the lane decoders (Huffman K15, tANS K10) and the byte unshuffle (K4)
+that puts their lanes back into symbol order.
 
 Wire layout per codec (identical to the reference):
   huffman: outputs = [bitstream SERIAL, block_bit_offsets NUMERIC u64]
@@ -57,10 +59,13 @@ def _cached(key: tuple, build: Callable[[], object]):
 
 
 def _on_device(key: tuple, build: Callable[[], torch.Tensor], device: torch.device):
-    """A cached host table, and its copy on ``device`` (cached as well)."""
+    """A cached host table (or tuple of tables), and its copy on ``device``
+    (cached as well)."""
     host = _cached(key, build)
     if device.type == "cpu":
         return host
+    if isinstance(host, tuple):
+        return _cached(key + (str(device),), lambda: tuple(t.to(device) for t in host))
     return _cached(key + (str(device),), lambda: host.to(device))
 
 
@@ -418,34 +423,30 @@ def _fse_enc(streams, params):
     return [Stream(stream_out, SType.SERIAL, 1), numeric_stream(narrow_unsigned(meta, 4))], header
 
 
-def _fse_dec_header(header):
-    """(n, block_log, table_log, stype, norm int64[256]) of an fse header."""
+def fse_lanes(outs, header):
+    """An fse node's K10 inputs on its streams' device.
+
+    Returns (args, n, stype): ``args`` are :func:`ops.fse_decode`'s arguments
+    (buf, lane_base, bitlen, state0, sym, nbb, max_rem) — the concatenated
+    lane bitstreams padded by 8 zero bytes, each lane's int64 byte offset
+    (the exclusive sum of (bitlen + 7) // 8) and bit length, its int32 final
+    encoder state, the decode tables and the longest lane — or None for an
+    empty stream; then the symbol count and the stream type.
+    """
+    bitstream, meta_s = outs
     r = HeaderReader(header)
     n = r.varint()
     block_log = r.u8()
     table_log = r.u8()
-    stype_tag = r.u8()
+    stype = SType(r.u8())
     tbl = HeaderReader(r.bytes_())
     r.expect_end()
+    if n == 0:
+        return None, 0, stype
     norm = np.zeros(256, dtype=np.int64)
-    if n:
-        for _ in range(tbl.varint()):
-            s = tbl.varint()
-            norm[s] = tbl.varint()
-    return n, block_log, table_log, SType(stype_tag), norm
-
-
-def fse_lanes(outs, header):
-    """An fse node's K10 inputs on its streams' device (for n > 0).
-
-    Returns (buf, lane_base, bitlen, state0, table, max_rem, n, stype): the
-    concatenated lane bitstreams padded by 8 zero bytes, each lane's int64
-    byte offset (the exclusive sum of (bitlen + 7) // 8) and bit length, its
-    int32 final encoder state, the packed decode table, the longest lane,
-    the symbol count and the stream type.
-    """
-    bitstream, meta_s = outs
-    n, block_log, table_log, stype, norm = _fse_dec_header(header)
+    for _ in range(tbl.varint()):
+        s = tbl.varint()
+        norm[s] = tbl.varint()
     if (meta_s.stype, meta_s.width) != (SType.NUMERIC, 4):
         raise ValueError("fse: block meta is a numeric(4) stream")
     if not 1 <= table_log <= ref.FSE_MAX_DECODE_TABLE_LOG:
@@ -457,7 +458,7 @@ def fse_lanes(outs, header):
 
     data = bitstream.raw()
     dev = data.device
-    table = _on_device(("fse_dec", norm.tobytes(), table_log), build, dev)
+    sym, nbb = _on_device(("fse_dec", norm.tobytes(), table_log), build, dev)
     block = 1 << block_log
     n_blocks = (n + block - 1) // block
     if meta_s.data.numel() != 2 * n_blocks:
@@ -467,22 +468,20 @@ def fse_lanes(outs, header):
     lane_base = ref.exclusive_offsets((bitlen + 7) >> 3)
     # fail closed unless the lanes tile the bitstream and every state lies
     # in the table (one scalar sync)
-    ok = (lane_base[-1] == data.numel()) & (meta[:, 1] < table.numel()).all()
+    ok = (lane_base[-1] == data.numel()) & (meta[:, 1] < nbb.numel()).all()
     if not bool(ok):
         raise ValueError("fse: block meta does not match the bitstream or the table")
     buf = torch.zeros(data.numel() + 8, dtype=torch.uint8, device=dev)
     buf[: data.numel()] = data
     state0 = meta[:, 1].to(torch.int32)
-    return buf, lane_base[:-1], bitlen, state0, table, min(n, block), n, stype
+    return (buf, lane_base[:-1], bitlen, state0, sym, nbb, min(n, block)), n, stype
 
 
 def _fse_dec(outs, header):
-    n, _block_log, _table_log, stype, _norm = _fse_dec_header(header)
-    if n == 0:
+    args, n, stype = fse_lanes(outs, header)
+    if args is None:
         return [rebuild_like(stype, 1, outs[0].raw()[:0])]
-    buf, lane_base, bitlen, state0, table, max_rem, n, stype = fse_lanes(outs, header)
-    planes = ops.fse_decode(buf, lane_base, bitlen, state0, table, max_rem)
-    return [_lane_symbols(planes, n, stype)]
+    return [_lane_symbols(ops.fse_decode(*args), n, stype)]
 
 
 register_codec(

@@ -169,7 +169,6 @@ static int launch_decode(const void* d, void* out, void* scratch, long long n,
                          cudaStream_t stream) {
   typedef typename Acc<T>::type A;
   const long long n_blocks = (n + DTILE - 1) / DTILE;
-  if (n_blocks < 1 || n_blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   A* sums = (A*)scratch;
   delta_block_sums<T><<<(unsigned int)n_blocks, DTHREADS, 0, stream>>>((const T*)d, sums, n);
   cudaError_t err = cudaGetLastError();
@@ -182,9 +181,19 @@ static int launch_decode(const void* d, void* out, void* scratch, long long n,
   return (int)cudaGetLastError();
 }
 
-// scratch: ceil(n / DTILE) accumulators (8 bytes each suffices for all widths)
-REPRO_API int repro_delta_decode(const void* d, void* out, void* scratch, long long n,
-                                 int width, void* stream) {
+// The scratch that repro_delta_decode needs for n elements: one 8-byte
+// accumulator per tile (enough for every width).  The tile size lives here
+// alone; the wrapper asks for the count.
+REPRO_API long long repro_delta_decode_scratch(long long n) {
+  return (n + DTILE - 1) / DTILE;
+}
+
+REPRO_API int repro_delta_decode(const void* d, void* out, void* scratch,
+                                 long long n_scratch, long long n, int width,
+                                 void* stream) {
+  const long long n_blocks = repro_delta_decode_scratch(n);
+  if (n_blocks < 1 || n_blocks > 0x7FFFFFFFLL || n_scratch < n_blocks)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (width) {
     case 1: return launch_decode<uint8_t>(d, out, scratch, n, s);

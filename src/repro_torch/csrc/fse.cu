@@ -13,13 +13,20 @@
 //
 // Bound: latency.  Each lane is a chain of max_rem dependent table steps, so
 // the kernel's floor is the lane walk, not its bytes.  Design: one thread per
-// lane; all tables live in shared memory — the per-symbol nb0/thr/st0/norm
-// and a compact encode table of exactly 2^table_log entries (the reference's
-// (256, max norm) table packed symbol by symbol, located by sym_start) — so a
-// step costs a few shared-memory loads.  The (max_rem, n_lanes) layout makes
-// every step's symbol read and (value, nbits) write coalesced across the warp.
+// lane; the per-symbol nb0/thr/st0/norm and sym_start live in shared memory,
+// and so does the compact encode table of exactly 2^table_log entries (the
+// reference's (256, max norm) table packed symbol by symbol, located by
+// sym_start) up to FSE_SHARED_TABLE entries — 136 KB with the rest at
+// table_log 15, above 48 KB so the launch sets the attribute.  A larger
+// table stays in global memory, where the card's L2 (50 MB) holds it after
+// the first steps; the kernel is templated on where the table lives.  The
+// (max_rem, n_lanes) layout makes every step's symbol read and (value,
+// nbits) write coalesced across the warp.
 #include "common.cuh"
 
+#define FSE_SHARED_TABLE (1 << 15)  // the largest table held in shared memory
+
+template <bool kSharedTable>
 __global__ void fse_encode_kernel(const uint8_t* __restrict__ lanesT,
                                   const int* __restrict__ rem,
                                   const int* __restrict__ nb0,
@@ -44,8 +51,10 @@ __global__ void fse_encode_kernel(const uint8_t* __restrict__ lanesT,
     s_norm[i] = norm[i];
     s_start[i] = sym_start[i];
   }
-  for (int i = threadIdx.x; i < total; i += blockDim.x) s_enc[i] = enc[i];
+  if (kSharedTable)
+    for (int i = threadIdx.x; i < total; i += blockDim.x) s_enc[i] = enc[i];
   __syncthreads();
+  const int* t_enc = kSharedTable ? s_enc : enc;
 
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
@@ -64,7 +73,7 @@ __global__ void fse_encode_kernel(const uint8_t* __restrict__ lanesT,
       // clip as the reference does; entries past norm[s] are zero there
       int xp = (X >> nb) - s_norm[s];
       xp = xp < 0 ? 0 : (xp > width - 1 ? width - 1 : xp);
-      state = xp < s_norm[s] ? s_enc[s_start[s] + xp] : 0;
+      state = xp < s_norm[s] ? t_enc[s_start[s] + xp] : 0;
     } else if (r == i + 1) {
       state = s_st0[s];
     }
@@ -72,22 +81,39 @@ __global__ void fse_encode_kernel(const uint8_t* __restrict__ lanesT,
   state_out[lane] = state;
 }
 
+template <bool kSharedTable>
+static int launch_encode(const void* lanesT, const void* rem, const void* nb0,
+                         const void* thr, const void* st0, const void* norm,
+                         const void* sym_start, const void* enc, void* vals, void* nbs,
+                         void* state, int max_rem, long long n_lanes, int total,
+                         int width, cudaStream_t stream) {
+  const int threads = 128;
+  const size_t smem = (size_t)(1280 + (kSharedTable ? total : 0)) * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(fse_encode_kernel<kSharedTable>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_lanes + threads - 1) / threads;
+  if (blocks < 1 || blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  fse_encode_kernel<kSharedTable><<<(unsigned int)blocks, threads, smem, stream>>>(
+      (const uint8_t*)lanesT, (const int*)rem, (const int*)nb0, (const int*)thr,
+      (const int*)st0, (const int*)norm, (const int*)sym_start, (const int*)enc,
+      (int*)vals, (int*)nbs, (int*)state, max_rem, n_lanes, total, width);
+  return (int)cudaGetLastError();
+}
+
 REPRO_API int repro_fse_encode(const void* lanesT, const void* rem, const void* nb0,
                                const void* thr, const void* st0, const void* norm,
                                const void* sym_start, const void* enc, void* vals,
                                void* nbs, void* state, int max_rem, long long n_lanes,
                                int total, int width, void* stream) {
-  const int threads = 128;
-  const size_t smem = (size_t)(1280 + total) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      fse_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_lanes + threads - 1) / threads;
-  fse_encode_kernel<<<(unsigned int)blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)lanesT, (const int*)rem, (const int*)nb0, (const int*)thr,
-      (const int*)st0, (const int*)norm, (const int*)sym_start, (const int*)enc,
-      (int*)vals, (int*)nbs, (int*)state, max_rem, n_lanes, total, width);
-  return (int)cudaGetLastError();
+  if (total <= FSE_SHARED_TABLE)
+    return launch_encode<true>(lanesT, rem, nb0, thr, st0, norm, sym_start, enc, vals,
+                               nbs, state, max_rem, n_lanes, total, width,
+                               (cudaStream_t)stream);
+  return launch_encode<false>(lanesT, rem, nb0, thr, st0, norm, sym_start, enc, vals,
+                              nbs, state, max_rem, n_lanes, total, width,
+                              (cudaStream_t)stream);
 }
 
 // K10 — tANS (FSE) decode: the forward state walk of every 1024-symbol lane,
@@ -105,25 +131,34 @@ REPRO_API int repro_fse_encode(const void* lanesT, const void* rem, const void* 
 // the step after a lane's last symbol does that, and its state is unused.
 //
 // Bound: latency.  Each lane is a chain of 1024 dependent table steps.
-// Design: one thread per lane.  The three decode tables are packed into one
-// u32 per state (symbol | nb << 8 | base << 13) and held in dynamic shared
-// memory (8 KiB at table_log 11, 128 KiB at table_log 15, the most the
-// wrapper takes; above 48 KB the launch sets the attribute).  Lanes read the
-// concatenated wire bitstream at their own byte offsets (lane_base, the
-// exclusive sum of (bitlen + 7) / 8): every unmasked bit a step uses lies
-// inside its own lane, and the caller pads the tail by 8 bytes.  The output is
-// the (max_rem, n_lanes) plane layout, coalesced per step; K4 puts it back
-// into symbol order.
+// Design: one thread per lane.  The decode tables come as two arrays of
+// 2^table_log entries: the symbols (u8) and nb | dec_base << 5 (u32, which
+// holds dec_base up to table_log 26).  Up to FSE_SHARED_TABLE entries the
+// block merges them into one u32 per state in dynamic shared memory
+// (sym | (nb | dec_base << 5) << 8, which fits up to table_log 19),
+// so a step is one shared-memory load (8 KiB at table_log 11, 128 KiB at
+// table_log 15; above 48 KB the launch sets the attribute).  A larger table
+// is read from global memory, two loads per step, where the L2 holds it
+// (the kernel is templated on where the tables live).  Lanes read the concatenated wire bitstream at
+// their own byte offsets (lane_base, the exclusive sum of (bitlen + 7) / 8):
+// every unmasked bit a step uses lies inside its own lane, and the caller
+// pads the tail by 8 bytes.  The output is the (max_rem, n_lanes) plane
+// layout, coalesced per step; K4 puts it back into symbol order.
+template <bool kSharedTable>
 __global__ void fse_decode_kernel(const uint8_t* __restrict__ buf,
                                   const long long* __restrict__ lane_base,
                                   const long long* __restrict__ bitlen,
                                   const int* __restrict__ state0,
-                                  const uint32_t* __restrict__ table,
+                                  const uint8_t* __restrict__ sym,
+                                  const uint32_t* __restrict__ nbb,
                                   uint8_t* __restrict__ out, int max_rem,
                                   long long n_lanes, int total) {
   extern __shared__ uint32_t s_tab[];
-  for (int i = threadIdx.x; i < total; i += blockDim.x) s_tab[i] = table[i];
-  __syncthreads();
+  if (kSharedTable) {
+    for (int i = threadIdx.x; i < total; i += blockDim.x)
+      s_tab[i] = (uint32_t)sym[i] | (nbb[i] << 8);
+    __syncthreads();
+  }
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
   const uint8_t* lb = buf + lane_base[lane];
@@ -131,27 +166,48 @@ __global__ void fse_decode_kernel(const uint8_t* __restrict__ buf,
   uint32_t state = (uint32_t)state0[lane];
   uint8_t* o = out + lane;
   for (int i = 0; i < max_rem; ++i) {
-    const uint32_t e = s_tab[state];
-    o[(long long)i * n_lanes] = (uint8_t)e;
-    const uint32_t nb = (e >> 8) & 0x1Fu;
+    uint32_t e;
+    if (kSharedTable) {
+      const uint32_t packed = s_tab[state];
+      o[(long long)i * n_lanes] = (uint8_t)packed;
+      e = packed >> 8;
+    } else {
+      e = nbb[state];
+      o[(long long)i * n_lanes] = sym[state];
+    }
+    const uint32_t nb = e & 0x1Fu;
     cursor -= nb;
     const uint32_t win = refill32(lb, cursor >= 0 ? cursor : (cursor & 7));
-    state = (e >> 13) + (win & ((1u << nb) - 1u));
+    state = (e >> 5) + (win & ((1u << nb) - 1u));
   }
 }
 
-REPRO_API int repro_fse_decode(const void* buf, const void* lane_base, const void* bitlen,
-                               const void* state0, const void* table, void* out,
-                               int max_rem, long long n_lanes, int total, void* stream) {
+template <bool kSharedTable>
+static int launch_decode(const void* buf, const void* lane_base, const void* bitlen,
+                         const void* state0, const void* sym, const void* nbb, void* out,
+                         int max_rem, long long n_lanes, int total, cudaStream_t stream) {
   const int threads = 128;
-  const size_t smem = (size_t)total * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fse_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = kSharedTable ? (size_t)total * sizeof(uint32_t) : 0;
+  cudaError_t err = cudaFuncSetAttribute(fse_decode_kernel<kSharedTable>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (n_lanes + threads - 1) / threads;
   if (blocks < 1 || blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  fse_decode_kernel<<<(unsigned int)blocks, threads, smem, (cudaStream_t)stream>>>(
+  fse_decode_kernel<kSharedTable><<<(unsigned int)blocks, threads, smem, stream>>>(
       (const uint8_t*)buf, (const long long*)lane_base, (const long long*)bitlen,
-      (const int*)state0, (const uint32_t*)table, (uint8_t*)out, max_rem, n_lanes, total);
+      (const int*)state0, (const uint8_t*)sym, (const uint32_t*)nbb, (uint8_t*)out,
+      max_rem, n_lanes, total);
   return (int)cudaGetLastError();
+}
+
+REPRO_API int repro_fse_decode(const void* buf, const void* lane_base, const void* bitlen,
+                               const void* state0, const void* sym, const void* nbb,
+                               void* out, int max_rem, long long n_lanes, int total,
+                               void* stream) {
+  if (total <= FSE_SHARED_TABLE)
+    return launch_decode<true>(buf, lane_base, bitlen, state0, sym, nbb, out, max_rem,
+                               n_lanes, total, (cudaStream_t)stream);
+  return launch_decode<false>(buf, lane_base, bitlen, state0, sym, nbb, out, max_rem,
+                              n_lanes, total, (cudaStream_t)stream);
 }

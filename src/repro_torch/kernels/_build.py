@@ -4,7 +4,7 @@ The sources in ``repro_torch/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` (Hopper) — one ``nvcc -c`` per source, all started together —
 and linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  Kernels that need more than 48 KB of shared memory (the tANS
-tables, the Huffman decode LUT) set ``cudaFuncAttributeMaxDynamicSharedMemorySize``
+tables up to table_log 15, the Huffman decode LUT) set ``cudaFuncAttributeMaxDynamicSharedMemorySize``
 in their C entry point before each launch, and every entry point returns
 ``cudaGetLastError()``.  The build happens at first use, from the repository's sources
 alone, into ``build/`` at the repository root; the library's name carries a
@@ -33,16 +33,19 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptx
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-# C entry point -> argtypes (every pointer and the stream as c_void_p)
+# C entry point -> argtypes (every pointer and the stream as c_void_p); each
+# returns its cudaError_t as an int unless RESTYPES names another type
+RESTYPES = {"repro_delta_decode_scratch": _I64}
 SIGNATURES = {
     "repro_delta_encode": [_P, _P, _I64, _I32, _P],
     "repro_byteshuffle": [_P, _P, _I64, _I64, _P],
     "repro_huffman_map": [_P, _P, _P, _P, _P, _I64, _P],
     "repro_fse_encode": [_P] * 11 + [_I32, _I64, _I32, _I32, _P],
-    "repro_delta_decode": [_P, _P, _P, _I64, _I32, _P],
+    "repro_delta_decode_scratch": [_I64],
+    "repro_delta_decode": [_P, _P, _P, _I64, _I64, _I32, _P],
     "repro_byteunshuffle": [_P, _P, _I64, _I64, _P],
     "repro_huffman_decode": [_P, _P, _P, _P, _I32, _I64, _P],
-    "repro_fse_decode": [_P] * 6 + [_I32, _I64, _I32, _P],
+    "repro_fse_decode": [_P] * 7 + [_I32, _I64, _I32, _P],
     "repro_lane_refill": [_P, _P, _P, _I64, _P],
 }
 
@@ -126,6 +129,6 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib

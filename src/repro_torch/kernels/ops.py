@@ -38,8 +38,6 @@ KERNELS = (
     "delta_encode", "byteshuffle", "huffman_map", "fse_encode",
     "delta_decode", "byteunshuffle", "huffman_decode", "fse_decode", "lane_refill",
 )
-FSE_MAX_TABLE_LOG = 15  # the tANS tables must fit in one block's shared memory
-DELTA_DECODE_TILE = 2048  # elements per block of the K2 scan (DTILE in csrc/delta.cu)
 HUFFMAN_LUT_ENTRIES = 1 << 15
 
 
@@ -121,10 +119,12 @@ def delta_decode(d: torch.Tensor) -> torch.Tensor:
     n = d.numel()
     out = torch.empty_like(d)
     if n:
-        sums = torch.empty(-(-n // DELTA_DECODE_TILE), dtype=torch.int64, device=d.device)
+        lib = _lib()
+        sums = torch.empty(lib.repro_delta_decode_scratch(n), dtype=torch.int64, device=d.device)
         _launched(
-            _lib().repro_delta_decode(
-                d.data_ptr(), out.data_ptr(), sums.data_ptr(), n, d.element_size(), _stream(d)
+            lib.repro_delta_decode(
+                d.data_ptr(), out.data_ptr(), sums.data_ptr(), sums.numel(), n,
+                d.element_size(), _stream(d),
             ),
             "delta_decode",
         )
@@ -227,7 +227,8 @@ def fse_encode(
     ``lanesT`` is (max_rem, n_lanes) uint8, ``rem`` the int32 lane lengths,
     the per-symbol tables int32[256], and the encode table in its compact
     form (``ref.compact_encode_table``: ``total`` entries, located per
-    symbol by ``sym_start``) so that it fits in shared memory.
+    symbol by ``sym_start``), which the kernel holds in shared memory up to
+    2^15 entries and reads from global memory above.
     """
     max_rem, n_lanes = lanesT.shape
     tables = (nb0, thr, st0, norm, sym_start)
@@ -238,11 +239,6 @@ def fse_encode(
     if _on_cpu(lanesT, rem, enc_compact, *tables):
         return ref.fse_encode_lanes(
             lanesT, rem, nb0, thr, st0, norm, sym_start, enc_compact, width, total
-        )
-    if total > 1 << FSE_MAX_TABLE_LOG:
-        raise ValueError(
-            f"fse_encode: table_log above {FSE_MAX_TABLE_LOG} does not fit the"
-            " kernel's shared-memory encode table"
         )
     _need(lanesT, torch.uint8, "fse_encode lanes")
     for t in (rem, enc_compact, *tables):
@@ -312,42 +308,45 @@ def fse_decode(
     lane_base: torch.Tensor,
     bitlen: torch.Tensor,
     state0: torch.Tensor,
-    table: torch.Tensor,
+    sym: torch.Tensor,
+    nbb: torch.Tensor,
     max_rem: int,
 ) -> torch.Tensor:
     """Lane-parallel tANS decode -> (max_rem, n_lanes) uint8 symbols.
 
     ``buf`` is the concatenated lane bitstreams padded by 8 zero bytes,
     ``lane_base`` each lane's int64 byte offset, ``bitlen`` its int64 bit
-    length, ``state0`` its int32 final encoder state, and ``table`` the int32
-    packed decode table of 2^table_log entries (``ref.pack_fse_table``).
+    length, ``state0`` its int32 final encoder state, and ``sym`` (uint8)
+    and ``nbb`` (int32) the decode tables of 2^table_log entries
+    (``ref.pack_fse_table``).  The kernel holds tables of up to 2^15 entries
+    in shared memory and reads larger ones from global memory.
     """
     n_lanes = bitlen.numel()
-    total = table.numel()
+    total = nbb.numel()
     if buf.dim() != 1 or bitlen.dim() != 1 or any(
         t.shape != (n_lanes,) for t in (lane_base, state0)
     ):
         raise ValueError("fse_decode: 1-D buffer and n_lanes-long lane vectors expected")
-    if table.dim() != 1 or total < 1 or total & (total - 1) or max_rem < 0:
-        raise ValueError("fse_decode: a 2^table_log-entry table and max_rem >= 0 expected")
-    if _on_cpu(buf, lane_base, bitlen, state0, table):
-        return ref.fse_decode_lanes(buf, lane_base, bitlen, state0, table, max_rem)
-    if total > 1 << FSE_MAX_TABLE_LOG:
-        raise ValueError(
-            f"fse_decode: table_log above {FSE_MAX_TABLE_LOG} does not fit the"
-            " kernel's shared-memory decode table"
-        )
+    if (
+        nbb.dim() != 1 or sym.shape != nbb.shape or total & (total - 1)
+        or not 1 <= total <= 1 << ref.FSE_MAX_DECODE_TABLE_LOG or max_rem < 0
+    ):
+        raise ValueError("fse_decode: two 2^table_log-entry tables and max_rem >= 0 expected")
+    if _on_cpu(buf, lane_base, bitlen, state0, sym, nbb):
+        return ref.fse_decode_lanes(buf, lane_base, bitlen, state0, sym, nbb, max_rem)
     _need(buf, torch.uint8, "fse_decode bitstream")
     for t, what in ((lane_base, "lane offsets"), (bitlen, "bit lengths")):
         _need(t, torch.int64, f"fse_decode {what}")
     _need(state0, torch.int32, "fse_decode states")
-    _need(table, torch.int32, "fse_decode table")
+    _need(sym, torch.uint8, "fse_decode symbol table")
+    _need(nbb, torch.int32, "fse_decode step table")
     out = torch.empty((max_rem, n_lanes), dtype=torch.uint8, device=buf.device)
     if n_lanes and max_rem:
         _launched(
             _lib().repro_fse_decode(
                 buf.data_ptr(), lane_base.data_ptr(), bitlen.data_ptr(), state0.data_ptr(),
-                table.data_ptr(), out.data_ptr(), max_rem, n_lanes, total, _stream(buf),
+                sym.data_ptr(), nbb.data_ptr(), out.data_ptr(), max_rem, n_lanes, total,
+                _stream(buf),
             ),
             "fse_decode",
         )

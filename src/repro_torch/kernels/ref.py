@@ -22,7 +22,7 @@ import torch
 from ..core.message import join_u32, narrow_unsigned, sub_u64, widen_unsigned
 
 _U32 = 0xFFFFFFFF
-FSE_MAX_DECODE_TABLE_LOG = 18  # the packed tANS decode entry's width
+FSE_MAX_DECODE_TABLE_LOG = 26  # dec_base's bits in the packed tANS step entry
 
 
 # ------------------------------------------------------------------ K1 delta
@@ -182,15 +182,13 @@ def huffman_decode_lanes(
 # ---------------------------------------------------------- K10 tANS decode
 def pack_fse_table(
     dec_sym: torch.Tensor, dec_nb: torch.Tensor, dec_base: torch.Tensor
-) -> torch.Tensor:
-    """The decode tables packed per state as int32 ``sym | nb << 8 | base << 13``.
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode tables as (symbol uint8, step int32 ``nb | base << 5``) per state.
 
     ``nb <= table_log`` takes five bits and ``base < 2^table_log`` the rest,
-    so an entry stays positive up to table_log 18 (``FSE_MAX_DECODE_TABLE_LOG``).
+    so a step entry stays positive up to table_log 26 (``FSE_MAX_DECODE_TABLE_LOG``).
     """
-    return (
-        dec_sym.to(torch.int32) | (dec_nb.to(torch.int32) << 8) | (dec_base.to(torch.int32) << 13)
-    )
+    return dec_sym.to(torch.uint8), dec_nb.to(torch.int32) | (dec_base.to(torch.int32) << 5)
 
 
 def fse_decode_lanes(
@@ -198,31 +196,32 @@ def fse_decode_lanes(
     lane_base: torch.Tensor,
     bitlen: torch.Tensor,
     state0: torch.Tensor,
-    table: torch.Tensor,
+    sym: torch.Tensor,
+    nbb: torch.Tensor,
     max_rem: int,
 ) -> torch.Tensor:
     """Lane-parallel tANS decode: forward symbol order, backward bit reads.
 
     Lane k reads ``buf`` from byte ``lane_base[k]``; its cursor starts at
     ``bitlen[k]`` and walks backward, and a cursor below 0 reads byte 0 at
-    bit ``cursor & 7``, as the reference clamps it.  ``table`` is the packed
-    decode table (:func:`pack_fse_table`).  Returns (max_rem, n_lanes) uint8;
+    bit ``cursor & 7``, as the reference clamps it.  ``sym`` and ``nbb`` are
+    the decode tables (:func:`pack_fse_table`).  Returns (max_rem, n_lanes) uint8;
     surplus rows walk states that stay in the table.
     """
     n_lanes = bitlen.numel()
     out = torch.empty((max_rem, n_lanes), dtype=torch.uint8, device=buf.device)
-    tab = table.to(torch.int64)
+    tab = nbb.to(torch.int64)
     state = state0.to(torch.int64)
     cursor = bitlen.to(torch.int64)
     base_bits = lane_base.to(torch.int64) * 8
     one = torch.ones_like(cursor)
     for i in range(max_rem):
         e = tab[state]
-        out[i] = (e & 0xFF).to(torch.uint8)
-        nb = (e >> 8) & 0x1F
+        out[i] = sym[state]
+        nb = e & 0x1F
         cursor = cursor - nb
         win = _refill(buf, base_bits + torch.where(cursor >= 0, cursor, cursor & 7))
-        state = (e >> 13) + (win & ((one << nb) - 1))
+        state = (e >> 5) + (win & ((one << nb) - 1))
     return out
 
 

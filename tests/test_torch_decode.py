@@ -26,6 +26,7 @@ from repro.core.message import Stream as RefStream  # noqa: E402
 from repro.core.message import SType as RefSType  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch import _device  # noqa: E402
+from repro_torch.codecs._util import HeaderWriter  # noqa: E402
 from repro_torch.core.codec import get_codec  # noqa: E402
 from repro_torch.core.message import Stream, SType, from_numpy, numeric  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -197,10 +198,10 @@ def _fse_case(kind, n, table_log=11):
 
 
 def _port_fse(tables, flat, lane_base, bitlen, state0, max_rem):
-    table = ref.pack_fse_table(*(_t(a) for a in tables))
+    sym, nbb = ref.pack_fse_table(*(_t(a) for a in tables))
     return ops.fse_decode(
         _t(flat), _t(lane_base.astype(np.int64)), _t(bitlen),
-        _t(state0.astype(np.int32)), table, max_rem,
+        _t(state0.astype(np.int32)), sym, nbb, max_rem,
     ).numpy()
 
 
@@ -231,10 +232,10 @@ def test_fse_decode_plain_matches_reference(kind, n):
     np.testing.assert_array_equal(symbols, data)
 
 
-@pytest.mark.parametrize("table_log", [16, 18])
+@pytest.mark.parametrize("table_log", [16, 18, 20])
 def test_fse_decode_above_the_cards_table_log_matches_reference(table_log):
-    """The packed decode table keeps five bits for nb, so table logs past the
-    card's 15 (the CPU path's range) still decode as the reference does."""
+    """Table logs past 15, whose tables the card reads from global memory
+    instead of shared memory, decode as the reference does."""
     from repro.core.codec import get_codec as ref_get_codec
 
     x = _symbols("skewed", 70000, seed=table_log)
@@ -333,11 +334,11 @@ def test_decode_wrappers_refuse_bad_shapes_and_devices():
             torch.zeros(8, dtype=torch.uint8), torch.zeros(1, dtype=torch.int64),
             torch.zeros(100, dtype=torch.int16), 4,
         )
-    with pytest.raises(ValueError):  # a table of 2^table_log entries
+    with pytest.raises(ValueError):  # tables of 2^table_log entries
         ops.fse_decode(
             torch.zeros(8, dtype=torch.uint8), torch.zeros(1, dtype=torch.int64),
             torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int32),
-            torch.zeros(100, dtype=torch.int32), 4,
+            torch.zeros(100, dtype=torch.uint8), torch.zeros(100, dtype=torch.int32), 4,
         )
     meta = torch.zeros(8, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -372,6 +373,10 @@ def _malformed(case):
         meta = outs[1].data.numpy().copy()
         meta[1] = 1 << 11
         return spec, _replace(outs, 1, meta), header
+    if case == "fse_table_log_past_26":
+        spec, outs, header = _encoded("fse", x)
+        at = len(HeaderWriter().varint(x.size).u8(0).done())  # n, then the block log
+        return spec, outs, header[:at] + bytes([27]) + header[at + 1 :]
     if case == "tokenize_index_past_alphabet":
         spec, outs, header = _encoded("tokenize", np.arange(10, dtype=np.uint32), SType.NUMERIC, 4)
         return spec, _replace(outs, 1, np.array([0, 10] * 5, np.int32)), header
@@ -384,6 +389,7 @@ def _malformed(case):
 
 @pytest.mark.parametrize("case", [
     "huffman_offset_past_stream", "fse_lengths_past_stream", "fse_state_past_table",
+    "fse_table_log_past_26",
     "tokenize_index_past_alphabet", "range_pack_short_payload", "transpose_ragged_planes",
 ])
 def test_decoders_fail_closed_on_malformed_streams(case):
