@@ -11,25 +11,35 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (tolerance 0) against its plain PyTorch version on the same
              card, and timed beside the plain version and a one-call PyTorch
              yardstick where one exists: the encode kernels (delta, byte
-             shuffle, Huffman map, tANS encode) and the decode kernels (delta
-             decode, byte unshuffle, Huffman decode and tANS decode on column
-             A's entropy-coded streams, and the lane refill they share).
-             tANS at table_log 16, whose tables the kernels read from global
-             memory, is checked on a 4 MiB prefix as well: the card's frame
-             equals the CPU's, K10 equals its plain version, and the frame
-             decodes on the card.
-3. main    — two 64 MiB numeric columns (A: 2^23 int64 nanosecond timestamps
-             with jittered gaps; B: 2^24 zipf-distributed uint32 ids), made
-             from ``--seed``, each through ``numeric_profile()`` at level 5,
-             ``delta+transpose+huffman`` and ``delta+transpose+fse`` via
-             ``repro_torch.compress(..., device="cuda")``.  Every frame
-             decodes to its column; the frame of a 4 MiB prefix written on
-             the card equals the one written on the CPU; every encode
-             kernel's launch counter rose during this phase.
-4. decode  — each of the six frames through ``repro_torch.decompress(frame,
+             shuffle, Huffman map, tANS encode, float split on columns C's
+             and D's shapes, the histogram on column A's 2^26-byte
+             transposed stream, beside ``torch.bincount``) and the decode
+             kernels (delta decode, byte unshuffle, Huffman decode and tANS
+             decode on column A's entropy-coded streams, the lane refill they
+             share, and float merge on C's and D's planes).  tANS at
+             table_log 16, whose tables the kernels read from global memory,
+             is checked on a 4 MiB prefix, and at table_log 27, whose decode
+             step entries are 64-bit, on 64 KiB of uniform random bytes: the
+             card's frame equals the CPU's, K10 equals its plain version, and
+             the frame decodes on the card.
+3. main    — five 64 MiB columns made from ``--seed``: two numeric ones (A:
+             2^23 int64 nanosecond timestamps with jittered gaps; B: 2^24
+             zipf-distributed uint32 ids), each through ``numeric_profile()``
+             at level 5, ``delta+transpose+huffman`` and
+             ``delta+transpose+fse``; and three of normal(0, 0.02) weights,
+             each through its float profile at level 5 (C: 2^25 bfloat16,
+             one 4096 x 8192 linear layer of an LLM checkpoint, handed over
+             as a ``torch.bfloat16`` tensor; D: 2^24 float32 master weights;
+             E: 2^23 float64), all via ``repro_torch.compress(...,
+             device="cuda")``.  Every frame decodes to its column; the frame
+             of a 4 MiB prefix written on the card equals the one written on
+             the CPU; every encode kernel's launch counter rose during this
+             phase.
+4. decode  — each of the nine frames through ``repro_torch.decompress(frame,
              device="cuda")``, timed (decompress MB/s) and checked against
              its column on the card; the delta decode, byte unshuffle,
-             Huffman decode and tANS decode counters rose during this phase.
+             Huffman decode, tANS decode and float merge counters rose during
+             this phase.
 5. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
@@ -45,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -59,15 +70,38 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 # the latency floor it gives is printed on a line of its own, apart from the
 # measured numbers of the kernels line
 STEP_CYCLES = 30
-ENCODE_KERNELS = ("delta_encode", "byteshuffle", "huffman_map", "fse_encode")
-DECODE_KERNELS = ("delta_decode", "byteunshuffle", "huffman_decode", "fse_decode")
+ENCODE_KERNELS = (
+    "delta_encode", "byteshuffle", "huffman_map", "fse_encode", "float_split", "histogram",
+)
+DECODE_KERNELS = ("delta_decode", "byteunshuffle", "huffman_decode", "fse_decode", "float_merge")
 PLANS = {
     "numeric_l5": lambda rt: rt.numeric_profile(),
     "delta+transpose+huffman": lambda rt: rt.pipeline("delta", "transpose", "huffman"),
     "delta+transpose+fse": lambda rt: rt.pipeline("delta", "transpose", "fse"),
+    "bfloat16_l5": lambda rt: rt.bfloat16_profile(),
+    "float32_l5": lambda rt: rt.float32_profile(),
+    "float64_l5": lambda rt: rt.float64_profile(),
 }
+NUMERIC_PLANS = ("numeric_l5", "delta+transpose+huffman", "delta+transpose+fse")
+COLUMN_PLANS = {
+    "A_timestamps_i64": NUMERIC_PLANS,
+    "B_zipf_ids_u32": NUMERIC_PLANS,
+    "C_weights_bf16": ("bfloat16_l5",),
+    "D_weights_f32": ("float32_l5",),
+    "E_weights_f64": ("float64_l5",),
+}
+# the port's kernels in a profile (their CUDA function names), and the host
+# stages whose cumulative time the profile phase prints: selector trials,
+# the host codecs, and the frame's trip through the host
+PORT_KERNEL = re.compile(
+    r"(?:void )?((?:delta|byte(?:un)?shuffle|huffman|fse|lane_refill|float_split|float_merge"
+    r"|histogram)_\w*)")
+HOST_STAGES = ("choose_best", "_lz77_enc", "_lz77_dec", "_zlib_enc", "_zlib_dec",
+               "write_frame", "read_frame")
 COLUMN_BYTES = 64 << 20
 PREFIX_BYTES = 4 << 20
+WIDE_TABLE_LOG = 27  # above 26 the tANS decode step entries are 64-bit
+WIDE_BYTES = 64 << 10
 
 
 def fail(msg: str) -> None:
@@ -76,7 +110,11 @@ def fail(msg: str) -> None:
 
 
 def columns(seed: int):
-    """A: int64 ns timestamps, monotone with jittered gaps; B: zipf uint32 ids."""
+    """A: int64 ns timestamps, monotone with jittered gaps; B: zipf uint32 ids;
+    C, D, E: normal(0, 0.02) weights in bfloat16 (as their uint16 bit
+    patterns), float32 and float64."""
+    import torch
+
     rng = np.random.default_rng(seed)
     n_a = COLUMN_BYTES // 8
     gaps = 1_000_000 + rng.integers(-250_000, 250_000, n_a)  # ~1 ms ticks, jittered
@@ -85,7 +123,22 @@ def columns(seed: int):
     id_space = rng.integers(0, 1 << 32, 1 << 22, dtype=np.uint64).astype(np.uint32)
     rank = np.minimum(rng.zipf(1.15, n_b), id_space.size) - 1
     col_b = id_space[rank]
-    return {"A_timestamps_i64": col_a, "B_zipf_ids_u32": col_b}
+    w32 = rng.normal(0.0, 0.02, COLUMN_BYTES // 2).astype(np.float32)
+    col_c = torch.from_numpy(w32).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    col_d = rng.normal(0.0, 0.02, COLUMN_BYTES // 4).astype(np.float32)
+    col_e = rng.normal(0.0, 0.02, COLUMN_BYTES // 8)
+    return {"A_timestamps_i64": col_a, "B_zipf_ids_u32": col_b, "C_weights_bf16": col_c,
+            "D_weights_f32": col_d, "E_weights_f64": col_e}
+
+
+def stream_of(rt, cname: str, col: np.ndarray):
+    """The column as a user hands it to ``compress``: column C as a
+    ``torch.bfloat16`` weight tensor, the others as their numpy arrays."""
+    import torch
+
+    if cname == "C_weights_bf16":
+        return rt.numeric(torch.from_numpy(col.view(np.int16)).view(torch.bfloat16))
+    return rt.numeric(col)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -202,6 +255,43 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         n_sym * (1 + 4 + 4) + n_lanes * 8 + (5 * 256 + (1 << table_log)) * 4,
         n_sym * 12, None)
 
+    # K7 float split on columns C's and D's shapes (bfloat16 2^25, float32 2^24)
+    col_c = torch.from_numpy(cols["C_weights_bf16"].view(np.int16)).to(dev)
+    col_d = torch.from_numpy(cols["D_weights_f32"].view(np.int32)).to(dev)
+    split_c, split_d = ops.float_split(col_c, 0), ops.float_split(col_d, 2)
+    err = max_abs_err([*split_c, *split_d],
+                      [*ref.float_split(col_c, 0), *ref.float_split(col_d, 2)])
+    row("float_split", "src/repro_torch/csrc/float_split.cu",
+        "src/repro/kernels/float_split.py:41",
+        err, cuda_ms(lambda: ops.float_split(col_c, 0), 20),
+        cuda_ms(lambda: ref.float_split(col_c, 0), 5),
+        tensor_bytes(col_c, *split_c), 5 * col_c.numel(), None,
+        shape=f"bfloat16[{col_c.numel()}]",
+        f32_ms=cuda_ms(lambda: ops.float_split(col_d, 2), 20),
+        f32_plain_ms=cuda_ms(lambda: ref.float_split(col_d, 2), 5),
+        f32_bound_ms=tensor_bytes(col_d, *split_d) / HBM_BYTES_PER_S * 1e3)
+
+    # K13 histogram: column A's delta + transposed stream (2^26 bytes, the
+    # high planes nearly all one value), uniform random bytes, and column C's
+    # exponent plane; timed beside torch.bincount, its plain version
+    a_stream = ops.byteshuffle(ops.delta_encode(col_a).view(torch.uint8).view(-1, 8)).reshape(-1)
+    uniform = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, 256, a_stream.numel(), dtype=np.uint8)).to(dev)
+    exp_c = split_c[1]
+    hist_inputs = [a_stream, uniform, exp_c, a_stream[3:-5]]
+    err = max_abs_err([ops.histogram(x) for x in hist_inputs],
+                      [ref.histogram_exact(x) for x in hist_inputs])
+    row("histogram", "src/repro_torch/csrc/histogram.cu", "src/repro/kernels/histogram.py:38",
+        err, cuda_ms(lambda: ops.histogram(a_stream), 20),
+        cuda_ms(lambda: ref.histogram_exact(a_stream), 20),
+        a_stream.numel() + 256 * 8, a_stream.numel(),
+        cuda_ms(lambda: torch.bincount(a_stream, minlength=256), 20),
+        shape=f"uint8[{a_stream.numel()}] (column A, delta + transpose)",
+        uniform_ms=cuda_ms(lambda: ops.histogram(uniform), 20),
+        uniform_bincount_ms=cuda_ms(lambda: torch.bincount(uniform, minlength=256), 20),
+        bf16_exponent_ms=cuda_ms(lambda: ops.histogram(exp_c), 20),
+        bf16_exponent_bincount_ms=cuda_ms(lambda: torch.bincount(exp_c, minlength=256), 20))
+
     # K2 delta decode: the inverse of K1 on both columns' widths
     d_a, d_b = ops.delta_encode(col_a), ops.delta_encode(col_b)
     got = [ops.delta_decode(d_a), ops.delta_decode(d_b)]
@@ -250,6 +340,32 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     (wide_out,) = rt.decompress(wide_frame, device="cuda")
     if not torch.equal(wide_out.data, rt.numeric(prefix_a).data.to(dev)):
         fail("table_log 16: decompress on the card did not return the prefix")
+    # table_log 27: 2^27-state tables, 64-bit step entries.  Uniform bytes keep
+    # the reference's (256, max count) encode table small (skewed data at this
+    # table_log would take tens of GiB of host memory to build it).
+    t0 = time.perf_counter()
+    wide_bytes = np.random.default_rng(seed + WIDE_TABLE_LOG).integers(
+        0, 256, WIDE_BYTES, dtype=np.uint8).tobytes()
+    plan27 = rt.pipeline(("fse", {"table_log": WIDE_TABLE_LOG}))
+    frame27 = rt.compress(plan27, rt.serial(wide_bytes), device="cuda")
+    if frame27 != rt.compress(plan27, rt.serial(wide_bytes), device="cpu"):
+        fail(f"table_log {WIDE_TABLE_LOG}: the card's frame differs from the CPU's")
+    args27, _n, _stype = entropy.fse_lanes(*node_streams(frame27, "fse"))
+    sym27, nbb27 = args27[4], args27[5]
+    if nbb27.dtype != torch.int64 or nbb27.numel() != 1 << WIDE_TABLE_LOG:
+        fail(f"table_log {WIDE_TABLE_LOG}: the decode step table is not 2^27 64-bit entries")
+    err = max(err, max_abs_err([ops.fse_decode(*args27)], [ref.fse_decode_lanes(*args27)]))
+    (out27,) = rt.decompress(frame27, device="cuda")
+    if out27.content_bytes() != wide_bytes:
+        fail(f"table_log {WIDE_TABLE_LOG}: decompress on the card did not return the input")
+    table27_bytes = tensor_bytes(sym27, nbb27)
+    wide27_ms = cuda_ms(lambda: ops.fse_decode(*args27), 5)
+    print(f"check table_log {WIDE_TABLE_LOG}: {WIDE_BYTES} uniform bytes, card frame == cpu"
+          f" frame ({len(frame27)} bytes), K10 == plain, decoded on the card;"
+          f" decode tables {table27_bytes} bytes on the card;"
+          f" seconds={time.perf_counter() - t0}")
+    del args27, sym27, nbb27
+    entropy._TABLES.clear()  # drop the 2^27-state tables from the table cache
     row("fse_decode", "src/repro_torch/csrc/fse.cu", "src/repro/kernels/fse.py:167",
         err, cuda_ms(lambda: ops.fse_decode(*f_args), 10),
         cuda_ms(lambda: ref.fse_decode_lanes(*f_args), 1),
@@ -257,7 +373,8 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         f_planes.numel() * 8, None,
         shape=f"{bitlen.numel()} lanes x {f_rem}",
         table_log_16_ms=cuda_ms(lambda: ops.fse_decode(*w_args), 10),
-        table_log_16_shape=f"{w_args[2].numel()} lanes x {w_args[6]}")
+        table_log_16_shape=f"{w_args[2].numel()} lanes x {w_args[6]}",
+        table_log_27_ms=wide27_ms, table_log_27_table_bytes=table27_bytes)
     print(f"latency floor, from an assumed {STEP_CYCLES} cycles per dependent step at"
           f" the max SM clock (derived, not measured):"
           f" huffman_decode_ms={max_rem * STEP_CYCLES / sm_hz * 1e3}"
@@ -285,6 +402,20 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         2 * COLUMN_BYTES, 0, cuda_ms(lambda: planes_a.t().contiguous(), 20),
         ms_by_shape=other_ms)
 
+    # K8 float merge: C's and D's planes back to their bit patterns
+    merged = [ops.float_merge(*split_c, 0), ops.float_merge(*split_d, 2)]
+    err = max_abs_err(merged, [ref.float_merge(*split_c, 0), ref.float_merge(*split_d, 2)])
+    err = max(err, max_abs_err(merged, [col_c, col_d]))
+    row("float_merge", "src/repro_torch/csrc/float_split.cu",
+        "src/repro/kernels/float_split.py:62",
+        err, cuda_ms(lambda: ops.float_merge(*split_c, 0), 20),
+        cuda_ms(lambda: ref.float_merge(*split_c, 0), 5),
+        tensor_bytes(col_c, *split_c), 5 * col_c.numel(), None,
+        shape=f"bfloat16[{col_c.numel()}]",
+        f32_ms=cuda_ms(lambda: ops.float_merge(*split_d, 2), 20),
+        f32_plain_ms=cuda_ms(lambda: ref.float_merge(*split_d, 2), 5),
+        f32_bound_ms=tensor_bytes(col_d, *split_d) / HBM_BYTES_PER_S * 1e3)
+
     # K16 lane refill on 65,536 cursors into column A's Huffman bitstream
     rng = np.random.default_rng(seed)
     cursors = torch.from_numpy(rng.integers(0, 8 * (stream_bytes - 16), 1 << 16)).to(dev)
@@ -302,6 +433,10 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     return rows
 
 
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def node_streams(frame: bytes, codec: str):
     """The stored output streams (on the card) and the header of a frame's
     node of ``codec``."""
@@ -317,29 +452,34 @@ def node_streams(frame: bytes, codec: str):
     fail(f"the frame has no {codec} node")
 
 
+def column_plans(cols):
+    return [(cname, pname) for cname in cols for pname in COLUMN_PLANS[cname]]
+
+
 def main_path(cols, rt, ops):
-    """The three plans on both columns through the port's entry points."""
+    """Each column through its plans via the port's entry points."""
     import torch
 
     plans = {name: make(rt) for name, make in PLANS.items()}
     # warm the allocator, the kernels and PyTorch's lazily loaded modules on
     # small prefixes, outside the counted and timed run
-    for col in cols.values():
-        for plan in plans.values():
-            rt.compress(plan, rt.numeric(col[: (1 << 16) // col.itemsize]), device="cuda")
+    for cname, pname in column_plans(cols):
+        col = cols[cname]
+        rt.compress(plans[pname], stream_of(rt, cname, col[: (1 << 16) // col.itemsize]),
+                    device="cuda")
     frames = {}
     ops.reset_launches()
-    for cname, col in cols.items():
-        for pname, plan in plans.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            frame = rt.compress(plan, rt.numeric(col), device="cuda")
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            frames[cname, pname] = frame
-            print(f"main {cname} {pname} [{frame_codecs(rt, frame)}]:"
-                  f" ratio={col.nbytes / len(frame)}"
-                  f" compress_MBps={col.nbytes / dt / 1e6} seconds={dt}")
+    for cname, pname in column_plans(cols):
+        col, plan = cols[cname], plans[pname]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = rt.compress(plan, stream_of(rt, cname, col), device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        frames[cname, pname] = frame
+        print(f"main {cname} {pname} [{frame_codecs(rt, frame)}]:"
+              f" ratio={col.nbytes / len(frame)}"
+              f" compress_MBps={col.nbytes / dt / 1e6} seconds={dt}")
     launches = ops.launch_counts()
     print(f"main launches {json.dumps(launches)}")
     missing = [k for k in ENCODE_KERNELS if launches[k] == 0]
@@ -351,8 +491,8 @@ def main_path(cols, rt, ops):
         if out.content_bytes() != col.tobytes():
             fail(f"{cname} {pname}: decompress did not return the column")
         prefix = col[: PREFIX_BYTES // col.itemsize]
-        on_card = rt.compress(plans[pname], rt.numeric(prefix), device="cuda")
-        on_cpu = rt.compress(plans[pname], rt.numeric(prefix), device="cpu")
+        on_card = rt.compress(plans[pname], stream_of(rt, cname, prefix), device="cuda")
+        on_cpu = rt.compress(plans[pname], stream_of(rt, cname, prefix), device="cpu")
         if on_card != on_cpu:
             fail(f"{cname} {pname}: the card's 4 MiB frame differs from the CPU's")
         print(f"check {cname} {pname}: roundtrip ok, 4 MiB card frame == cpu frame"
@@ -368,7 +508,7 @@ def decode_phase(cols, frames, rt, ops):
     # outside the counted and timed run
     for (cname, pname), _ in frames.items():
         prefix = cols[cname][: (1 << 16) // cols[cname].itemsize]
-        frame = rt.compress(PLANS[pname](rt), rt.numeric(prefix), device="cuda")
+        frame = rt.compress(PLANS[pname](rt), stream_of(rt, cname, prefix), device="cuda")
         rt.decompress(frame, device="cuda")
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -407,15 +547,14 @@ def profile_phase(cols, frames, rt) -> None:
     time from ``torch.profiler`` (its kernels, by name) and the host's time
     from ``cProfile`` (its functions, by cumulative time)."""
     plans = {name: make(rt) for name, make in PLANS.items()}
-    for cname, col in cols.items():
-        for pname, plan in plans.items():
-            stream = rt.numeric(col)
-            codecs = frame_codecs(rt, frames[cname, pname])
-            profile_call(f"{cname} {pname} [{codecs}]",
-                         lambda: rt.compress(plan, stream, device="cuda"))
-            frame = frames[cname, pname]
-            profile_call(f"decompress {cname} {pname} [{codecs}]",
-                         lambda: rt.decompress(frame, device="cuda"))
+    for cname, pname in column_plans(cols):
+        plan, frame = plans[pname], frames[cname, pname]
+        stream = stream_of(rt, cname, cols[cname])
+        codecs = frame_codecs(rt, frame)
+        profile_call(f"{cname} {pname} [{codecs}]",
+                     lambda: rt.compress(plan, stream, device="cuda"))
+        profile_call(f"decompress {cname} {pname} [{codecs}]",
+                     lambda: rt.decompress(frame, device="cuda"))
 
 
 def profile_call(label: str, fn) -> None:
@@ -441,8 +580,14 @@ def profile_call(label: str, fn) -> None:
     ]
     busy_ms = sum(ms for ms, _ in dev)
     top = ", ".join(f"{k}={ms:.3f}" for ms, k in sorted(dev, reverse=True)[:5])
+    ours = {}
+    for ms, k in dev:
+        m = PORT_KERNEL.match(k)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms
     print(f"profile {label}: wall_ms={wall_ms} device_busy_ms={busy_ms}"
-          f" idle_share={1 - busy_ms / wall_ms} top_device_ms: {top}")
+          f" idle_share={1 - busy_ms / wall_ms} top_device_ms: {top}"
+          f" port_kernels_ms: {json.dumps(ours)}")
     host = cProfile.Profile()
     host.enable()
     fn()
@@ -453,8 +598,10 @@ def profile_call(label: str, fn) -> None:
         ((v[2] * 1e3, f"{os.path.basename(k[0])}:{k[2]}") for k, v in stats.items()),
         reverse=True,
     )
+    cum = {k[2]: v[3] * 1e3 for k, v in stats.items() if k[2] in HOST_STAGES}
     print(f"profile {label} host_self_ms: "
-          + ", ".join(f"{name}={ms:.1f}" for ms, name in rows[:8]))
+          + ", ".join(f"{name}={ms:.1f}" for ms, name in rows[:8])
+          + f" host_cumulative_ms: {json.dumps(cum)}")
 
 
 def nvidia_smi(query: str) -> str:

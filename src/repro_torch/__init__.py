@@ -11,6 +11,7 @@ Entry points::
     frame = compress(numeric_profile(), numeric(column), device="cpu")
     (out,) = decompress(frame)                   # on the card; out.data is a CUDA tensor
     (out,) = decompress(frame, device="cpu")
+    frame = compress(bfloat16_profile(), numeric(weights))  # a bf16 tensor on the card
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
@@ -18,7 +19,12 @@ a TPU kernel in the reference launches a hand-written CUDA kernel
 (``repro_torch.kernels.ops``); with ``device="cpu"`` the same codecs take
 the kernels' plain PyTorch versions.
 """
-from .codecs.profiles import numeric_profile  # noqa: F401
+from .codecs.profiles import (  # noqa: F401
+    bfloat16_profile,
+    float32_profile,
+    float64_profile,
+    numeric_profile,
+)
 from .core import (  # noqa: F401
     CompressionCtx,
     GraphBuilder,

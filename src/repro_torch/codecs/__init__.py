@@ -3,13 +3,15 @@ every codec of the port (wire-stable ids, the reference's) and its
 selectors.  Each codec encodes and decodes on the device its streams lie
 on.
 
-Codec ids in this slice:
+Codec ids ported so far:
    1 store   3 delta   4 zigzag   5 transpose   9 tokenize
-  13 range_pack   14 huffman   15 fse   17 zlib_backend
+  13 range_pack   14 huffman   15 fse   16 lz77   17 zlib_backend
+  18 float_split
 """
 from . import basic  # noqa: F401
 from . import numeric  # noqa: F401
 from . import entropy  # noqa: F401
 from . import lz  # noqa: F401
+from . import floats  # noqa: F401
 from . import selectors  # noqa: F401
 from . import profiles  # noqa: F401

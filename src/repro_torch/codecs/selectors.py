@@ -85,6 +85,19 @@ def numeric_candidates(level: int) -> List[Tuple[str, Plan]]:
     return cands
 
 
+def bytes_candidates(level: int) -> List[Tuple[str, Plan]]:
+    cands = entropy_candidates(level)
+    if level >= 4:
+        g = GraphBuilder(1)
+        lit, runs, mls, offs = g.add("lz77", g.input(0))
+        g.add("huffman", lit)
+        g.add("range_pack", runs)
+        g.add("range_pack", mls)
+        g.add("range_pack", offs)
+        cands.append(("lz77+entropy", g.build("lz_backend")))
+    return cands
+
+
 # ------------------------------------------------------------ the selectors
 def _entropy_auto(streams, params, ctx):
     return choose_best(entropy_candidates(ctx.level), streams, ctx)
@@ -94,5 +107,10 @@ def _numeric_auto(streams, params, ctx):
     return choose_best(numeric_candidates(ctx.level), streams, ctx)
 
 
+def _bytes_auto(streams, params, ctx):
+    return choose_best(bytes_candidates(ctx.level), streams, ctx)
+
+
 register_selector(SelectorSpec("entropy_auto", _entropy_auto, doc="store/huffman/fse/zlib by trial"))
 register_selector(SelectorSpec("numeric_auto", _numeric_auto, doc="numeric backend by trial"))
+register_selector(SelectorSpec("bytes_auto", _bytes_auto, doc="entropy menu + lz77 graph by trial"))

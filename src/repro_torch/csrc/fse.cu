@@ -21,7 +21,9 @@
 // table stays in global memory, where the card's L2 (50 MB) holds it after
 // the first steps; the kernel is templated on where the table lives.  The
 // (max_rem, n_lanes) layout makes every step's symbol read and (value,
-// nbits) write coalesced across the warp.
+// nbits) write coalesced across the warp.  X = state + total stays below
+// 2^(table_log + 1) and is held in an int, so table_log is at most 30, the
+// port's limit on both sides (kernels/ref.py FSE_MAX_TABLE_LOG).
 #include "common.cuh"
 
 #define FSE_SHARED_TABLE (1 << 15)  // the largest table held in shared memory
@@ -132,31 +134,34 @@ REPRO_API int repro_fse_encode(const void* lanesT, const void* rem, const void* 
 //
 // Bound: latency.  Each lane is a chain of 1024 dependent table steps.
 // Design: one thread per lane.  The decode tables come as two arrays of
-// 2^table_log entries: the symbols (u8) and nb | dec_base << 5 (u32, which
-// holds dec_base up to table_log 26).  Up to FSE_SHARED_TABLE entries the
+// 2^table_log entries: the symbols (u8) and nb | dec_base << 5 (u32 up to
+// table_log 26; from table_log 27, where dec_base needs more than 27 bits,
+// u64, so the tables of those frames take 9 bytes a state: 1.125 GiB at
+// table_log 27).  Up to FSE_SHARED_TABLE entries the
 // block merges them into one u32 per state in dynamic shared memory
 // (sym | (nb | dec_base << 5) << 8, which fits up to table_log 19),
 // so a step is one shared-memory load (8 KiB at table_log 11, 128 KiB at
 // table_log 15; above 48 KB the launch sets the attribute).  A larger table
 // is read from global memory, two loads per step, where the L2 holds it
-// (the kernel is templated on where the tables live).  Lanes read the concatenated wire bitstream at
+// (the kernel is templated on where the tables live and on the step entry's
+// width).  Lanes read the concatenated wire bitstream at
 // their own byte offsets (lane_base, the exclusive sum of (bitlen + 7) / 8):
 // every unmasked bit a step uses lies inside its own lane, and the caller
 // pads the tail by 8 bytes.  The output is the (max_rem, n_lanes) plane
 // layout, coalesced per step; K4 puts it back into symbol order.
-template <bool kSharedTable>
+template <bool kSharedTable, typename Entry>
 __global__ void fse_decode_kernel(const uint8_t* __restrict__ buf,
                                   const long long* __restrict__ lane_base,
                                   const long long* __restrict__ bitlen,
                                   const int* __restrict__ state0,
                                   const uint8_t* __restrict__ sym,
-                                  const uint32_t* __restrict__ nbb,
+                                  const Entry* __restrict__ nbb,
                                   uint8_t* __restrict__ out, int max_rem,
                                   long long n_lanes, int total) {
   extern __shared__ uint32_t s_tab[];
   if (kSharedTable) {
     for (int i = threadIdx.x; i < total; i += blockDim.x)
-      s_tab[i] = (uint32_t)sym[i] | (nbb[i] << 8);
+      s_tab[i] = (uint32_t)sym[i] | ((uint32_t)nbb[i] << 8);
     __syncthreads();
   }
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -166,7 +171,7 @@ __global__ void fse_decode_kernel(const uint8_t* __restrict__ buf,
   uint32_t state = (uint32_t)state0[lane];
   uint8_t* o = out + lane;
   for (int i = 0; i < max_rem; ++i) {
-    uint32_t e;
+    Entry e;
     if (kSharedTable) {
       const uint32_t packed = s_tab[state];
       o[(long long)i * n_lanes] = (uint8_t)packed;
@@ -175,39 +180,45 @@ __global__ void fse_decode_kernel(const uint8_t* __restrict__ buf,
       e = nbb[state];
       o[(long long)i * n_lanes] = sym[state];
     }
-    const uint32_t nb = e & 0x1Fu;
+    const uint32_t nb = (uint32_t)e & 0x1Fu;
     cursor -= nb;
     const uint32_t win = refill32(lb, cursor >= 0 ? cursor : (cursor & 7));
-    state = (e >> 5) + (win & ((1u << nb) - 1u));
+    state = (uint32_t)(e >> 5) + (win & ((1u << nb) - 1u));
   }
 }
 
-template <bool kSharedTable>
+template <bool kSharedTable, typename Entry>
 static int launch_decode(const void* buf, const void* lane_base, const void* bitlen,
                          const void* state0, const void* sym, const void* nbb, void* out,
                          int max_rem, long long n_lanes, int total, cudaStream_t stream) {
   const int threads = 128;
   const size_t smem = kSharedTable ? (size_t)total * sizeof(uint32_t) : 0;
-  cudaError_t err = cudaFuncSetAttribute(fse_decode_kernel<kSharedTable>,
+  cudaError_t err = cudaFuncSetAttribute(fse_decode_kernel<kSharedTable, Entry>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (n_lanes + threads - 1) / threads;
   if (blocks < 1 || blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  fse_decode_kernel<kSharedTable><<<(unsigned int)blocks, threads, smem, stream>>>(
+  fse_decode_kernel<kSharedTable, Entry><<<(unsigned int)blocks, threads, smem, stream>>>(
       (const uint8_t*)buf, (const long long*)lane_base, (const long long*)bitlen,
-      (const int*)state0, (const uint8_t*)sym, (const uint32_t*)nbb, (uint8_t*)out,
+      (const int*)state0, (const uint8_t*)sym, (const Entry*)nbb, (uint8_t*)out,
       max_rem, n_lanes, total);
   return (int)cudaGetLastError();
 }
 
+// entry_bytes is 4 (nb | dec_base << 5 in a u32, table_log <= 26) or 8 (u64)
 REPRO_API int repro_fse_decode(const void* buf, const void* lane_base, const void* bitlen,
                                const void* state0, const void* sym, const void* nbb,
                                void* out, int max_rem, long long n_lanes, int total,
-                               void* stream) {
+                               int entry_bytes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (entry_bytes == 8)
+    return launch_decode<false, unsigned long long>(buf, lane_base, bitlen, state0, sym,
+                                                    nbb, out, max_rem, n_lanes, total, s);
+  if (entry_bytes != 4) return (int)cudaErrorInvalidValue;
   if (total <= FSE_SHARED_TABLE)
-    return launch_decode<true>(buf, lane_base, bitlen, state0, sym, nbb, out, max_rem,
-                               n_lanes, total, (cudaStream_t)stream);
-  return launch_decode<false>(buf, lane_base, bitlen, state0, sym, nbb, out, max_rem,
-                              n_lanes, total, (cudaStream_t)stream);
+    return launch_decode<true, uint32_t>(buf, lane_base, bitlen, state0, sym, nbb, out,
+                                         max_rem, n_lanes, total, s);
+  return launch_decode<false, uint32_t>(buf, lane_base, bitlen, state0, sym, nbb, out,
+                                        max_rem, n_lanes, total, s);
 }

@@ -21,6 +21,9 @@ Kernels and the TPU kernels they replace:
   ``huffman_map``      ``huffman.py`` ``huffman_map_pallas`` (K14)
   ``huffman_decode``   ``huffman.py`` ``huffman_decode_pallas`` (K15)
   ``lane_refill``      ``lane_refill.py`` ``lane_refill_pallas`` (K16)
+  ``float_split``      ``float_split.py`` ``float_split_pallas`` (K7)
+  ``float_merge``      ``float_split.py`` ``float_merge_pallas`` (K8)
+  ``histogram``        ``histogram.py`` ``histogram_pallas`` (K13)
   ===================  ===========================================================
 
 K16's body is the ``__device__`` function ``refill32`` (``csrc/common.cuh``)
@@ -32,11 +35,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..core.message import CARRIER
 from . import ref
 
 KERNELS = (
     "delta_encode", "byteshuffle", "huffman_map", "fse_encode",
     "delta_decode", "byteunshuffle", "huffman_decode", "fse_decode", "lane_refill",
+    "float_split", "float_merge", "histogram",
 )
 HUFFMAN_LUT_ENTRIES = 1 << 15
 
@@ -317,9 +322,10 @@ def fse_decode(
     ``buf`` is the concatenated lane bitstreams padded by 8 zero bytes,
     ``lane_base`` each lane's int64 byte offset, ``bitlen`` its int64 bit
     length, ``state0`` its int32 final encoder state, and ``sym`` (uint8)
-    and ``nbb`` (int32) the decode tables of 2^table_log entries
-    (``ref.pack_fse_table``).  The kernel holds tables of up to 2^15 entries
-    in shared memory and reads larger ones from global memory.
+    and ``nbb`` (int32 up to table_log 26, int64 above) the decode tables of
+    2^table_log entries (``ref.pack_fse_table``).  The kernel holds int32
+    tables of up to 2^15 entries in shared memory and reads larger ones from
+    global memory.
     """
     n_lanes = bitlen.numel()
     total = nbb.numel()
@@ -329,9 +335,11 @@ def fse_decode(
         raise ValueError("fse_decode: 1-D buffer and n_lanes-long lane vectors expected")
     if (
         nbb.dim() != 1 or sym.shape != nbb.shape or total & (total - 1)
-        or not 1 <= total <= 1 << ref.FSE_MAX_DECODE_TABLE_LOG or max_rem < 0
+        or not 1 <= total <= 1 << ref.FSE_MAX_TABLE_LOG or max_rem < 0
     ):
         raise ValueError("fse_decode: two 2^table_log-entry tables and max_rem >= 0 expected")
+    if nbb.dtype == torch.int32 and total > 1 << ref.FSE_NARROW_TABLE_LOG:
+        raise ValueError("fse_decode: above table_log 26 the step entries are int64")
     if _on_cpu(buf, lane_base, bitlen, state0, sym, nbb):
         return ref.fse_decode_lanes(buf, lane_base, bitlen, state0, sym, nbb, max_rem)
     _need(buf, torch.uint8, "fse_decode bitstream")
@@ -339,14 +347,14 @@ def fse_decode(
         _need(t, torch.int64, f"fse_decode {what}")
     _need(state0, torch.int32, "fse_decode states")
     _need(sym, torch.uint8, "fse_decode symbol table")
-    _need(nbb, torch.int32, "fse_decode step table")
+    _need(nbb, torch.int64 if nbb.dtype == torch.int64 else torch.int32, "fse_decode step table")
     out = torch.empty((max_rem, n_lanes), dtype=torch.uint8, device=buf.device)
     if n_lanes and max_rem:
         _launched(
             _lib().repro_fse_decode(
                 buf.data_ptr(), lane_base.data_ptr(), bitlen.data_ptr(), state0.data_ptr(),
                 sym.data_ptr(), nbb.data_ptr(), out.data_ptr(), max_rem, n_lanes, total,
-                _stream(buf),
+                nbb.element_size(), _stream(buf),
             ),
             "fse_decode",
         )
@@ -383,3 +391,95 @@ def lane_refill(buf: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
 
 
 lane_refill.launches = 0
+
+
+# ------------------------------------------------------- K7 / K8 float split
+def _float_planes(fmt: int) -> Tuple[int, int, int, int, int]:
+    if fmt not in ref.FLOAT_FORMATS:
+        raise ValueError(f"float_split: unknown fmt {fmt}; formats {sorted(ref.FLOAT_FORMATS)}")
+    return ref.FLOAT_FORMATS[fmt]
+
+
+def float_split(u: torch.Tensor, fmt: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bit patterns of ``fmt`` -> (packed sign bits uint8, exponent, mantissa).
+
+    ``u`` is the int16 / int32 / int64 carrier of the format's width; the
+    planes come in the carriers of their widths (``ref.FLOAT_FORMATS``).
+    """
+    width, exp_bits, man_bits, exp_width, man_width = _float_planes(fmt)
+    if u.dim() != 1 or u.element_size() != width or u.is_floating_point():
+        raise TypeError(f"float_split: 1-D integer carrier of width {width}, got {u.dtype}")
+    if _on_cpu(u):
+        return ref.float_split(u, fmt)
+    _need(u, CARRIER[width], "float_split bit patterns")
+    n = u.numel()
+    sign = torch.empty((n + 7) // 8, dtype=torch.uint8, device=u.device)
+    exp = torch.empty(n, dtype=CARRIER[exp_width], device=u.device)
+    man = torch.empty(n, dtype=CARRIER[man_width], device=u.device)
+    if n:
+        _launched(
+            _lib().repro_float_split(
+                u.data_ptr(), sign.data_ptr(), exp.data_ptr(), man.data_ptr(), n,
+                width, exp_width, man_width, exp_bits, man_bits, _stream(u),
+            ),
+            "float_split",
+        )
+        float_split.launches += 1
+    return sign, exp, man
+
+
+float_split.launches = 0
+
+
+def float_merge(
+    sign: torch.Tensor, exp: torch.Tensor, man: torch.Tensor, fmt: int
+) -> torch.Tensor:
+    """(packed sign bits, exponent, mantissa) -> the format's bit patterns.
+
+    The planes are K7's outputs: ``exp`` and ``man`` of one length n in the
+    carriers of the format's plane widths, ``sign`` at least ceil(n / 8) bytes.
+    """
+    width, exp_bits, man_bits, exp_width, man_width = _float_planes(fmt)
+    n = man.numel()
+    if sign.dim() != 1 or exp.shape != (n,) or man.dim() != 1 or sign.numel() < (n + 7) // 8:
+        raise ValueError("float_merge: ceil(n / 8) sign bytes and two n-long planes expected")
+    if _on_cpu(sign, exp, man):
+        return ref.float_merge(sign, exp, man, fmt)
+    _need(sign, torch.uint8, "float_merge signs")
+    _need(exp, CARRIER[exp_width], "float_merge exponents")
+    _need(man, CARRIER[man_width], "float_merge mantissas")
+    out = torch.empty(n, dtype=CARRIER[width], device=man.device)
+    if n:
+        _launched(
+            _lib().repro_float_merge(
+                sign.data_ptr(), exp.data_ptr(), man.data_ptr(), out.data_ptr(), n,
+                width, exp_width, man_width, exp_bits, man_bits, _stream(man),
+            ),
+            "float_merge",
+        )
+        float_merge.launches += 1
+    return out
+
+
+float_merge.launches = 0
+
+
+# ------------------------------------------------------------- K13 histogram
+def histogram(x: torch.Tensor) -> torch.Tensor:
+    """Exact 256-bin counts (int64) of a 1-D uint8 stream, at any size."""
+    if x.dim() != 1:
+        raise ValueError(f"histogram: 1-D byte stream expected, got {tuple(x.shape)}")
+    if _on_cpu(x):
+        return ref.histogram_exact(x)
+    _need(x, torch.uint8, "histogram symbols")
+    out = torch.zeros(256, dtype=torch.int64, device=x.device)
+    if x.numel():
+        _launched(
+            _lib().repro_histogram(x.data_ptr(), x.numel(), out.data_ptr(), _stream(x)),
+            "histogram",
+        )
+        histogram.launches += 1
+    return out
+
+
+histogram.launches = 0

@@ -5,9 +5,10 @@ computes (and what the reference's jnp oracle in ``repro/kernels/ref.py``
 computes).  ``kernels/ops.py`` takes them for tensors on the CPU, and
 ``chip_smoke.py`` holds every kernel against them on the card.
 
-The glue — the exact histogram, the exclusive bit offsets, the tANS lane
+The glue — the exclusive bit offsets, the tANS lane
 offsets and the bit packer — was XLA glue outside Pallas in the reference;
-here it is these PyTorch ops on whatever device the data is on.
+here it is these PyTorch ops on whatever device the data is on.  The
+reference's exact histogram was such glue too; in the port it is K13.
 
 Unsigned arithmetic: PyTorch's ``uint32`` lacks subtraction, shifts and
 comparisons, so 32-bit unsigned data is carried as int64 masked to 32 bits,
@@ -15,14 +16,28 @@ and wrapping is done in int64 and masked, never left to signed overflow.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.message import join_u32, narrow_unsigned, sub_u64, widen_unsigned
 
 _U32 = 0xFFFFFFFF
-FSE_MAX_DECODE_TABLE_LOG = 26  # dec_base's bits in the packed tANS step entry
+# tANS tables: K9 holds X = state + 2^table_log (< 2^(table_log + 1)) in an
+# int32, so both sides stop at table_log 30; the packed u32 decode step entry
+# nb | base << 5 holds base up to table_log 26, and larger tables take u64
+FSE_MAX_TABLE_LOG = 30
+FSE_NARROW_TABLE_LOG = 26
+
+# float_split formats: fmt -> (width, exp_bits, man_bits, exp_width, man_width),
+# the bytes of a value, of its exponent plane and of its mantissa plane
+FLOAT_FORMATS = {
+    0: (2, 8, 7, 1, 1),  # bfloat16
+    1: (2, 5, 10, 1, 2),  # float16
+    2: (4, 8, 23, 1, 4),  # float32
+    3: (8, 11, 52, 2, 8),  # float64
+}
+_SIGN_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)  # np.packbits: the first value in the top bit
 
 
 # ------------------------------------------------------------------ K1 delta
@@ -181,14 +196,21 @@ def huffman_decode_lanes(
 
 # ---------------------------------------------------------- K10 tANS decode
 def pack_fse_table(
-    dec_sym: torch.Tensor, dec_nb: torch.Tensor, dec_base: torch.Tensor
+    dec_sym: torch.Tensor,
+    dec_nb: torch.Tensor,
+    dec_base: torch.Tensor,
+    wide: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decode tables as (symbol uint8, step int32 ``nb | base << 5``) per state.
+    """The decode tables as (symbol uint8, step entry ``nb | base << 5``) per state.
 
-    ``nb <= table_log`` takes five bits and ``base < 2^table_log`` the rest,
-    so a step entry stays positive up to table_log 26 (``FSE_MAX_DECODE_TABLE_LOG``).
+    ``nb <= table_log`` takes five bits and ``base < 2^table_log`` the rest:
+    the entry is int32 up to table_log 26 (``FSE_NARROW_TABLE_LOG``) and
+    int64 above it (``wide``, which defaults to the table's size).
     """
-    return dec_sym.to(torch.uint8), dec_nb.to(torch.int32) | (dec_base.to(torch.int32) << 5)
+    if wide is None:
+        wide = dec_sym.numel() > 1 << FSE_NARROW_TABLE_LOG
+    step = torch.int64 if wide else torch.int32
+    return dec_sym.to(torch.uint8), dec_nb.to(step) | (dec_base.to(step) << 5)
 
 
 def fse_decode_lanes(
@@ -225,7 +247,50 @@ def fse_decode_lanes(
     return out
 
 
-# ----------------------------------------------------------------------- glue
+# ------------------------------------------------------------ K7 float split
+def float_split(
+    u: torch.Tensor, fmt: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bit patterns of ``fmt`` (int16 / int32 / int64 carrier) -> planes.
+
+    Returns the sign bits packed as ``np.packbits`` packs them (uint8,
+    ceil(n / 8) bytes), the exponent plane (uint8, or int16 for float64) and
+    the mantissa plane (the carrier of ``man_width`` bytes).  The carrier is
+    signed, so every field is masked after its shift: an arithmetic shift's
+    copies of the sign bit never reach a plane.
+    """
+    _width, exp_bits, man_bits, exp_width, man_width = FLOAT_FORMATS[fmt]
+    v = widen_unsigned(u)  # int64: the unsigned value, or the 64-bit pattern
+    sign = (v >> (exp_bits + man_bits)) & 1
+    exp = (v >> man_bits) & ((1 << exp_bits) - 1)
+    man = v & ((1 << man_bits) - 1)
+    bits = torch.cat([sign, sign.new_zeros((-sign.numel()) % 8)]).view(-1, 8)
+    shifts = torch.tensor(_SIGN_SHIFTS, dtype=torch.int64, device=u.device)
+    packed = (bits << shifts).sum(1).to(torch.uint8)
+    return packed, narrow_unsigned(exp, exp_width), narrow_unsigned(man, man_width)
+
+
+# ------------------------------------------------------------ K8 float merge
+def float_merge(
+    sign: torch.Tensor, exp: torch.Tensor, man: torch.Tensor, fmt: int
+) -> torch.Tensor:
+    """(packed sign bits, exponent, mantissa) -> the bit patterns of ``fmt``.
+
+    ``(sign << (exp_bits + man_bits)) | (exp << man_bits) | man`` on the
+    unsigned values, cut to the format's width, with no plane masked — what
+    the codec's decoder computes.  ``n`` is the mantissa plane's length;
+    ``sign`` holds at least ceil(n / 8) bytes.
+    """
+    width, exp_bits, man_bits, _exp_width, _man_width = FLOAT_FORMATS[fmt]
+    n = man.numel()
+    shifts = torch.tensor(_SIGN_SHIFTS, dtype=torch.int64, device=sign.device)
+    bytes_ = sign[: (n + 7) // 8].to(torch.int64)
+    s = ((bytes_[:, None] >> shifts[None, :]) & 1).reshape(-1)[:n]
+    u = (s << (exp_bits + man_bits)) | (widen_unsigned(exp) << man_bits) | widen_unsigned(man)
+    return narrow_unsigned(u, width)
+
+
+# ---------------------------------------------------------------- K13 histogram
 def histogram_exact(x: torch.Tensor) -> torch.Tensor:
     """256-bin byte histogram with integer counts (int64), exact at any size."""
     return torch.bincount(x, minlength=256)

@@ -19,9 +19,9 @@ from repro_torch.core.message import SType, from_numpy  # noqa: E402
 
 PORTED = (
     "store", "delta", "zigzag", "transpose", "range_pack",
-    "tokenize", "huffman", "fse", "zlib_backend",
+    "tokenize", "huffman", "fse", "zlib_backend", "lz77", "float_split",
 )
-DEVICE_TWINS = ("delta", "transpose", "huffman", "fse")
+DEVICE_TWINS = ("delta", "transpose", "huffman", "fse", "float_split")
 UNSIGNED = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 
@@ -62,13 +62,20 @@ def _cases(codec):
         if codec == "fse":
             out.append((_bytes("skewed", 5000, 6), {"table_log": 9}))
         return out
-    if codec in ("store", "zlib_backend"):
+    if codec == "float_split":
+        for width in (2, 4, 8):
+            for kind in ("walk", "full", "few"):
+                for n in (0, 1, 3001):
+                    out.append((_numeric(kind, width, n, width * 7 + n), {}))
+        out.append((_numeric("full", 2, 999, 3), {"fmt": 1}))
+        return out
+    if codec in ("store", "zlib_backend", "lz77"):
         out.append((_bytes("skewed", 4000, 1), {}))
     for width in (1, 2, 4, 8):
         for kind in ("walk", "full", "few"):
             for n in (0, 1, 3001):
                 out.append((_numeric(kind, width, n, width * 7 + n), {}))
-    if codec in ("transpose", "tokenize", "store", "zlib_backend"):
+    if codec in ("transpose", "tokenize", "store", "zlib_backend", "lz77"):
         rec = np.random.default_rng(2).integers(0, 4, 3 * 500).astype(np.uint8)
         out.append((RefStream(rec, RefSType.STRUCT, 3), {}))
     return out

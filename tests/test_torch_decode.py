@@ -35,7 +35,8 @@ UNSIGNED = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 IN_SLICE = (
     "codec_store", "codec_delta", "codec_transpose", "codec_zigzag",
     "codec_range_pack", "codec_tokenize", "codec_huffman", "codec_fse",
-    "codec_zlib_backend", "profile_numeric",
+    "codec_zlib_backend", "profile_numeric", "codec_float_split", "codec_lz77",
+    "profile_float32", "profile_bfloat16", "profile_float64",
 )
 
 
@@ -248,6 +249,34 @@ def test_fse_decode_above_the_cards_table_log_matches_reference(table_log):
     assert back.content_bytes() == want.content_bytes()
 
 
+def test_fse_step_entries_widen_past_table_log_26():
+    """Above table_log 26 a step entry is int64, so ``base`` keeps every bit;
+    checked on small tables (a 2^27-entry table is checked on the card)."""
+    nb = torch.tensor([0, 1, 26, 27, 30, 31], dtype=torch.int32)
+    base = torch.tensor([0, 1 << 26, (1 << 27) - 1, 1 << 29, (1 << 30) - 1, 12345], dtype=torch.int32)
+    sym = torch.arange(6, dtype=torch.int32)
+    _sym, wide = ref.pack_fse_table(sym, nb, base, wide=True)
+    assert wide.dtype == torch.int64
+    np.testing.assert_array_equal((wide & 0x1F).numpy(), nb.numpy())
+    np.testing.assert_array_equal((wide >> 5).numpy(), base.numpy())
+    # the wide layout decodes a real table_log 11 stream as the narrow one does
+    data, stream, offsets, tables, lanes = _fse_case("skewed", 5000)
+    assert ref.pack_fse_table(*(_t(a) for a in tables))[1].dtype == torch.int32
+    sym8, wide = ref.pack_fse_table(*(_t(a) for a in tables), wide=True)
+    buf = np.concatenate([stream, np.zeros(8, np.uint8)])
+    _flat, _base, bitlen, state0, max_rem = lanes
+    args = (_t(buf), _t(offsets[:-1].astype(np.int64)), _t(bitlen), _t(state0.astype(np.int32)))
+    got = ops.fse_decode(*args, sym8, wide, max_rem)
+    np.testing.assert_array_equal(got.numpy(), _port_fse(tables, buf, offsets[:-1], bitlen, state0, max_rem))
+    np.testing.assert_array_equal(ops.byteunshuffle(got).reshape(-1)[:5000].numpy(), data)
+
+
+def test_fse_encoder_refuses_a_table_log_past_the_ports_limit():
+    x = _symbols("skewed", 3000)
+    with pytest.raises(ValueError):
+        _encoded("fse", x, params={"table_log": ref.FSE_MAX_TABLE_LOG + 1})
+
+
 def test_fse_decode_plain_matches_pallas_interpret():
     _data, _stream, _offsets, tables, lanes = _fse_case("skewed", 1500)
     np.testing.assert_array_equal(
@@ -373,10 +402,13 @@ def _malformed(case):
         meta = outs[1].data.numpy().copy()
         meta[1] = 1 << 11
         return spec, _replace(outs, 1, meta), header
-    if case == "fse_table_log_past_26":
+    if case == "fse_counts_off_the_table":
+        # the same counts under a header that says table_log 12: they sum to
+        # 2^11, not 2^12, and the tables are never built
         spec, outs, header = _encoded("fse", x)
         at = len(HeaderWriter().varint(x.size).u8(0).done())  # n, then the block log
-        return spec, outs, header[:at] + bytes([27]) + header[at + 1 :]
+        assert header[at] == 11
+        return spec, outs, header[:at] + bytes([12]) + header[at + 1 :]
     if case == "tokenize_index_past_alphabet":
         spec, outs, header = _encoded("tokenize", np.arange(10, dtype=np.uint32), SType.NUMERIC, 4)
         return spec, _replace(outs, 1, np.array([0, 10] * 5, np.int32)), header
@@ -389,7 +421,7 @@ def _malformed(case):
 
 @pytest.mark.parametrize("case", [
     "huffman_offset_past_stream", "fse_lengths_past_stream", "fse_state_past_table",
-    "fse_table_log_past_26",
+    "fse_counts_off_the_table",
     "tokenize_index_past_alphabet", "range_pack_short_payload", "transpose_ragged_planes",
 ])
 def test_decoders_fail_closed_on_malformed_streams(case):

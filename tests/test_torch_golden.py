@@ -19,7 +19,8 @@ from repro_torch.core.message import SType, from_numpy  # noqa: E402
 IN_SLICE = (
     "codec_store", "codec_delta", "codec_transpose", "codec_zigzag",
     "codec_range_pack", "codec_tokenize", "codec_huffman", "codec_fse",
-    "codec_zlib_backend", "profile_numeric",
+    "codec_zlib_backend", "profile_numeric", "codec_float_split", "codec_lz77",
+    "profile_float32", "profile_bfloat16", "profile_float64",
 )
 MANIFEST = load_manifest()
 ALL_PLANS = sorted(p.stem for p in GOLDEN_DIR.glob("*.ozp"))
