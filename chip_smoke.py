@@ -7,38 +7,51 @@ Usage (from the repository root, on a machine with one CUDA card):
 Phases, in order; any failure exits non-zero, and no result line is printed:
 
 1. build   — compile the port's CUDA kernels from ``src/repro_torch/csrc``.
-2. kernels — each kernel at the main path's shapes, held bit-exactly
-             (tolerance 0) against its plain PyTorch version on the same
-             card, and timed beside the plain version and a one-call PyTorch
-             yardstick where one exists: the encode kernels (delta, byte
-             shuffle, Huffman map, tANS encode, float split on columns C's
-             and D's shapes, the histogram on column A's 2^26-byte
-             transposed stream, beside ``torch.bincount``) and the decode
+2. kernels — each of the sixteen kernels at the main path's shapes, held
+             bit-exactly (tolerance 0) against its plain PyTorch version on
+             the same card, and timed beside the plain version and a one-call
+             PyTorch yardstick where one exists: the encode kernels (delta,
+             byte shuffle, Huffman map, tANS encode, float split on columns
+             C's and D's shapes, the histogram on column A's 2^26-byte
+             transposed stream, beside ``torch.bincount``), the decode
              kernels (delta decode, byte unshuffle, Huffman decode and tANS
              decode on column A's entropy-coded streams, the lane refill they
-             share, and float merge on C's and D's planes).  tANS at
+             share, and float merge on C's and D's planes), and the bit
+             packers: bitpack and bitunpack (K5, K6) at every bits in {1, 2,
+             4, 8, 16, 32} and stream width 1/2/4 on small ragged sizes, then
+             timed on column G at 4 bits and on B's deltas at 32 bits, and
+             fused delta + bitpack and its decode (K11, K12) at every bits on
+             ragged sizes, then timed on column F at 8 bits.  tANS at
              table_log 16, whose tables the kernels read from global memory,
              is checked on a 4 MiB prefix, and at table_log 27, whose decode
              step entries are 64-bit, on 64 KiB of uniform random bytes: the
              card's frame equals the CPU's, K10 equals its plain version, and
              the frame decodes on the card.
-3. main    — five 64 MiB columns made from ``--seed``: two numeric ones (A:
+3. main    — seven 64 MiB columns made from ``--seed``: two numeric ones (A:
              2^23 int64 nanosecond timestamps with jittered gaps; B: 2^24
              zipf-distributed uint32 ids), each through ``numeric_profile()``
              at level 5, ``delta+transpose+huffman`` and
-             ``delta+transpose+fse``; and three of normal(0, 0.02) weights,
-             each through its float profile at level 5 (C: 2^25 bfloat16,
-             one 4096 x 8192 linear layer of an LLM checkpoint, handed over
-             as a ``torch.bfloat16`` tensor; D: 2^24 float32 master weights;
-             E: 2^23 float64), all via ``repro_torch.compress(...,
-             device="cuda")``.  Every frame decodes to its column; the frame
-             of a 4 MiB prefix written on the card equals the one written on
-             the CPU; every encode kernel's launch counter rose during this
-             phase.
-4. decode  — each of the nine frames through ``repro_torch.decompress(frame,
-             device="cuda")``, timed (decompress MB/s) and checked against
-             its column on the card; the delta decode, byte unshuffle,
-             Huffman decode, tANS decode and float merge counters rose during
+             ``delta+transpose+fse``, and B also through ``delta+bitpack``,
+             whose wrapped u32 deltas refuse fusion, so the step lowers to
+             ``delta`` + ``bitpack`` at 32 bits (K1, K5); three of
+             normal(0, 0.02) weights, each through its float profile at
+             level 5 (C: 2^25 bfloat16, one 4096 x 8192 linear layer of an
+             LLM checkpoint, handed over as a ``torch.bfloat16`` tensor; D:
+             2^24 float32 master weights; E: 2^23 float64); F: 2^24 uint32
+             string offsets (an Arrow/Parquet offsets buffer) through
+             ``delta+bitpack``, which fuses to ``fused_delta_bitpack`` at 8
+             bits (K1 for the precondition, K11); and G: 2^26 int4 weight
+             codes stored one per byte through ``bitpack``, at 4 bits (K5);
+             all via ``repro_torch.compress(..., device="cuda")``.  Every
+             frame decodes to its column and records the codecs above; the
+             frame of a 4 MiB prefix written on the card equals the one
+             written on the CPU; every encode kernel's launch counter rose
+             during this phase.
+4. decode  — each of the twelve frames through
+             ``repro_torch.decompress(frame, device="cuda")``, timed
+             (decompress MB/s) and checked against its column on the card;
+             the delta decode, byte unshuffle, Huffman decode, tANS decode,
+             float merge, bitunpack and fused decode counters rose during
              this phase.
 5. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
@@ -72,8 +85,12 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 STEP_CYCLES = 30
 ENCODE_KERNELS = (
     "delta_encode", "byteshuffle", "huffman_map", "fse_encode", "float_split", "histogram",
+    "bitpack", "fused_delta_bitpack",
 )
-DECODE_KERNELS = ("delta_decode", "byteunshuffle", "huffman_decode", "fse_decode", "float_merge")
+DECODE_KERNELS = (
+    "delta_decode", "byteunshuffle", "huffman_decode", "fse_decode", "float_merge",
+    "bitunpack", "fused_delta_bitpack_decode",
+)
 PLANS = {
     "numeric_l5": lambda rt: rt.numeric_profile(),
     "delta+transpose+huffman": lambda rt: rt.pipeline("delta", "transpose", "huffman"),
@@ -81,21 +98,34 @@ PLANS = {
     "bfloat16_l5": lambda rt: rt.bfloat16_profile(),
     "float32_l5": lambda rt: rt.float32_profile(),
     "float64_l5": lambda rt: rt.float64_profile(),
+    "delta+bitpack": lambda rt: rt.pipeline("delta", "bitpack"),
+    "bitpack": lambda rt: rt.pipeline("bitpack"),
 }
 NUMERIC_PLANS = ("numeric_l5", "delta+transpose+huffman", "delta+transpose+fse")
 COLUMN_PLANS = {
     "A_timestamps_i64": NUMERIC_PLANS,
-    "B_zipf_ids_u32": NUMERIC_PLANS,
+    "B_zipf_ids_u32": NUMERIC_PLANS + ("delta+bitpack",),
     "C_weights_bf16": ("bfloat16_l5",),
     "D_weights_f32": ("float32_l5",),
     "E_weights_f64": ("float64_l5",),
+    "F_string_offsets_u32": ("delta+bitpack",),
+    "G_int4_codes_u8": ("bitpack",),
 }
+# the codecs each bit-packing frame must record: F fuses (K11), G packs (K5),
+# and B's wrapped u32 deltas refuse fusion, so its step lowers to delta + bitpack
+FRAME_CODECS = {
+    ("F_string_offsets_u32", "delta+bitpack"): "fused_delta_bitpack",
+    ("G_int4_codes_u8", "bitpack"): "bitpack",
+    ("B_zipf_ids_u32", "delta+bitpack"): "delta+bitpack",
+}
+PACK_BITS = (1, 2, 4, 8, 16, 32)
+RAGGED_SIZES = (1, 31, 33, 1000, 4097, 100_003)
 # the port's kernels in a profile (their CUDA function names), and the host
 # stages whose cumulative time the profile phase prints: selector trials,
 # the host codecs, and the frame's trip through the host
 PORT_KERNEL = re.compile(
     r"(?:void )?((?:delta|byte(?:un)?shuffle|huffman|fse|lane_refill|float_split|float_merge"
-    r"|histogram)_\w*)")
+    r"|histogram|bit(?:un)?pack|fused_delta_bitpack|fdb)_\w*)")
 HOST_STAGES = ("choose_best", "_lz77_enc", "_lz77_dec", "_zlib_enc", "_zlib_dec",
                "write_frame", "read_frame")
 COLUMN_BYTES = 64 << 20
@@ -112,7 +142,9 @@ def fail(msg: str) -> None:
 def columns(seed: int):
     """A: int64 ns timestamps, monotone with jittered gaps; B: zipf uint32 ids;
     C, D, E: normal(0, 0.02) weights in bfloat16 (as their uint16 bit
-    patterns), float32 and float64."""
+    patterns), float32 and float64; F: uint32 string offsets (an Arrow/Parquet
+    offsets buffer: 0, then the running sum of lengths min(zipf(1.6), 255));
+    G: int4 weight codes stored one per byte, clip(rint(normal(7.5, 2.5)), 0, 15)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -127,8 +159,12 @@ def columns(seed: int):
     col_c = torch.from_numpy(w32).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
     col_d = rng.normal(0.0, 0.02, COLUMN_BYTES // 4).astype(np.float32)
     col_e = rng.normal(0.0, 0.02, COLUMN_BYTES // 8)
+    lengths = np.minimum(rng.zipf(1.6, COLUMN_BYTES // 4 - 1), 255)
+    col_f = np.concatenate([[0], np.cumsum(lengths)]).astype(np.uint32)
+    col_g = np.clip(np.rint(rng.normal(7.5, 2.5, COLUMN_BYTES)), 0, 15).astype(np.uint8)
     return {"A_timestamps_i64": col_a, "B_zipf_ids_u32": col_b, "C_weights_bf16": col_c,
-            "D_weights_f32": col_d, "E_weights_f64": col_e}
+            "D_weights_f32": col_d, "E_weights_f64": col_e, "F_string_offsets_u32": col_f,
+            "G_int4_codes_u8": col_g}
 
 
 def stream_of(rt, cname: str, col: np.ndarray):
@@ -427,10 +463,100 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         cursors.numel() * (8 + 5 + 4), cursors.numel() * 8, None,
         runs_inside=["huffman_decode", "fse_decode"])
 
+    bitpack_rows(cols, ops, ref, seed, row)
     for r in rows:
         if r["max_abs_err"] != 0:
             fail(f"kernel {r['name']} disagrees with its plain version")
     return rows
+
+
+def bitpack_rows(cols, ops, ref, seed, row) -> None:
+    """K5, K6, K11 and K12: every bits and stream width on small ragged
+    sizes, then timed at the main path's shapes (G at 4 bits and B's deltas
+    at 32 bits through K5 and K6, F at 8 bits through K11 and K12)."""
+    import torch
+
+    dev = "cuda"
+    rng = np.random.default_rng(seed)
+    carriers = {1: np.uint8, 2: np.int16, 4: np.int32}
+    unsigned = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+    errs = {"bitpack": 0.0, "bitunpack": 0.0, "fused_delta_bitpack": 0.0,
+            "fused_delta_bitpack_decode": 0.0}
+    for width, carrier in carriers.items():
+        for bits in PACK_BITS:
+            for n in RAGGED_SIZES:
+                # values below 2^bits, read unsigned at the stream's width;
+                # x[1:] also starts off the allocation's alignment
+                full = rng.integers(0, 1 << min(bits, 8 * width), n + 1, dtype=np.uint64)
+                x = torch.from_numpy(full.astype(unsigned[width]).view(carrier)).to(dev)
+                for v in (x[:n], x[1:]):
+                    words = ops.bitpack(v, bits)
+                    errs["bitpack"] = max(errs["bitpack"],
+                                          max_abs_err([words], [ref.bitpack(v, bits)]))
+                    fused = ops.fused_delta_bitpack(v, bits)
+                    errs["fused_delta_bitpack"] = max(
+                        errs["fused_delta_bitpack"],
+                        max_abs_err([fused], [ref.fused_delta_bitpack(v, bits)]))
+                    for out_width in carriers:
+                        errs["bitunpack"] = max(errs["bitunpack"], max_abs_err(
+                            [ops.bitunpack(words, bits, n, out_width)],
+                            [ref.bitunpack(words, bits, n, out_width)]))
+                        errs["fused_delta_bitpack_decode"] = max(
+                            errs["fused_delta_bitpack_decode"], max_abs_err(
+                                [ops.fused_delta_bitpack_decode(fused, bits, n, out_width)],
+                                [ref.fused_delta_bitpack_decode(fused, bits, n, out_width)]))
+                    errs["bitunpack"] = max(errs["bitunpack"], max_abs_err(
+                        [ops.bitunpack(words, bits, n, width)], [v]))
+    print(f"check bit packing: bits {PACK_BITS} x widths (1, 2, 4) x n {RAGGED_SIZES},"
+          f" aligned and offset: {json.dumps(errs)}")
+
+    col_g = torch.from_numpy(cols["G_int4_codes_u8"]).to(dev)
+    col_b = torch.from_numpy(cols["B_zipf_ids_u32"].view(np.int32)).to(dev)
+    col_f = torch.from_numpy(cols["F_string_offsets_u32"].view(np.int32)).to(dev)
+    d_b = ops.delta_encode(col_b)
+    n_g, n_b, n_f = col_g.numel(), d_b.numel(), col_f.numel()
+    g_words, b_words = ops.bitpack(col_g, 4), ops.bitpack(d_b, 32)
+    f_words = ops.fused_delta_bitpack(col_f, 8)
+    g_bytes = n_g + n_g // 2
+    b_bytes = 2 * 4 * n_b
+    f_bytes = 4 * n_f + n_f
+    err = max_abs_err([g_words, b_words], [ref.bitpack(col_g, 4), ref.bitpack(d_b, 32)])
+    row("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:41",
+        max(err, errs["bitpack"]), cuda_ms(lambda: ops.bitpack(col_g, 4), 20),
+        cuda_ms(lambda: ref.bitpack(col_g, 4), 5), g_bytes, n_g, None,
+        shape=f"uint8[{n_g}] at 4 bits (column G)",
+        b32_ms=cuda_ms(lambda: ops.bitpack(d_b, 32), 20),
+        b32_plain_ms=cuda_ms(lambda: ref.bitpack(d_b, 32), 5),
+        b32_bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3,
+        b32_clone_ms=cuda_ms(lambda: d_b.clone(), 20))
+    got = [ops.bitunpack(g_words, 4, n_g, 1), ops.bitunpack(b_words, 32, n_b, 4)]
+    err = max(max_abs_err(got, [ref.bitunpack(g_words, 4, n_g, 1),
+                                ref.bitunpack(b_words, 32, n_b, 4)]),
+              max_abs_err(got, [col_g, d_b]))
+    row("bitunpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:58",
+        max(err, errs["bitunpack"]), cuda_ms(lambda: ops.bitunpack(g_words, 4, n_g, 1), 20),
+        cuda_ms(lambda: ref.bitunpack(g_words, 4, n_g, 1), 5), g_bytes, n_g, None,
+        shape=f"int32[{g_words.numel()}] at 4 bits -> uint8 (column G)",
+        b32_ms=cuda_ms(lambda: ops.bitunpack(b_words, 32, n_b, 4), 20),
+        b32_plain_ms=cuda_ms(lambda: ref.bitunpack(b_words, 32, n_b, 4), 5),
+        b32_bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3)
+    err = max_abs_err([f_words], [ref.fused_delta_bitpack(col_f, 8)])
+    row("fused_delta_bitpack", "src/repro_torch/csrc/fused_delta_bitpack.cu",
+        "src/repro/kernels/fused_delta_bitpack.py:45",
+        max(err, errs["fused_delta_bitpack"]),
+        cuda_ms(lambda: ops.fused_delta_bitpack(col_f, 8), 20),
+        cuda_ms(lambda: ref.fused_delta_bitpack(col_f, 8), 5), f_bytes, 2 * n_f, None,
+        shape=f"uint32[{n_f}] at 8 bits (column F)")
+    back = ops.fused_delta_bitpack_decode(f_words, 8, n_f, 4)
+    err = max(max_abs_err([back], [ref.fused_delta_bitpack_decode(f_words, 8, n_f, 4)]),
+              max_abs_err([back], [col_f]))
+    row("fused_delta_bitpack_decode", "src/repro_torch/csrc/fused_delta_bitpack.cu",
+        "src/repro/kernels/fused_delta_bitpack.py:93",
+        max(err, errs["fused_delta_bitpack_decode"]),
+        cuda_ms(lambda: ops.fused_delta_bitpack_decode(f_words, 8, n_f, 4), 20),
+        cuda_ms(lambda: ref.fused_delta_bitpack_decode(f_words, 8, n_f, 4), 5),
+        f_bytes, 2 * n_f, None,
+        shape=f"int32[{f_words.numel()}] at 8 bits -> uint32 (column F)")
 
 
 def tensor_bytes(*tensors) -> int:
@@ -477,7 +603,11 @@ def main_path(cols, rt, ops):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         frames[cname, pname] = frame
-        print(f"main {cname} {pname} [{frame_codecs(rt, frame)}]:"
+        codecs = frame_codecs(rt, frame)
+        if FRAME_CODECS.get((cname, pname), codecs) != codecs:
+            fail(f"{cname} {pname}: the frame records {codecs},"
+                 f" not {FRAME_CODECS[cname, pname]}")
+        print(f"main {cname} {pname} [{codecs}]:"
               f" ratio={col.nbytes / len(frame)}"
               f" compress_MBps={col.nbytes / dt / 1e6} seconds={dt}")
     launches = ops.launch_counts()

@@ -12,12 +12,16 @@ Entry points::
     (out,) = decompress(frame)                   # on the card; out.data is a CUDA tensor
     (out,) = decompress(frame, device="cpu")
     frame = compress(bfloat16_profile(), numeric(weights))  # a bf16 tensor on the card
+    frame = compress(pipeline("delta", "bitpack"), numeric(offsets))  # fuses to K11
+    frame = compress(pipeline(("bitpack", {"bits": 4})), numeric(int4_codes))
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
 a TPU kernel in the reference launches a hand-written CUDA kernel
 (``repro_torch.kernels.ops``); with ``device="cpu"`` the same codecs take
-the kernels' plain PyTorch versions.
+the kernels' plain PyTorch versions.  ``execute`` fuses an adjacent
+``delta`` -> ``bitpack`` pair into ``fused_delta_bitpack``, as the
+reference's device backend does, and lowers it back where the data refuses.
 """
 from .codecs.profiles import (  # noqa: F401
     bfloat16_profile,

@@ -1,13 +1,17 @@
-"""Numeric transforms: delta, zigzag, transpose, range_pack, tokenize.
+"""Numeric transforms: delta, zigzag, transpose, range_pack, bitpack,
+fused_delta_bitpack, tokenize.
 
 The port's copy of the slice's codecs from ``repro.codecs.numeric``: same
 codec ids, same headers, same output streams.  Encoders are PyTorch on the
-device the stream lives on — ``delta`` and ``transpose`` through their
-kernels (``kernels/ops.py``), the others as plain tensor ops, since the
-reference ran them on the host and they had no TPU kernel.  Decoders run
-the same way on the device their input lies on: ``delta`` through K2,
-``transpose`` through K4, ``zigzag``, ``range_pack`` and ``tokenize`` as
-tensor ops (the unsigned helpers, a byte gather with shifts, a row gather).
+device the stream lives on — ``delta``, ``transpose``, ``bitpack`` and
+``fused_delta_bitpack`` through their kernels (``kernels/ops.py``), the
+others as plain tensor ops, since the reference ran them on the host and
+they had no TPU kernel.  Decoders run the same way on the device their input
+lies on: ``delta`` through K2, ``transpose`` through K4, ``bitpack`` through
+K6 and ``fused_delta_bitpack`` through K12, ``zigzag``, ``range_pack`` and
+``tokenize`` as tensor ops (the unsigned helpers, a byte gather with shifts,
+a row gather).  ``bitpack`` at bits that do not divide 32, or on a 64-bit
+column, takes the codecs' bit writer and reader, as ``range_pack`` does.
 
 Unsigned semantics on signed carriers: values are widened to int64 (widths
 1, 2, 4) or handled as 64-bit patterns in 32-bit halves (width 8), so no
@@ -26,7 +30,7 @@ from ..core.message import (
     sub_u64,
     widen_unsigned,
 )
-from ..kernels import ops
+from ..kernels import ops, ref
 from ._util import (
     HeaderReader,
     HeaderWriter,
@@ -50,9 +54,16 @@ def _unsigned_min(u: torch.Tensor) -> int:
     return int((u ^ _SIGN).min()) ^ _SIGN
 
 
-def _unsigned_max(u: torch.Tensor) -> int:
-    """Unsigned maximum of int64 bit patterns, as a Python int >= 0."""
-    return (int((u ^ _SIGN).max()) ^ _SIGN) & ((1 << 64) - 1)
+def _unsigned_max(t: torch.Tensor) -> int:
+    """Unsigned maximum of a carrier's values (any width), as a Python int
+    >= 0; 0 for no values.  One reduction on the tensor's device."""
+    if not t.numel():
+        return 0
+    w = t.element_size()
+    if t.dtype == torch.uint8:
+        return int(t.max())
+    sign = -(1 << (8 * w - 1))  # flipping the sign bit orders patterns as unsigned
+    return (int((t ^ sign).max()) ^ sign) & ((1 << 8 * w) - 1)
 
 
 # --------------------------------------------------------------------- delta
@@ -180,9 +191,9 @@ def _unpack_bits(buf: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     no intermediate leaves int64.
     """
     if bits > 57:
-        raise ValueError(f"range_pack: {bits} bits per value (at most 57)")
+        raise ValueError(f"bit reader: {bits} bits per value (at most 57)")
     if buf.numel() < (n * bits + 7) // 8:
-        raise ValueError("range_pack: packed payload shorter than its values")
+        raise ValueError("bit reader: packed payload shorter than its values")
     padded = torch.zeros(buf.numel() + 8, dtype=torch.uint8, device=buf.device)
     padded[: buf.numel()] = buf
     offs = torch.arange(n, dtype=torch.int64, device=buf.device) * bits
@@ -202,7 +213,7 @@ def _range_pack_enc(streams, params):
     n = u.numel()
     lo = _unsigned_min(u) if n else 0
     shifted = sub_u64(u, torch.full_like(u, lo))
-    maxv = _unsigned_max(shifted) if n else 0
+    maxv = _unsigned_max(shifted)
     bits = max(maxv.bit_length(), 1)
     packed = _pack_bits(shifted, bits)
     h = HeaderWriter().u8(bits).u8(s.width).varint(n).varint(lo & ((1 << 64) - 1)).done()
@@ -233,6 +244,180 @@ register_codec(
         encode=_range_pack_enc,
         decode=_range_pack_dec,
         doc="bounded ints: subtract min then bitpack",
+    )
+)
+
+
+# ------------------------------------------------------------------- bitpack
+# Widths K5, K6, K11 and K12 pack: the bits that divide 32.  The fused codec
+# takes its explicit ``bits`` from the same choices.
+FUSED_BITS_CHOICES = ref.PACK_BITS
+# dynamic bit selection stops here: packing >16 bits per delta loses to
+# running delta+bitpack separately (which adapts to the stream width)
+_FUSED_DYNAMIC_MAX_BITS = 16
+
+
+def _on_word_kernels(width: int, bits: int) -> bool:
+    """The reference's device gate: a 1/2/4-byte stream at bits dividing 32."""
+    return width in (1, 2, 4) and bits in FUSED_BITS_CHOICES
+
+
+def _packed_bytes(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+    """Packed words' little-endian bytes, cut to the bit writer's
+    ceil(n * bits / 8): the same bytes, since no value straddles a word."""
+    return words.view(torch.uint8)[: (n * bits + 7) // 8]
+
+
+def _payload_words(buf: torch.Tensor, n: int, bits: int, op: str) -> torch.Tensor:
+    """A packed payload as the int32 words K6 and K12 read, zero-padded to
+    whole words; raises before any kernel reads a payload too short."""
+    if buf.numel() < (n * bits + 7) // 8:
+        raise ValueError(f"{op}: packed payload shorter than its values")
+    m = -(-n // (32 // bits))
+    if buf.numel() >= 4 * m and buf.storage_offset() % 4 == 0:
+        return buf[: 4 * m].view(torch.int32)
+    words = torch.zeros(m, dtype=torch.int32, device=buf.device)
+    words.view(torch.uint8)[: buf.numel()] = buf[: 4 * m]
+    return words
+
+
+def _bitpack_enc(streams, params):
+    s = streams[0]
+    t = _require_numeric(s, "bitpack")
+    n = t.numel()
+    maxv = _unsigned_max(t)
+    bits = int(params.get("bits", 0)) or max(maxv.bit_length(), 1)
+    if maxv >= 1 << bits:
+        raise ValueError(f"bitpack: values need more than {bits} bits")
+    if _on_word_kernels(s.width, bits):
+        packed = _packed_bytes(ops.bitpack(t, bits), n, bits)
+    else:
+        # bits that straddle words, or a 64-bit column: the codecs' bit writer
+        # (shared with range_pack), a function K5 does not compute
+        packed = _pack_bits(widen_unsigned(t), bits)
+    h = HeaderWriter().u8(bits).u8(s.width).varint(n).done()
+    return [Stream(packed, SType.SERIAL, 1)], h
+
+
+def _bitpack_dec(outs, header):
+    r = HeaderReader(header)
+    bits = r.u8()
+    width = r.u8()
+    n = r.varint()
+    r.expect_end()
+    if width not in (1, 2, 4, 8):
+        raise ValueError(f"bitpack: numeric width {width}")
+    buf = outs[0].raw()
+    if _on_word_kernels(width, bits):
+        words = _payload_words(buf, n, bits, "bitpack")
+        return [numeric_stream(ops.bitunpack(words, bits, n, width))]
+    # the bit reader for the widths K6 does not unpack
+    return [numeric_stream(narrow_unsigned(_unpack_bits(buf, bits, n), width))]
+
+
+register_codec(
+    CodecSpec(
+        "bitpack",
+        codec_id=6,
+        encode=_bitpack_enc,
+        decode=_bitpack_dec,
+        doc="pack values into ceil(log2(max+1)) bits, LSB-first (kernels K5, K6)",
+    )
+)
+
+
+# ------------------------------------------------------ fused delta+bitpack
+# One pass instead of delta then bitpack.  Deltas are taken in the u32 domain
+# of the column zero-extended to 32 bits: d[0] = x[0], d[i] = (x[i] - x[i-1])
+# mod 2^32, packed at bits dividing 32, so the packed words' little-endian
+# bytes equal the bit writer's stream.  The lowered ``delta`` codec wraps
+# mod 2^(8w) instead: a decreasing u8 column refuses fusion (its u32 deltas
+# wrap to ~2^32), while its lowered deltas still fit 8 bits.
+def _bits_for_need(need: int, explicit_bits: int):
+    """Packing width for a max-delta bit length, or None to refuse.
+
+    Dynamic selection fuses only when the width is *exact* (need is itself a
+    32-divisor <= 16): rounding 3 bits up to 4 would inflate the packed
+    stream against separate delta+bitpack.  Explicit widths are the caller's
+    ratio decision and are honoured as long as the kernel can express them.
+    """
+    if explicit_bits:
+        if explicit_bits not in FUSED_BITS_CHOICES or need > explicit_bits:
+            return None
+        return explicit_bits
+    if need in FUSED_BITS_CHOICES and need <= _FUSED_DYNAMIC_MAX_BITS:
+        return need
+    return None
+
+
+def _as_u32(t: torch.Tensor) -> torch.Tensor:
+    """A 1/2/4-byte carrier zero-extended to the int32 carrier of its u32 view."""
+    if t.dtype == torch.int32:
+        return t
+    return (t.to(torch.int32) & 0xFFFF) if t.dtype == torch.int16 else t.to(torch.int32)
+
+
+def _fused_bits(s: Stream, explicit_bits: int):
+    """The fused codec's width for a numeric(1/2/4) stream, or None: the max
+    u32 delta (K1 on the widened column, then an unsigned max) on the
+    stream's device."""
+    maxd = _unsigned_max(ops.delta_encode(_as_u32(s.data))) if s.data.numel() else 0
+    return _bits_for_need(max(maxd.bit_length(), 1), explicit_bits)
+
+
+def fused_bits_for(s: Stream, explicit_bits: int = 0):
+    """Packing width if the fused kernel's lossless precondition holds.
+
+    Returns None when the node must run as separate delta+bitpack: a
+    non-numeric or u64 input, a wrapped u32 delta that does not fit, an
+    explicit width the 32-bit-word kernel cannot express, or (dynamic case)
+    a width where fusion stops paying for itself.
+    """
+    if s.stype != SType.NUMERIC or s.width not in (1, 2, 4):
+        return None
+    return _fused_bits(s, explicit_bits)
+
+
+def _fused_enc(streams, params):
+    s = streams[0]
+    if s.stype != SType.NUMERIC or s.width not in (1, 2, 4):
+        raise ValueError("fused_delta_bitpack: numeric(1/2/4) streams only")
+    bits = _fused_bits(s, int(params.get("bits", 0)))
+    if bits is None:
+        raise ValueError(
+            "fused_delta_bitpack: lossless precondition failed (delta too wide)"
+        )
+    n = s.data.numel()
+    packed = _packed_bytes(ops.fused_delta_bitpack(s.data, bits), n, bits)
+    h = HeaderWriter().u8(bits).u8(s.width).varint(n).done()
+    return [Stream(packed, SType.SERIAL, 1)], h
+
+
+def _fused_dec(outs, header):
+    r = HeaderReader(header)
+    bits = r.u8()
+    width = r.u8()
+    n = r.varint()
+    r.expect_end()
+    if width not in (1, 2, 4):
+        raise ValueError("fused_delta_bitpack: numeric(1/2/4) streams only")
+    buf = outs[0].raw()
+    if bits in FUSED_BITS_CHOICES:
+        words = _payload_words(buf, n, bits, "fused_delta_bitpack")
+        return [numeric_stream(ops.fused_delta_bitpack_decode(words, bits, n, width))]
+    # the reference's decoder takes any bits: the bit reader, then K2 in u32
+    d = narrow_unsigned(_unpack_bits(buf, bits, n), 4)
+    return [numeric_stream(narrow_unsigned(widen_unsigned(ops.delta_decode(d)), width))]
+
+
+register_codec(
+    CodecSpec(
+        "fused_delta_bitpack",
+        codec_id=26,
+        encode=_fused_enc,
+        decode=_fused_dec,
+        min_version=4,
+        doc="single-pass delta+bitpack; u32-domain deltas (kernels K11, K12)",
     )
 )
 

@@ -16,9 +16,16 @@ too: parse the frame on the host, copy each stored payload to the device
 once, and run every codec's decoder there in reverse topological order —
 no parameters and no selectors.
 
-Not in this slice: the delta+bitpack fusion pass (``bitpack`` is not ported,
-so no plan can ask for it) and chunked compression into multi-chunk
-containers (``chunk_bytes`` raises).
+Between the two, ``execute`` runs the **fusion pass** (``fuse_resolved``):
+an adjacent ``delta`` -> ``bitpack`` pair becomes one ``fused_delta_bitpack``
+step, as the reference's device backend does by default, since the port's
+frames are that backend's.  Where the fused codec refuses the data (its
+lossless precondition fails), the executor lowers the step back to
+``delta`` + ``bitpack``.
+
+Not in this slice: chunked compression into multi-chunk containers
+(``chunk_bytes`` raises), and the reference's ``trace`` and ``fuse=``
+arguments of ``execute``.
 """
 from __future__ import annotations
 
@@ -40,11 +47,16 @@ __all__ = [
     "ResolvedNode",
     "ResolvedStep",
     "ResolvedPlan",
+    "FUSED_NAME",
     "resolve",
+    "fuse_resolved",
     "execute",
     "compress",
     "decompress",
 ]
+
+
+FUSED_NAME = "fused_delta_bitpack"
 
 
 @dataclass
@@ -88,6 +100,7 @@ class ResolvedPlan:
     format_version: int
     level: int
     name: str = ""
+    fused: bool = False  # True once the delta+bitpack rewrite has run
 
     def codec_names(self) -> List[str]:
         return [s.name for s in self.steps]
@@ -207,34 +220,149 @@ def resolve(
     return ResolvedPlan(len(streams), steps, ctx.format_version, ctx.level, plan.name)
 
 
+# ------------------------------------------------------------- fusion pass
+def fuse_resolved(resolved: ResolvedPlan) -> ResolvedPlan:
+    """Graph rewrite: adjacent ``delta`` -> ``bitpack`` chains become one
+    ``fused_delta_bitpack`` step (K11 on the card).
+
+    Static preconditions only: a ``delta`` with no params and one output
+    feeds a one-input ``bitpack`` whose explicit ``bits`` is 0 or in the
+    fused codec's choices.  The data-dependent lossless precondition (every
+    wrapped u32 delta fits the packing width) is checked per call by the
+    executor, which lowers the step back to its constituents when it fails.
+    Gated on the fused codec's ``min_version`` (format v4).
+    """
+    from ..codecs.numeric import FUSED_BITS_CHOICES  # lazy: avoids a cycle
+
+    fused_spec = get_codec(FUSED_NAME)
+    if resolved.fused or resolved.format_version < fused_spec.min_version:
+        return resolved
+    steps = resolved.steps
+    out_edge_of: Dict[int, int] = {}  # step index -> its first output edge id
+    e = resolved.n_inputs
+    for i, s in enumerate(steps):
+        out_edge_of[i] = e
+        e += s.n_out
+    delta_by_out = {
+        out_edge_of[i]: i
+        for i, s in enumerate(steps)
+        if s.name == "delta" and s.n_out == 1 and not s.params
+    }
+    producer_of: Dict[int, int] = {}  # bitpack step index -> its delta's index
+    for j, s in enumerate(steps):
+        if s.name != "bitpack" or len(s.inputs) != 1:
+            continue
+        bits = int(s.param_dict().get("bits", 0))
+        if bits and bits not in FUSED_BITS_CHOICES:
+            continue  # a width the 32-bit-word kernel cannot express
+        i = delta_by_out.get(s.inputs[0])
+        if i is not None:
+            producer_of[j] = i
+
+    fused_deltas = set(producer_of.values())
+    emap: Dict[int, int] = {i: i for i in range(resolved.n_inputs)}
+    new_steps: List[ResolvedStep] = []
+    next_new = resolved.n_inputs
+    for i, s in enumerate(steps):
+        if i in fused_deltas:
+            continue  # its output edge is interior to the fused pair
+        if i in producer_of:
+            bits = int(s.param_dict().get("bits", 0))
+            new_steps.append(
+                ResolvedStep(
+                    FUSED_NAME,
+                    fused_spec.codec_id,
+                    tuple(emap[e] for e in steps[producer_of[i]].inputs),
+                    1,
+                    (("bits", bits),) if bits else (),
+                )
+            )
+        else:
+            new_steps.append(
+                ResolvedStep(
+                    s.name, s.codec_id, tuple(emap[e] for e in s.inputs), s.n_out, s.params
+                )
+            )
+        for k in range(s.n_out):
+            emap[out_edge_of[i] + k] = next_new
+            next_new += 1
+    return ResolvedPlan(
+        resolved.n_inputs, tuple(new_steps), resolved.format_version,
+        resolved.level, resolved.name, fused=True,
+    )
+
+
 # ------------------------------------------------------------- execute phase
 class _Executor:
-    """Runs a ResolvedPlan over concrete streams and writes the frame."""
+    """Runs a ResolvedPlan over concrete streams and writes the frame.
+
+    Keeps its own runtime edge numbering (``emap``: resolved edge id ->
+    runtime edge id), because a fused step may lower to two wire nodes with
+    an interior edge that the resolved plan never saw.
+    """
 
     def __init__(self, resolved: ResolvedPlan, streams: Sequence[Stream]):
         self.resolved = resolved
         self.edges: List[Stream] = list(streams)
         self.consumed: List[bool] = [False] * len(self.edges)
         self.nodes: List[ResolvedNode] = []
+        self.emap: Dict[int, int] = {i: i for i in range(len(self.edges))}
+
+    def _new_edge(self, s: Stream) -> int:
+        self.edges.append(s)
+        self.consumed.append(False)
+        return len(self.edges) - 1
+
+    def _consume(self, e: int) -> Stream:
+        if self.consumed[e]:
+            raise AssertionError(f"edge {e} consumed twice at runtime")
+        self.consumed[e] = True
+        return self.edges[e]
+
+    def _commit(self, codec_id: int, rt_ins: List[int], outs, header: bytes) -> List[int]:
+        out_ids = [self._new_edge(o) for o in outs]
+        self.nodes.append(ResolvedNode(codec_id, tuple(rt_ins), len(outs), header))
+        return out_ids
+
+    def _run_codec(self, name: str, params: dict, rt_ins: List[int]) -> List[int]:
+        spec = _checked_codec(name, self.resolved.format_version)
+        outs, header = spec.run_encode([self._consume(e) for e in rt_ins], params)
+        return self._commit(spec.codec_id, rt_ins, outs, header)
+
+    def _run_fused(self, step: ResolvedStep, rt_ins: List[int]) -> List[int]:
+        """Run the fused codec when lossless, else lower to delta + bitpack.
+
+        The encoder checks the lossless precondition itself and refuses with
+        a ValueError, which is the lowering signal.  The input edge is
+        consumed only once the fused attempt commits.
+        """
+        spec = _checked_codec(FUSED_NAME, self.resolved.format_version)
+        params = step.param_dict()
+        try:
+            outs, header = spec.run_encode([self.edges[rt_ins[0]]], params)  # peek
+        except ValueError:
+            explicit = int(params.get("bits", 0))
+            d_out = self._run_codec("delta", {}, rt_ins)
+            return self._run_codec("bitpack", {"bits": explicit} if explicit else {}, d_out)
+        self._consume(rt_ins[0])
+        return self._commit(spec.codec_id, rt_ins, outs, header)
 
     def run(self) -> bytes:
+        next_resolved_edge = self.resolved.n_inputs
         for step in self.resolved.steps:
-            spec = _checked_codec(step.name, self.resolved.format_version)
-            ins = []
-            for e in step.inputs:
-                if self.consumed[e]:
-                    raise AssertionError(f"edge {e} consumed twice at runtime")
-                self.consumed[e] = True
-                ins.append(self.edges[e])
-            outs, header = spec.run_encode(ins, step.param_dict())
-            if len(outs) != step.n_out:
-                raise AssertionError(
-                    f"codec {step.name}: resolved n_out={step.n_out},"
-                    f" produced {len(outs)}"
-                )
-            self.edges.extend(outs)
-            self.consumed.extend([False] * len(outs))
-            self.nodes.append(ResolvedNode(spec.codec_id, step.inputs, len(outs), header))
+            rt_ins = [self.emap[e] for e in step.inputs]
+            if step.name == FUSED_NAME:
+                out_ids = self._run_fused(step, rt_ins)
+            else:
+                out_ids = self._run_codec(step.name, step.param_dict(), rt_ins)
+                if len(out_ids) != step.n_out:
+                    raise AssertionError(
+                        f"codec {step.name}: resolved n_out={step.n_out},"
+                        f" produced {len(out_ids)}"
+                    )
+            for k, oid in enumerate(out_ids):
+                self.emap[next_resolved_edge + k] = oid
+            next_resolved_edge += step.n_out
         stored = [
             (eid, self.edges[eid])
             for eid in range(len(self.edges))
@@ -248,13 +376,13 @@ class _Executor:
 def execute(
     resolved: ResolvedPlan, inputs: Union[Stream, bytes, Sequence[Stream]]
 ) -> bytes:
-    """Phase 2: run a resolved program over concrete streams -> wire frame."""
+    """Phase 2: fuse, then run a resolved program over concrete streams -> frame."""
     streams = [s.validate() for s in _as_streams(inputs)]
     if len(streams) != resolved.n_inputs:
         raise ValueError(
             f"resolved plan wants {resolved.n_inputs} inputs, got {len(streams)}"
         )
-    return _Executor(resolved, streams).run()
+    return _Executor(fuse_resolved(resolved), streams).run()
 
 
 # ------------------------------------------------------------------ frontend

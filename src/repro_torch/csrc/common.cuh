@@ -38,3 +38,34 @@ __device__ __forceinline__ uint32_t refill32(const uint8_t* __restrict__ buf,
   const uint32_t b4 = p[4];
   return (lo >> r) | ((b4 << 1) << (31u - r));
 }
+
+// Exclusive prefix of v over the block (blockDim a multiple of 32, at most
+// 1024); *total receives the block's sum.  Every thread must call it.  The
+// carry designs of K2 (delta.cu) and K12 (fused_delta_bitpack.cu) share it.
+template <typename A>
+__device__ __forceinline__ A block_exclusive_scan(A v, A* total) {
+  __shared__ A warp_sums[32];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  A x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const A y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    A s = lane < n_warps ? warp_sums[lane] : (A)0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const A y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < n_warps) warp_sums[lane] = s;
+  }
+  __syncthreads();
+  const A before = wid ? warp_sums[wid - 1] : (A)0;
+  *total = warp_sums[n_warps - 1];
+  __syncthreads();  // warp_sums is reused by the next call
+  return before + x - v;
+}

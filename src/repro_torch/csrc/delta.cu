@@ -74,36 +74,6 @@ REPRO_API int repro_delta_encode(const void* x, void* out, long long n, int widt
 template <typename T> struct Acc { typedef unsigned int type; };
 template <> struct Acc<unsigned long long> { typedef unsigned long long type; };
 
-// Exclusive prefix of v over the block (blockDim a multiple of 32, at most
-// 1024); *total receives the block's sum.  Every thread must call it.
-template <typename A>
-__device__ A block_exclusive_scan(A v, A* total) {
-  __shared__ A warp_sums[32];
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  A x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const A y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    A s = lane < n_warps ? warp_sums[lane] : (A)0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const A y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < n_warps) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const A before = wid ? warp_sums[wid - 1] : (A)0;
-  *total = warp_sums[n_warps - 1];
-  __syncthreads();  // warp_sums is reused by the next call
-  return before + x - v;
-}
-
 template <typename T>
 __global__ void delta_block_sums(const T* __restrict__ d,
                                  typename Acc<T>::type* __restrict__ sums,

@@ -35,7 +35,10 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 # C entry point -> argtypes (every pointer and the stream as c_void_p); each
 # returns its cudaError_t as an int unless RESTYPES names another type
-RESTYPES = {"repro_delta_decode_scratch": _I64}
+RESTYPES = {
+    "repro_delta_decode_scratch": _I64,
+    "repro_fused_delta_bitpack_decode_scratch": _I64,
+}
 SIGNATURES = {
     "repro_delta_encode": [_P, _P, _I64, _I32, _P],
     "repro_byteshuffle": [_P, _P, _I64, _I64, _P],
@@ -50,6 +53,11 @@ SIGNATURES = {
     "repro_float_split": [_P] * 4 + [_I64] + [_I32] * 5 + [_P],
     "repro_float_merge": [_P] * 4 + [_I64] + [_I32] * 5 + [_P],
     "repro_histogram": [_P, _I64, _P, _P],
+    "repro_bitpack": [_P, _P, _I64, _I32, _I32, _P],
+    "repro_bitunpack": [_P, _P, _I64, _I32, _I32, _P],
+    "repro_fused_delta_bitpack": [_P, _P, _I64, _I32, _I32, _P],
+    "repro_fused_delta_bitpack_decode_scratch": [_I64, _I32],
+    "repro_fused_delta_bitpack_decode": [_P, _P, _P, _I64, _I64, _I32, _I32, _P],
 }
 
 _lock = threading.Lock()

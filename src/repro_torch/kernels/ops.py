@@ -9,22 +9,26 @@ made by this process (reset with :func:`reset_launches`).
 
 Kernels and the TPU kernels they replace:
 
-  ===================  ===========================================================
-  wrapper              TPU kernel (``src/repro/kernels``)
-  ===================  ===========================================================
-  ``delta_encode``     ``delta.py`` ``delta_encode_pallas`` (K1)
-  ``delta_decode``     ``delta.py`` ``delta_decode_pallas`` (K2)
-  ``byteshuffle``      ``byteshuffle.py`` ``byteshuffle_pallas`` (K3)
-  ``byteunshuffle``    ``byteshuffle.py`` ``byteunshuffle_pallas`` (K4)
-  ``fse_encode``       ``fse.py`` ``fse_encode_pallas`` (K9)
-  ``fse_decode``       ``fse.py`` ``fse_decode_pallas`` (K10)
-  ``huffman_map``      ``huffman.py`` ``huffman_map_pallas`` (K14)
-  ``huffman_decode``   ``huffman.py`` ``huffman_decode_pallas`` (K15)
-  ``lane_refill``      ``lane_refill.py`` ``lane_refill_pallas`` (K16)
-  ``float_split``      ``float_split.py`` ``float_split_pallas`` (K7)
-  ``float_merge``      ``float_split.py`` ``float_merge_pallas`` (K8)
-  ``histogram``        ``histogram.py`` ``histogram_pallas`` (K13)
-  ===================  ===========================================================
+  ==============================  ======================================================================
+  wrapper                         TPU kernel (``src/repro/kernels``)
+  ==============================  ======================================================================
+  ``delta_encode``                ``delta.py`` ``delta_encode_pallas`` (K1)
+  ``delta_decode``                ``delta.py`` ``delta_decode_pallas`` (K2)
+  ``byteshuffle``                 ``byteshuffle.py`` ``byteshuffle_pallas`` (K3)
+  ``byteunshuffle``               ``byteshuffle.py`` ``byteunshuffle_pallas`` (K4)
+  ``bitpack``                     ``bitpack.py`` ``bitpack_pallas`` (K5)
+  ``bitunpack``                   ``bitpack.py`` ``bitunpack_pallas`` (K6)
+  ``float_split``                 ``float_split.py`` ``float_split_pallas`` (K7)
+  ``float_merge``                 ``float_split.py`` ``float_merge_pallas`` (K8)
+  ``fse_encode``                  ``fse.py`` ``fse_encode_pallas`` (K9)
+  ``fse_decode``                  ``fse.py`` ``fse_decode_pallas`` (K10)
+  ``fused_delta_bitpack``         ``fused_delta_bitpack.py`` ``fused_delta_bitpack_pallas`` (K11)
+  ``fused_delta_bitpack_decode``  ``fused_delta_bitpack.py`` ``fused_delta_bitpack_decode_pallas`` (K12)
+  ``histogram``                   ``histogram.py`` ``histogram_pallas`` (K13)
+  ``huffman_map``                 ``huffman.py`` ``huffman_map_pallas`` (K14)
+  ``huffman_decode``              ``huffman.py`` ``huffman_decode_pallas`` (K15)
+  ``lane_refill``                 ``lane_refill.py`` ``lane_refill_pallas`` (K16)
+  ==============================  ======================================================================
 
 K16's body is the ``__device__`` function ``refill32`` (``csrc/common.cuh``)
 that K15 and K10 call at every step; ``lane_refill`` launches it on its own.
@@ -42,6 +46,7 @@ KERNELS = (
     "delta_encode", "byteshuffle", "huffman_map", "fse_encode",
     "delta_decode", "byteunshuffle", "huffman_decode", "fse_decode", "lane_refill",
     "float_split", "float_merge", "histogram",
+    "bitpack", "bitunpack", "fused_delta_bitpack", "fused_delta_bitpack_decode",
 )
 HUFFMAN_LUT_ENTRIES = 1 << 15
 
@@ -483,3 +488,119 @@ def histogram(x: torch.Tensor) -> torch.Tensor:
 
 
 histogram.launches = 0
+
+
+# ------------------------------------------ K5 / K6 / K11 / K12 bit packing
+_PACK_CARRIERS = (torch.uint8, torch.int16, torch.int32)
+
+
+def _pack_args(x: torch.Tensor, bits: int, what: str) -> None:
+    if bits not in ref.PACK_BITS:
+        raise ValueError(f"{what}: bits must be one of {ref.PACK_BITS}, got {bits}")
+    if x.dim() != 1 or x.dtype not in _PACK_CARRIERS:
+        raise TypeError(f"{what}: 1-D uint8/int16/int32 values expected, got {x.dtype}")
+
+
+def _unpack_args(w: torch.Tensor, bits: int, n: int, width: int, what: str) -> None:
+    if bits not in ref.PACK_BITS:
+        raise ValueError(f"{what}: bits must be one of {ref.PACK_BITS}, got {bits}")
+    if width not in (1, 2, 4):
+        raise ValueError(f"{what}: output width must be 1, 2 or 4, got {width}")
+    if w.dim() != 1 or n < 0 or w.numel() < -(-n // (32 // bits)):
+        raise ValueError(f"{what}: ceil(n * bits / 32) words expected for n={n}")
+
+
+def bitpack(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack uint8/int16/int32 values, read unsigned, 32 // bits to an int32
+    word, LSB-first; slots of the last word past n are 0."""
+    _pack_args(x, bits, "bitpack")
+    if _on_cpu(x):
+        return ref.bitpack(x, bits)
+    _need(x, x.dtype, "bitpack")
+    n = x.numel()
+    out = torch.empty(-(-n // (32 // bits)), dtype=torch.int32, device=x.device)
+    if n:
+        _launched(
+            _lib().repro_bitpack(
+                x.data_ptr(), out.data_ptr(), n, x.element_size(), bits, _stream(x)
+            ),
+            "bitpack",
+        )
+        bitpack.launches += 1
+    return out
+
+
+bitpack.launches = 0
+
+
+def bitunpack(w: torch.Tensor, bits: int, n: int, width: int = 4) -> torch.Tensor:
+    """The first n values of int32 words packed at ``bits``, in the carrier
+    of ``width`` bytes (1, 2 or 4; each value cut to that width)."""
+    _unpack_args(w, bits, n, width, "bitunpack")
+    if _on_cpu(w):
+        return ref.bitunpack(w, bits, n, width)
+    _need(w, torch.int32, "bitunpack words")
+    out = torch.empty(n, dtype=CARRIER[width], device=w.device)
+    if n:
+        _launched(
+            _lib().repro_bitunpack(w.data_ptr(), out.data_ptr(), n, width, bits, _stream(w)),
+            "bitunpack",
+        )
+        bitunpack.launches += 1
+    return out
+
+
+bitunpack.launches = 0
+
+
+def fused_delta_bitpack(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """(x[i] - x[i-1]) mod 2^32 of uint8/int16/int32 values read unsigned,
+    x[-1] = 0, masked to ``bits`` and packed as :func:`bitpack`, in one pass."""
+    _pack_args(x, bits, "fused_delta_bitpack")
+    if _on_cpu(x):
+        return ref.fused_delta_bitpack(x, bits)
+    _need(x, x.dtype, "fused_delta_bitpack")
+    n = x.numel()
+    out = torch.empty(-(-n // (32 // bits)), dtype=torch.int32, device=x.device)
+    if n:
+        _launched(
+            _lib().repro_fused_delta_bitpack(
+                x.data_ptr(), out.data_ptr(), n, x.element_size(), bits, _stream(x)
+            ),
+            "fused_delta_bitpack",
+        )
+        fused_delta_bitpack.launches += 1
+    return out
+
+
+fused_delta_bitpack.launches = 0
+
+
+def fused_delta_bitpack_decode(
+    w: torch.Tensor, bits: int, n: int, width: int = 4
+) -> torch.Tensor:
+    """Unpack n deltas from int32 words and take their inclusive prefix sum
+    mod 2^32, cut to the carrier of ``width`` bytes (1, 2 or 4)."""
+    _unpack_args(w, bits, n, width, "fused_delta_bitpack_decode")
+    if _on_cpu(w):
+        return ref.fused_delta_bitpack_decode(w, bits, n, width)
+    _need(w, torch.int32, "fused_delta_bitpack_decode words")
+    out = torch.empty(n, dtype=CARRIER[width], device=w.device)
+    if n:
+        lib = _lib()
+        sums = torch.empty(
+            lib.repro_fused_delta_bitpack_decode_scratch(n, bits),
+            dtype=torch.int32, device=w.device,
+        )
+        _launched(
+            lib.repro_fused_delta_bitpack_decode(
+                w.data_ptr(), out.data_ptr(), sums.data_ptr(), sums.numel(), n, width,
+                bits, _stream(w),
+            ),
+            "fused_delta_bitpack_decode",
+        )
+        fused_delta_bitpack_decode.launches += 1
+    return out
+
+
+fused_delta_bitpack_decode.launches = 0

@@ -38,6 +38,9 @@ FLOAT_FORMATS = {
     3: (8, 11, 52, 2, 8),  # float64
 }
 _SIGN_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)  # np.packbits: the first value in the top bit
+# the bits per value that divide 32, so no value straddles a word: the
+# widths that K5, K6, K11 and K12 pack
+PACK_BITS = (1, 2, 4, 8, 16, 32)
 
 
 # ------------------------------------------------------------------ K1 delta
@@ -294,6 +297,57 @@ def float_merge(
 def histogram_exact(x: torch.Tensor) -> torch.Tensor:
     """256-bin byte histogram with integer counts (int64), exact at any size."""
     return torch.bincount(x, minlength=256)
+
+
+# ---------------------------------------------------- K5 / K6 bitpack, unpack
+def _words(u: torch.Tensor, bits: int) -> torch.Tensor:
+    """int64 values (< 2^32) -> int32 words of 32 // bits values each, LSB-first.
+
+    The sum of the shifted values mod 2^32, as the reference sums them (the
+    bitwise OR when every value fits ``bits``); slots past the values are 0.
+    """
+    per = 32 // bits
+    n = u.numel()
+    m = -(-n // per)
+    v = torch.zeros(m * per, dtype=torch.int64, device=u.device)
+    v[:n] = u
+    shifts = torch.arange(per, dtype=torch.int64, device=u.device) * bits
+    return narrow_unsigned(((v.view(m, per) << shifts) & _U32).sum(1), 4)
+
+
+def bitpack(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """uint8 / int16 / int32 values, read unsigned -> int32 words (``PACK_BITS``)."""
+    return _words(widen_unsigned(x), bits)
+
+
+def bitunpack(w: torch.Tensor, bits: int, n: int, width: int = 4) -> torch.Tensor:
+    """The first n values of int32 words packed at ``bits``, in the carrier of
+    ``width`` bytes (each value cut to that width)."""
+    per = 32 // bits
+    u = widen_unsigned(w[: -(-n // per)])
+    shifts = torch.arange(per, dtype=torch.int64, device=w.device) * bits
+    vals = ((u[:, None] >> shifts) & ((1 << bits) - 1)).reshape(-1)[:n]
+    return narrow_unsigned(vals, width)
+
+
+# ------------------------------------------- K11 / K12 fused delta + bitpack
+def fused_delta_bitpack(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """d[i] = (x[i] - x[i-1]) mod 2^32 with x[-1] = 0, masked to ``bits``,
+    then packed as :func:`bitpack`; x is uint8 / int16 / int32, read unsigned.
+    2^bits divides 2^64, so masking the int64 difference equals masking it
+    mod 2^32."""
+    u = widen_unsigned(x)
+    d = torch.cat([u[:1], u[1:] - u[:-1]]) & ((1 << bits) - 1)
+    return _words(d, bits)
+
+
+def fused_delta_bitpack_decode(
+    w: torch.Tensor, bits: int, n: int, width: int = 4
+) -> torch.Tensor:
+    """Unpack n deltas, then their inclusive prefix sum mod 2^32, cut to the
+    carrier of ``width`` bytes (n < 2^31 values below 2^32 sum exactly in int64)."""
+    d = widen_unsigned(bitunpack(w, bits, n))
+    return narrow_unsigned(torch.cumsum(d, 0), width)
 
 
 def exclusive_offsets(nbits: torch.Tensor) -> torch.Tensor:

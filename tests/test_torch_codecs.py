@@ -20,8 +20,11 @@ from repro_torch.core.message import SType, from_numpy  # noqa: E402
 PORTED = (
     "store", "delta", "zigzag", "transpose", "range_pack",
     "tokenize", "huffman", "fse", "zlib_backend", "lz77", "float_split",
+    "bitpack", "fused_delta_bitpack",
 )
-DEVICE_TWINS = ("delta", "transpose", "huffman", "fse", "float_split")
+DEVICE_TWINS = (
+    "delta", "transpose", "huffman", "fse", "float_split", "bitpack", "fused_delta_bitpack",
+)
 UNSIGNED = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 

@@ -37,6 +37,7 @@ IN_SLICE = (
     "codec_range_pack", "codec_tokenize", "codec_huffman", "codec_fse",
     "codec_zlib_backend", "profile_numeric", "codec_float_split", "codec_lz77",
     "profile_float32", "profile_bfloat16", "profile_float64",
+    "codec_bitpack", "codec_fused_delta_bitpack",
 )
 
 

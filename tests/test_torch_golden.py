@@ -21,6 +21,7 @@ IN_SLICE = (
     "codec_range_pack", "codec_tokenize", "codec_huffman", "codec_fse",
     "codec_zlib_backend", "profile_numeric", "codec_float_split", "codec_lz77",
     "profile_float32", "profile_bfloat16", "profile_float64",
+    "codec_bitpack", "codec_fused_delta_bitpack",
 )
 MANIFEST = load_manifest()
 ALL_PLANS = sorted(p.stem for p in GOLDEN_DIR.glob("*.ozp"))
