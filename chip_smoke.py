@@ -118,7 +118,6 @@ FRAME_CODECS = {
     ("G_int4_codes_u8", "bitpack"): "bitpack",
     ("B_zipf_ids_u32", "delta+bitpack"): "delta+bitpack",
 }
-PACK_BITS = (1, 2, 4, 8, 16, 32)
 RAGGED_SIZES = (1, 31, 33, 1000, 4097, 100_003)
 # the port's kernels in a profile (their CUDA function names), and the host
 # stages whose cumulative time the profile phase prints: selector trials,
@@ -483,7 +482,7 @@ def bitpack_rows(cols, ops, ref, seed, row) -> None:
     errs = {"bitpack": 0.0, "bitunpack": 0.0, "fused_delta_bitpack": 0.0,
             "fused_delta_bitpack_decode": 0.0}
     for width, carrier in carriers.items():
-        for bits in PACK_BITS:
+        for bits in ref.PACK_BITS:
             for n in RAGGED_SIZES:
                 # values below 2^bits, read unsigned at the stream's width;
                 # x[1:] also starts off the allocation's alignment
@@ -507,7 +506,7 @@ def bitpack_rows(cols, ops, ref, seed, row) -> None:
                                 [ref.fused_delta_bitpack_decode(fused, bits, n, out_width)]))
                     errs["bitunpack"] = max(errs["bitunpack"], max_abs_err(
                         [ops.bitunpack(words, bits, n, width)], [v]))
-    print(f"check bit packing: bits {PACK_BITS} x widths (1, 2, 4) x n {RAGGED_SIZES},"
+    print(f"check bit packing: bits {ref.PACK_BITS} x widths (1, 2, 4) x n {RAGGED_SIZES},"
           f" aligned and offset: {json.dumps(errs)}")
 
     col_g = torch.from_numpy(cols["G_int4_codes_u8"]).to(dev)

@@ -249,8 +249,8 @@ register_codec(
 
 
 # ------------------------------------------------------------------- bitpack
-# Widths K5, K6, K11 and K12 pack: the bits that divide 32.  The fused codec
-# takes its explicit ``bits`` from the same choices.
+# The fused codec takes its explicit ``bits`` from the widths K5, K6, K11 and
+# K12 pack (``core.message.PACK_BITS``), the bits that divide 32.
 FUSED_BITS_CHOICES = ref.PACK_BITS
 # dynamic bit selection stops here: packing >16 bits per delta loses to
 # running delta+bitpack separately (which adapts to the stream width)

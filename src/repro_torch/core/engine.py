@@ -38,7 +38,7 @@ from .. import _device
 from . import wire
 from .codec import get_codec, get_codec_by_id
 from .graph import KIND_CODEC, Plan, _thaw
-from .message import Stream, serial
+from .message import PACK_BITS, Stream, serial
 from .selector import get_selector
 from .versioning import CURRENT_FORMAT_VERSION, check_compress_version, check_decode_version
 
@@ -100,7 +100,6 @@ class ResolvedPlan:
     format_version: int
     level: int
     name: str = ""
-    fused: bool = False  # True once the delta+bitpack rewrite has run
 
     def codec_names(self) -> List[str]:
         return [s.name for s in self.steps]
@@ -232,10 +231,8 @@ def fuse_resolved(resolved: ResolvedPlan) -> ResolvedPlan:
     executor, which lowers the step back to its constituents when it fails.
     Gated on the fused codec's ``min_version`` (format v4).
     """
-    from ..codecs.numeric import FUSED_BITS_CHOICES  # lazy: avoids a cycle
-
     fused_spec = get_codec(FUSED_NAME)
-    if resolved.fused or resolved.format_version < fused_spec.min_version:
+    if resolved.format_version < fused_spec.min_version:
         return resolved
     steps = resolved.steps
     out_edge_of: Dict[int, int] = {}  # step index -> its first output edge id
@@ -253,11 +250,13 @@ def fuse_resolved(resolved: ResolvedPlan) -> ResolvedPlan:
         if s.name != "bitpack" or len(s.inputs) != 1:
             continue
         bits = int(s.param_dict().get("bits", 0))
-        if bits and bits not in FUSED_BITS_CHOICES:
+        if bits and bits not in PACK_BITS:
             continue  # a width the 32-bit-word kernel cannot express
         i = delta_by_out.get(s.inputs[0])
         if i is not None:
             producer_of[j] = i
+    if not producer_of:
+        return resolved
 
     fused_deltas = set(producer_of.values())
     emap: Dict[int, int] = {i: i for i in range(resolved.n_inputs)}
@@ -288,7 +287,7 @@ def fuse_resolved(resolved: ResolvedPlan) -> ResolvedPlan:
             next_new += 1
     return ResolvedPlan(
         resolved.n_inputs, tuple(new_steps), resolved.format_version,
-        resolved.level, resolved.name, fused=True,
+        resolved.level, resolved.name,
     )
 
 

@@ -34,6 +34,7 @@ __all__ = [
     "narrow_unsigned",
     "join_u32",
     "sub_u64",
+    "PACK_BITS",
 ]
 
 
@@ -46,6 +47,9 @@ class SType(enum.IntEnum):
     STRING = 3
 
 
+# the bits per value that divide 32, so no value straddles a u32 word: the
+# widths that K5, K6, K11 and K12 pack, and the fused codec's choices
+PACK_BITS = (1, 2, 4, 8, 16, 32)
 CARRIER = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _NP_CARRIER = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 UNSIGNED_NP = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}

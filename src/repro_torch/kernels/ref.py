@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.message import PACK_BITS  # noqa: F401  (re-exported: the widths K5-K12 pack)
 from ..core.message import join_u32, narrow_unsigned, sub_u64, widen_unsigned
 
 _U32 = 0xFFFFFFFF
@@ -38,9 +39,6 @@ FLOAT_FORMATS = {
     3: (8, 11, 52, 2, 8),  # float64
 }
 _SIGN_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)  # np.packbits: the first value in the top bit
-# the bits per value that divide 32, so no value straddles a word: the
-# widths that K5, K6, K11 and K12 pack
-PACK_BITS = (1, 2, 4, 8, 16, 32)
 
 
 # ------------------------------------------------------------------ K1 delta
