@@ -14,12 +14,18 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              byte shuffle, Huffman map, tANS encode, float split on columns
              C's and D's shapes, the histogram on column A's 2^26-byte
              transposed stream, beside ``torch.bincount``), the decode
-             kernels (delta decode, byte unshuffle, Huffman decode and tANS
-             decode on column A's entropy-coded streams, the lane refill they
-             share, and float merge on C's and D's planes), and the bit
-             packers: bitpack and bitunpack (K5, K6) at every bits in {1, 2,
-             4, 8, 16, 32} and stream width 1/2/4 on small ragged sizes, then
-             timed on column G at 4 bits and on B's deltas at 32 bits, and
+             kernels (delta decode, Huffman decode and tANS decode on column
+             A's entropy-coded streams, the lane refill they share, float
+             merge on C's and D's planes, and byte unshuffle on A's and B's
+             planes and both decoders' lanes, each timed in turns with
+             ``t().contiguous()`` (``turns_ms``), then at widths 1 to 1024 on ragged sizes
+             and multiples of 16, from planes at offsets 0, 1 and 16 bytes,
+             so that its narrow, wide and byte-wise paths all run), and the
+             bit packers: bitpack and bitunpack (K5, K6) at every bits in {1,
+             2, 4, 8, 16, 32} and stream width 1/2/4 on small ragged sizes,
+             aligned and offset, then timed on column G at 4 bits and on B's
+             deltas at 32 bits (K5 in turns with a clone, and also at 8 and
+             16 bits), and
              fused delta + bitpack and its decode (K11, K12) at every bits on
              ragged sizes, then timed on column F at 8 bits.  tANS at
              table_log 16, whose tables the kernels read from global memory,
@@ -53,11 +59,19 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              the delta decode, byte unshuffle, Huffman decode, tANS decode,
              float merge, bitunpack and fused decode counters rose during
              this phase.
-5. profile — one more compress and one decompress per plan and column under
+5. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
+             ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
+             whose selectors try ``lzma_backend``, and ``transpose ->
+             bz2_backend`` on A's: compressed and decompressed on the card
+             with the launch counts reset before and read after each half
+             (float split, histogram and byte shuffle must launch, then float
+             merge and byte unshuffle); each frame equals the CPU's and
+             decodes to its prefix on the card; one profiled call each way.
+6. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record.
-6. identity — the card's name and power limit.
+7. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name/power line, and as the last line
@@ -83,6 +97,7 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 # the latency floor it gives is printed on a line of its own, apart from the
 # measured numbers of the kernels line
 STEP_CYCLES = 30
+QUEUE_CYCLES = 2_000_000  # ~1 ms at the H100's 1980 MHz: cuda_ms's head start
 ENCODE_KERNELS = (
     "delta_encode", "byteshuffle", "huffman_map", "fse_encode", "float_split", "histogram",
     "bitpack", "fused_delta_bitpack",
@@ -100,6 +115,9 @@ PLANS = {
     "float64_l5": lambda rt: rt.float64_profile(),
     "delta+bitpack": lambda rt: rt.pipeline("delta", "bitpack"),
     "bitpack": lambda rt: rt.pipeline("bitpack"),
+    "float32_l7": lambda rt: rt.float32_profile(),
+    "bfloat16_l7": lambda rt: rt.bfloat16_profile(),
+    "transpose+bz2_backend": lambda rt: rt.pipeline("transpose", "bz2_backend"),
 }
 NUMERIC_PLANS = ("numeric_l5", "delta+transpose+huffman", "delta+transpose+fse")
 COLUMN_PLANS = {
@@ -112,13 +130,19 @@ COLUMN_PLANS = {
     "G_int4_codes_u8": ("bitpack",),
 }
 # the codecs each bit-packing frame must record: F fuses (K11), G packs (K5),
-# and B's wrapped u32 deltas refuse fusion, so its step lowers to delta + bitpack
+# and B's wrapped u32 deltas refuse fusion, so its step lowers to delta + bitpack;
+# and the level-7 phase's bz2 frame
 FRAME_CODECS = {
     ("F_string_offsets_u32", "delta+bitpack"): "fused_delta_bitpack",
     ("G_int4_codes_u8", "bitpack"): "bitpack",
     ("B_zipf_ids_u32", "delta+bitpack"): "delta+bitpack",
+    ("A_timestamps_i64", "transpose+bz2_backend"): "transpose+bz2_backend",
 }
 RAGGED_SIZES = (1, 31, 33, 1000, 4097, 100_003)
+# K4's widths and sizes: the ragged sizes take the byte-wise path, the
+# multiples of 16 the narrow (w of 1, 2, 4, 8) and wide (w % 16 == 0) paths
+UNSHUFFLE_WIDTHS = (1, 2, 3, 4, 8, 16, 33, 1024)
+UNSHUFFLE_SIZES = RAGGED_SIZES + (16, 4096, 100_000)
 # the port's kernels in a profile (their CUDA function names), and the host
 # stages whose cumulative time the profile phase prints: selector trials,
 # the host codecs, and the frame's trip through the host
@@ -126,9 +150,18 @@ PORT_KERNEL = re.compile(
     r"(?:void )?((?:delta|byte(?:un)?shuffle|huffman|fse|lane_refill|float_split|float_merge"
     r"|histogram|bit(?:un)?pack|fused_delta_bitpack|fdb)_\w*)")
 HOST_STAGES = ("choose_best", "_lz77_enc", "_lz77_dec", "_zlib_enc", "_zlib_dec",
-               "write_frame", "read_frame")
+               "_lzma_enc", "_lzma_dec", "_bz2_enc", "_bz2_dec", "write_frame", "read_frame")
 COLUMN_BYTES = 64 << 20
 PREFIX_BYTES = 4 << 20
+# the level-7 phase: the float profiles, whose entropy_auto and bytes_auto
+# menus add lzma_backend from level 7, and the bz2 leaf behind transpose, on
+# 4 MiB prefixes (lzma on a whole 64 MiB column's planes takes tens of
+# seconds on the host); the kernels each run must launch
+LEVEL = 7
+LEVEL_COLUMNS = (("D_weights_f32", "float32_l7"), ("C_weights_bf16", "bfloat16_l7"),
+                 ("A_timestamps_i64", "transpose+bz2_backend"))
+LEVEL_ENCODE_KERNELS = ("float_split", "histogram", "byteshuffle")
+LEVEL_DECODE_KERNELS = ("float_merge", "byteunshuffle")
 WIDE_TABLE_LOG = 27  # above 26 the tANS decode step entries are 64-bit
 WIDE_BYTES = 64 << 10
 
@@ -177,18 +210,34 @@ def stream_of(rt, cname: str, col: np.ndarray):
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls between two CUDA events,
+    after one warm-up call.  The window opens behind a device-side sleep of
+    ``QUEUE_CYCLES``, during which the host queues the calls, so the host's
+    latency to launch the first one (a Python wrapper's checks, the ctypes
+    call) is not counted as device time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns_ms(kernel, library, reps: int):
+    """``cuda_ms`` of a kernel and of the PyTorch call it is held against,
+    timed in turns (kernel, library, library, kernel, kernel, library); the
+    least of each one's three is kept, so a settling clock weighs on neither."""
+    times = {kernel: [], library: []}
+    for fn in (kernel, library, library, kernel, kernel, library):
+        times[fn].append(cuda_ms(fn, reps))
+    return min(times[kernel]), min(times[library])
 
 
 def max_abs_err(got, want) -> float:
@@ -428,14 +477,20 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     if not torch.equal(ops.byteunshuffle(h_planes).reshape(-1)[:n_sym_a],
                        ops.byteunshuffle(f_planes).reshape(-1)[:n_sym_a]):
         fail("the Huffman and tANS decoders disagree on column A's planes")
+    err = max(err, unshuffle_sweep(ops, ref, seed))
     planes_a = shapes["(8, 2^23)"]
-    other_ms = {k: cuda_ms(lambda p=p: ops.byteunshuffle(p), 10) for k, p in shapes.items()}
+    timed = {k: turns_ms(lambda p=p: ops.byteunshuffle(p), lambda p=p: p.t().contiguous(), 20)
+             for k, p in shapes.items()}
+    ms_by_shape = {k: t[0] for k, t in timed.items()}
+    library_by_shape = {k: t[1] for k, t in timed.items()}
+    bound_by_shape = {k: 2 * p.numel() / HBM_BYTES_PER_S * 1e3 for k, p in shapes.items()}
     row("byteunshuffle", "src/repro_torch/csrc/byteshuffle.cu",
         "src/repro/kernels/byteshuffle.py:36",
-        err, cuda_ms(lambda: ops.byteunshuffle(planes_a), 20),
+        err, ms_by_shape["(8, 2^23)"],
         cuda_ms(lambda: ref.byteunshuffle(planes_a), 20),
-        2 * COLUMN_BYTES, 0, cuda_ms(lambda: planes_a.t().contiguous(), 20),
-        ms_by_shape=other_ms)
+        2 * COLUMN_BYTES, 0, library_by_shape["(8, 2^23)"],
+        shape="uint8 (8, 2^23) (column A's planes)", ms_by_shape=ms_by_shape,
+        library_ms_by_shape=library_by_shape, bound_ms_by_shape=bound_by_shape)
 
     # K8 float merge: C's and D's planes back to their bit patterns
     merged = [ops.float_merge(*split_c, 0), ops.float_merge(*split_d, 2)]
@@ -467,6 +522,28 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         if r["max_abs_err"] != 0:
             fail(f"kernel {r['name']} disagrees with its plain version")
     return rows
+
+
+def unshuffle_sweep(ops, ref, seed) -> float:
+    """K4 at every width of ``UNSHUFFLE_WIDTHS`` and size of ``UNSHUFFLE_SIZES``,
+    on planes that start at their allocation, 1 byte into it and 16 bytes
+    into it: the narrow, wide and byte-wise paths, each against
+    ``ref.byteunshuffle``."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    err = 0.0
+    for w in UNSHUFFLE_WIDTHS:
+        for n in UNSHUFFLE_SIZES:
+            buf = torch.randint(0, 256, (w * n + 16,), dtype=torch.uint8, device="cuda",
+                                generator=gen)
+            for offset in (0, 1, 16):
+                p = buf[offset: offset + w * n].view(w, n)
+                err = max(err, max_abs_err([ops.byteunshuffle(p)], [ref.byteunshuffle(p)]))
+    print(f"check byteunshuffle: w {UNSHUFFLE_WIDTHS} x n {UNSHUFFLE_SIZES} x plane offsets"
+          f" (0, 1, 16): max_abs_err={err}")
+    return err
 
 
 def bitpack_rows(cols, ops, ref, seed, row) -> None:
@@ -519,15 +596,22 @@ def bitpack_rows(cols, ops, ref, seed, row) -> None:
     g_bytes = n_g + n_g // 2
     b_bytes = 2 * 4 * n_b
     f_bytes = 4 * n_f + n_f
-    err = max_abs_err([g_words, b_words], [ref.bitpack(col_g, 4), ref.bitpack(d_b, 32)])
+    err = max_abs_err([g_words, b_words, ops.bitpack(d_b, 8), ops.bitpack(d_b, 16)],
+                      [ref.bitpack(col_g, 4), ref.bitpack(d_b, 32), ref.bitpack(d_b, 8),
+                       ref.bitpack(d_b, 16)])
+    # B's deltas at 8 and 16 bits: the kernel's other input-to-output ratios
+    # (values past 2^bits add into the next slots, as in the reference)
+    b32_ms, b32_clone_ms = turns_ms(lambda: ops.bitpack(d_b, 32), lambda: d_b.clone(), 20)
+    b_narrow = {}
+    for bits in (8, 16):
+        b_narrow[f"b{bits}_ms"] = cuda_ms(lambda bits=bits: ops.bitpack(d_b, bits), 20)
+        b_narrow[f"b{bits}_bound_ms"] = (4 * n_b + n_b * bits // 8) / HBM_BYTES_PER_S * 1e3
     row("bitpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:41",
         max(err, errs["bitpack"]), cuda_ms(lambda: ops.bitpack(col_g, 4), 20),
         cuda_ms(lambda: ref.bitpack(col_g, 4), 5), g_bytes, n_g, None,
         shape=f"uint8[{n_g}] at 4 bits (column G)",
-        b32_ms=cuda_ms(lambda: ops.bitpack(d_b, 32), 20),
-        b32_plain_ms=cuda_ms(lambda: ref.bitpack(d_b, 32), 5),
-        b32_bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3,
-        b32_clone_ms=cuda_ms(lambda: d_b.clone(), 20))
+        b32_ms=b32_ms, b32_plain_ms=cuda_ms(lambda: ref.bitpack(d_b, 32), 5),
+        b32_bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3, b32_clone_ms=b32_clone_ms, **b_narrow)
     got = [ops.bitunpack(g_words, 4, n_g, 1), ops.bitunpack(b_words, 32, n_b, 4)]
     err = max(max_abs_err(got, [ref.bitunpack(g_words, 4, n_g, 1),
                                 ref.bitunpack(b_words, 32, n_b, 4)]),
@@ -663,6 +747,73 @@ def decode_phase(cols, frames, rt, ops):
     return launches
 
 
+def level_phase(cols, rt, ops) -> None:
+    """The level-7 path on the card: each of ``LEVEL_COLUMNS`` through
+    ``compress`` and back through ``decompress``, with the launch counts reset
+    just before and read just after each half; each frame must equal the
+    CPU's, decode to its prefix on the card, and record the leaf the plan
+    names; then one profiled compress and decompress per plan."""
+    import torch
+
+    ctx = rt.CompressionCtx(level=LEVEL)
+    plans = {pname: PLANS[pname](rt) for _, pname in LEVEL_COLUMNS}
+    prefixes = {cname: cols[cname][: PREFIX_BYTES // cols[cname].itemsize]
+                for cname, _ in LEVEL_COLUMNS}
+    for cname, pname in LEVEL_COLUMNS:  # warm-up on 64 KiB, outside the counted run
+        small = prefixes[cname][: (1 << 16) // prefixes[cname].itemsize]
+        rt.decompress(rt.compress(plans[pname], stream_of(rt, cname, small), ctx,
+                                  device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    frames = {}
+    ops.reset_launches()
+    for cname, pname in LEVEL_COLUMNS:
+        t0 = time.perf_counter()
+        frames[cname, pname] = rt.compress(plans[pname], stream_of(rt, cname, prefixes[cname]),
+                                           ctx, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"level{LEVEL} {cname} {pname} [{frame_codecs(rt, frames[cname, pname])}]:"
+              f" bytes={prefixes[cname].nbytes}"
+              f" ratio={prefixes[cname].nbytes / len(frames[cname, pname])}"
+              f" compress_MBps={prefixes[cname].nbytes / dt / 1e6} seconds={dt}")
+    encode = ops.launch_counts()
+    print(f"level{LEVEL} launches {json.dumps(encode)}")
+    outs = {}
+    ops.reset_launches()
+    for key, frame in frames.items():
+        t0 = time.perf_counter()
+        (outs[key],) = rt.decompress(frame, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"level{LEVEL} decode {key[0]} {key[1]}:"
+              f" decompress_MBps={prefixes[key[0]].nbytes / dt / 1e6} seconds={dt}")
+    decode = ops.launch_counts()
+    print(f"level{LEVEL} decode launches {json.dumps(decode)}")
+    missing = ([k for k in LEVEL_ENCODE_KERNELS if encode[k] == 0]
+               + [k for k in LEVEL_DECODE_KERNELS if decode[k] == 0])
+    if missing:
+        fail(f"the level-{LEVEL} path never launched {missing}")
+    for (cname, pname), frame in frames.items():
+        prefix = prefixes[cname]
+        out = outs[cname, pname]
+        if out.data.device.type != "cuda" or out.content_bytes() != prefix.tobytes():
+            fail(f"level {LEVEL} {cname} {pname}: decompress on the card did not return the prefix")
+        if frame != rt.compress(plans[pname], stream_of(rt, cname, prefix), ctx, device="cpu"):
+            fail(f"level {LEVEL} {cname} {pname}: the card's frame differs from the CPU's")
+        codecs = frame_codecs(rt, frame)
+        if FRAME_CODECS.get((cname, pname), codecs) != codecs:
+            fail(f"level {LEVEL} {cname} {pname}: the frame records {codecs}")
+        print(f"check level{LEVEL} {cname} {pname}: roundtrip on the card ok,"
+              f" card frame == cpu frame ({len(frame)} bytes)")
+    for (cname, pname), frame in frames.items():
+        stream = stream_of(rt, cname, prefixes[cname])
+        codecs = frame_codecs(rt, frame)
+        profile_call(f"level{LEVEL} {cname} {pname} [{codecs}]",
+                     lambda: rt.compress(plans[pname], stream, ctx, device="cuda"))
+        profile_call(f"level{LEVEL} decompress {cname} {pname} [{codecs}]",
+                     lambda: rt.decompress(frame, device="cuda"))
+
+
 def frame_codecs(rt, frame: bytes) -> str:
     """The codecs a frame records, in execution order."""
     from repro_torch.core.codec import get_codec_by_id
@@ -779,6 +930,7 @@ def main() -> None:
                      if k not in ENCODE_KERNELS})
     for r in rows:
         r["launches"] = launches[r["name"]]
+    level_phase(cols, rt, ops)
     profile_phase(cols, frames, rt)
     identity = nvidia_smi("name,power.limit")
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,12 @@
-"""LZ-family codecs: ``lz77`` and the ``zlib_backend`` leaf.
+"""LZ-family codecs: ``lz77`` and the ``lzma_backend``, ``bz2_backend`` and
+``zlib_backend`` leaves.
 
-The port's copy of ``repro.codecs.lz``'s ``lz77`` and zlib backend.  Both
-run on the host and had no TPU kernel in the reference, so there is no
-kernel to port: each encoder copies its input to the host, and returns its
-outputs on the input's device like every other codec; each decoder copies
-its streams to the host, and returns the regenerated stream on its inputs'
-device.  They are the two codecs whose work leaves the device.
+The port's copy of ``repro.codecs.lz``.  All four run on the host and had no
+TPU kernel in the reference, so there is no kernel to port: each encoder
+copies its input to the host, and returns its outputs on the input's device
+like every other codec; each decoder copies its streams to the host, and
+returns the regenerated stream on its inputs' device.  They are the codecs
+whose work leaves the device.
 
 ``lz77`` — a greedy LZ parser over 4-gram hash chains of depth 1, walked as
 segment-parallel lockstep numpy vector ops and spliced into the true parse
@@ -15,8 +16,8 @@ frame, is byte-identical.  Output follows the Zstd factoring: literals,
 literal-run lengths, match lengths and offsets, each its own stream.  Only
 the reference's ``_stage`` timing scopes are left out.
 
-``zlib_backend`` — stdlib DEFLATE as a leaf codec.  The lzma and bz2 leaves
-are not in the port yet.
+``lzma_backend``, ``bz2_backend`` and ``zlib_backend`` — stdlib LZMA, BWT
+and DEFLATE as leaf codecs, each with the header ``u8 stype, varint width``.
 """
 from __future__ import annotations
 
@@ -485,25 +486,92 @@ register_codec(
 )
 
 
+# -------------------------------------------------------------- lzma backend
+def _lzma_enc(streams, params):
+    import lzma
+
+    s = streams[0]
+    if s.stype == SType.STRING:
+        raise ValueError("lzma_backend: fixed-width streams only")
+    preset = int(params.get("preset", 6))
+    return _leaf_out(s, lzma.compress(s.content_bytes(), preset=preset))
+
+
+def _lzma_dec(outs, header):
+    import lzma
+
+    return _leaf_in(outs, header, lzma.decompress)
+
+
+register_codec(
+    CodecSpec(
+        "lzma_backend",
+        codec_id=24,
+        encode=_lzma_enc,
+        decode=_lzma_dec,
+        min_version=3,
+        doc="stdlib LZMA leaf",
+    )
+)
+
+
+# --------------------------------------------------------------- bz2 backend
+def _bz2_enc(streams, params):
+    import bz2
+
+    s = streams[0]
+    if s.stype == SType.STRING:
+        raise ValueError("bz2_backend: fixed-width streams only")
+    level = int(params.get("level", 9))
+    return _leaf_out(s, bz2.compress(s.content_bytes(), level))
+
+
+def _bz2_dec(outs, header):
+    import bz2
+
+    return _leaf_in(outs, header, bz2.decompress)
+
+
+register_codec(
+    CodecSpec(
+        "bz2_backend",
+        codec_id=25,
+        encode=_bz2_enc,
+        decode=_bz2_dec,
+        min_version=3,
+        doc="stdlib BWT leaf",
+    )
+)
+
+
 # -------------------------------------------------------------- zlib backend
 def _zlib_enc(streams, params):
     s = streams[0]
     if s.stype == SType.STRING:
         raise ValueError("zlib_backend: fixed-width streams only (string_split first)")
     level = int(params.get("level", 6))
-    payload = zlib.compress(s.content_bytes(), level)
+    return _leaf_out(s, zlib.compress(s.content_bytes(), level))
+
+
+def _zlib_dec(outs, header):
+    return _leaf_in(outs, header, zlib.decompress)
+
+
+def _leaf_out(s: Stream, payload: bytes):
+    """A host leaf's payload as one SERIAL stream on the input's device, and
+    the header ``u8 stype, varint width`` that rebuilds the input."""
     out = torch.from_numpy(np.frombuffer(bytearray(payload), dtype=np.uint8))
     h = HeaderWriter().u8(int(s.stype)).varint(s.width).done()
     return [Stream(out.to(s.device), SType.SERIAL, 1)], h
 
 
-def _zlib_dec(outs, header):
+def _leaf_in(outs, header, decompress):
+    """The stream a host leaf's payload decompresses to, on the payload's device."""
     r = HeaderReader(header)
     stype = SType(r.u8())
     width = r.varint()
     r.expect_end()
-    payload = zlib.decompress(outs[0].content_bytes())
-    return [from_wire(stype, width, payload, None, outs[0].device)]
+    return [from_wire(stype, width, decompress(outs[0].content_bytes()), None, outs[0].device)]
 
 
 register_codec(

@@ -59,7 +59,7 @@ def entropy_candidates(level: int) -> List[Tuple[str, Plan]]:
     if level >= 5:
         cands.append(("zlib", pipeline(("zlib_backend", {"level": min(level, 9)}))))
     if level >= 7:
-        raise NotImplementedError("entropy_auto above level 6 needs lzma_backend, not yet ported")
+        cands.append(("lzma", pipeline(("lzma_backend", {"preset": 6}))))
     return cands
 
 

@@ -20,11 +20,12 @@ from repro_torch.core.message import SType, from_numpy  # noqa: E402
 PORTED = (
     "store", "delta", "zigzag", "transpose", "range_pack",
     "tokenize", "huffman", "fse", "zlib_backend", "lz77", "float_split",
-    "bitpack", "fused_delta_bitpack",
+    "bitpack", "fused_delta_bitpack", "lzma_backend", "bz2_backend",
 )
 DEVICE_TWINS = (
     "delta", "transpose", "huffman", "fse", "float_split", "bitpack", "fused_delta_bitpack",
 )
+HOST_LEAVES = ("zlib_backend", "lzma_backend", "bz2_backend")
 UNSIGNED = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 
@@ -72,13 +73,13 @@ def _cases(codec):
                     out.append((_numeric(kind, width, n, width * 7 + n), {}))
         out.append((_numeric("full", 2, 999, 3), {"fmt": 1}))
         return out
-    if codec in ("store", "zlib_backend", "lz77"):
+    if codec in ("store", "lz77") + HOST_LEAVES:
         out.append((_bytes("skewed", 4000, 1), {}))
     for width in (1, 2, 4, 8):
         for kind in ("walk", "full", "few"):
             for n in (0, 1, 3001):
                 out.append((_numeric(kind, width, n, width * 7 + n), {}))
-    if codec in ("transpose", "tokenize", "store", "zlib_backend", "lz77"):
+    if codec in ("transpose", "tokenize", "store", "lz77") + HOST_LEAVES:
         rec = np.random.default_rng(2).integers(0, 4, 3 * 500).astype(np.uint8)
         out.append((RefStream(rec, RefSType.STRUCT, 3), {}))
     return out

@@ -38,6 +38,7 @@ IN_SLICE = (
     "codec_zlib_backend", "profile_numeric", "codec_float_split", "codec_lz77",
     "profile_float32", "profile_bfloat16", "profile_float64",
     "codec_bitpack", "codec_fused_delta_bitpack",
+    "codec_lzma_backend", "codec_bz2_backend",
 )
 
 

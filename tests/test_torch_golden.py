@@ -22,6 +22,7 @@ IN_SLICE = (
     "codec_zlib_backend", "profile_numeric", "codec_float_split", "codec_lz77",
     "profile_float32", "profile_bfloat16", "profile_float64",
     "codec_bitpack", "codec_fused_delta_bitpack",
+    "codec_lzma_backend", "codec_bz2_backend",
 )
 MANIFEST = load_manifest()
 ALL_PLANS = sorted(p.stem for p in GOLDEN_DIR.glob("*.ozp"))
