@@ -17,10 +17,12 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              kernels (delta decode, Huffman decode and tANS decode on column
              A's entropy-coded streams, the lane refill they share, float
              merge on C's and D's planes, and byte unshuffle on A's and B's
-             planes and both decoders' lanes, each timed in turns with
-             ``t().contiguous()`` (``turns_ms``), then at widths 1 to 1024 on ragged sizes
-             and multiples of 16, from planes at offsets 0, 1 and 16 bytes,
-             so that its narrow, wide and byte-wise paths all run), and the
+             planes and both decoders' lanes, and at a ragged size of each
+             regime, (8, 2^23 - 8) and (4096, 16383), each timed in turns
+             with ``t().contiguous()`` (``turns_ms``), then at widths 1 to
+             1024 on ragged sizes and multiples of 16, from planes at offsets
+             0, 1 and 16 bytes, so that its narrow, wide and byte-wise paths
+             all run, with their shifted loads and partial groups), and the
              bit packers: bitpack and bitunpack (K5, K6) at every bits in {1,
              2, 4, 8, 16, 32} and stream width 1/2/4 on small ragged sizes,
              aligned and offset, then timed on column G at 4 bits and on B's
@@ -61,8 +63,10 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              this phase.
 5. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
-             whose selectors try ``lzma_backend``, and ``transpose ->
-             bz2_backend`` on A's: compressed and decompressed on the card
+             whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
+             MiB of D's first 40,000 weights repeated, whose frame must record
+             ``lzma_backend``; and ``transpose -> bz2_backend`` on A's 4 MiB,
+             whose frame records ``bz2_backend``: compressed and decompressed on the card
              with the launch counts reset before and read after each half
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
@@ -107,25 +111,23 @@ DECODE_KERNELS = (
     "bitunpack", "fused_delta_bitpack_decode",
 )
 PLANS = {
-    "numeric_l5": lambda rt: rt.numeric_profile(),
+    "numeric_profile": lambda rt: rt.numeric_profile(),
     "delta+transpose+huffman": lambda rt: rt.pipeline("delta", "transpose", "huffman"),
     "delta+transpose+fse": lambda rt: rt.pipeline("delta", "transpose", "fse"),
-    "bfloat16_l5": lambda rt: rt.bfloat16_profile(),
-    "float32_l5": lambda rt: rt.float32_profile(),
-    "float64_l5": lambda rt: rt.float64_profile(),
+    "bfloat16_profile": lambda rt: rt.bfloat16_profile(),
+    "float32_profile": lambda rt: rt.float32_profile(),
+    "float64_profile": lambda rt: rt.float64_profile(),
     "delta+bitpack": lambda rt: rt.pipeline("delta", "bitpack"),
     "bitpack": lambda rt: rt.pipeline("bitpack"),
-    "float32_l7": lambda rt: rt.float32_profile(),
-    "bfloat16_l7": lambda rt: rt.bfloat16_profile(),
     "transpose+bz2_backend": lambda rt: rt.pipeline("transpose", "bz2_backend"),
 }
-NUMERIC_PLANS = ("numeric_l5", "delta+transpose+huffman", "delta+transpose+fse")
+NUMERIC_PLANS = ("numeric_profile", "delta+transpose+huffman", "delta+transpose+fse")
 COLUMN_PLANS = {
     "A_timestamps_i64": NUMERIC_PLANS,
     "B_zipf_ids_u32": NUMERIC_PLANS + ("delta+bitpack",),
-    "C_weights_bf16": ("bfloat16_l5",),
-    "D_weights_f32": ("float32_l5",),
-    "E_weights_f64": ("float64_l5",),
+    "C_weights_bf16": ("bfloat16_profile",),
+    "D_weights_f32": ("float32_profile",),
+    "E_weights_f64": ("float64_profile",),
     "F_string_offsets_u32": ("delta+bitpack",),
     "G_int4_codes_u8": ("bitpack",),
 }
@@ -139,8 +141,9 @@ FRAME_CODECS = {
     ("A_timestamps_i64", "transpose+bz2_backend"): "transpose+bz2_backend",
 }
 RAGGED_SIZES = (1, 31, 33, 1000, 4097, 100_003)
-# K4's widths and sizes: the ragged sizes take the byte-wise path, the
-# multiples of 16 the narrow (w of 1, 2, 4, 8) and wide (w % 16 == 0) paths
+# K4's widths and sizes: w of 1, 2, 4 and 8 take the narrow path, w % 16 == 0
+# the wide one and the other widths the byte-wise one; the ragged sizes and
+# the offset planes run the vector paths' shifted loads and partial groups
 UNSHUFFLE_WIDTHS = (1, 2, 3, 4, 8, 16, 33, 1024)
 UNSHUFFLE_SIZES = RAGGED_SIZES + (16, 4096, 100_000)
 # the port's kernels in a profile (their CUDA function names), and the host
@@ -156,10 +159,17 @@ PREFIX_BYTES = 4 << 20
 # the level-7 phase: the float profiles, whose entropy_auto and bytes_auto
 # menus add lzma_backend from level 7, and the bz2 leaf behind transpose, on
 # 4 MiB prefixes (lzma on a whole 64 MiB column's planes takes tens of
-# seconds on the host); the kernels each run must launch
+# seconds on the host), each with the host leaf its frame must record (None:
+# whatever the selectors pick); H_tiled_f32 is D's first 40,000 weights
+# repeated, whose exponent plane repeats past DEFLATE's 32 KiB window and
+# inside the 64 KiB trial sample, so its selector commits to lzma; the
+# kernels each run must launch
 LEVEL = 7
-LEVEL_COLUMNS = (("D_weights_f32", "float32_l7"), ("C_weights_bf16", "bfloat16_l7"),
-                 ("A_timestamps_i64", "transpose+bz2_backend"))
+LEVEL_COLUMNS = (("D_weights_f32", "float32_profile", None),
+                 ("C_weights_bf16", "bfloat16_profile", None),
+                 ("H_tiled_f32", "float32_profile", "lzma_backend"),
+                 ("A_timestamps_i64", "transpose+bz2_backend", "bz2_backend"))
+TILE_VALUES = 40_000
 LEVEL_ENCODE_KERNELS = ("float_split", "histogram", "byteshuffle")
 LEVEL_DECODE_KERNELS = ("float_merge", "byteunshuffle")
 WIDE_TABLE_LOG = 27  # above 26 the tANS decode step entries are 64-bit
@@ -479,6 +489,15 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         fail("the Huffman and tANS decoders disagree on column A's planes")
     err = max(err, unshuffle_sweep(ops, ref, seed))
     planes_a = shapes["(8, 2^23)"]
+    # a ragged size of each regime (a column of 2^23 - 8 records, a lane count
+    # that is not a multiple of 16), timed and checked like the rest
+    ragged = {"(8, 2^23 - 8)": planes_a.reshape(-1)[: 8 * ((1 << 23) - 8)].view(8, -1),
+              f"({h_planes.shape[0]}, {h_planes.shape[1] - 1})":
+                  h_planes.reshape(-1)[: h_planes.shape[0] * (h_planes.shape[1] - 1)]
+                  .view(h_planes.shape[0], -1)}
+    err = max(err, max_abs_err([ops.byteunshuffle(p) for p in ragged.values()],
+                               [ref.byteunshuffle(p) for p in ragged.values()]))
+    shapes.update(ragged)
     timed = {k: turns_ms(lambda p=p: ops.byteunshuffle(p), lambda p=p: p.t().contiguous(), 20)
              for k, p in shapes.items()}
     ms_by_shape = {k: t[0] for k, t in timed.items()}
@@ -751,22 +770,24 @@ def level_phase(cols, rt, ops) -> None:
     """The level-7 path on the card: each of ``LEVEL_COLUMNS`` through
     ``compress`` and back through ``decompress``, with the launch counts reset
     just before and read just after each half; each frame must equal the
-    CPU's, decode to its prefix on the card, and record the leaf the plan
-    names; then one profiled compress and decompress per plan."""
+    CPU's, decode to its prefix on the card, and record the host leaf named
+    beside it; then one profiled compress and decompress per plan."""
     import torch
 
     ctx = rt.CompressionCtx(level=LEVEL)
-    plans = {pname: PLANS[pname](rt) for _, pname in LEVEL_COLUMNS}
-    prefixes = {cname: cols[cname][: PREFIX_BYTES // cols[cname].itemsize]
-                for cname, _ in LEVEL_COLUMNS}
-    for cname, pname in LEVEL_COLUMNS:  # warm-up on 64 KiB, outside the counted run
+    d = cols["D_weights_f32"]
+    sources = {**cols, "H_tiled_f32": np.resize(d[:TILE_VALUES], PREFIX_BYTES // d.itemsize)}
+    plans = {pname: PLANS[pname](rt) for _, pname, _ in LEVEL_COLUMNS}
+    prefixes = {cname: sources[cname][: PREFIX_BYTES // sources[cname].itemsize]
+                for cname, _, _ in LEVEL_COLUMNS}
+    for cname, pname, _ in LEVEL_COLUMNS:  # warm-up on 64 KiB, outside the counted run
         small = prefixes[cname][: (1 << 16) // prefixes[cname].itemsize]
         rt.decompress(rt.compress(plans[pname], stream_of(rt, cname, small), ctx,
                                   device="cuda"), device="cuda")
     torch.cuda.synchronize()
     frames = {}
     ops.reset_launches()
-    for cname, pname in LEVEL_COLUMNS:
+    for cname, pname, _ in LEVEL_COLUMNS:
         t0 = time.perf_counter()
         frames[cname, pname] = rt.compress(plans[pname], stream_of(rt, cname, prefixes[cname]),
                                            ctx, device="cuda")
@@ -793,9 +814,8 @@ def level_phase(cols, rt, ops) -> None:
                + [k for k in LEVEL_DECODE_KERNELS if decode[k] == 0])
     if missing:
         fail(f"the level-{LEVEL} path never launched {missing}")
-    for (cname, pname), frame in frames.items():
-        prefix = prefixes[cname]
-        out = outs[cname, pname]
+    for cname, pname, leaf in LEVEL_COLUMNS:
+        prefix, frame, out = prefixes[cname], frames[cname, pname], outs[cname, pname]
         if out.data.device.type != "cuda" or out.content_bytes() != prefix.tobytes():
             fail(f"level {LEVEL} {cname} {pname}: decompress on the card did not return the prefix")
         if frame != rt.compress(plans[pname], stream_of(rt, cname, prefix), ctx, device="cpu"):
@@ -803,6 +823,8 @@ def level_phase(cols, rt, ops) -> None:
         codecs = frame_codecs(rt, frame)
         if FRAME_CODECS.get((cname, pname), codecs) != codecs:
             fail(f"level {LEVEL} {cname} {pname}: the frame records {codecs}")
+        if leaf is not None and leaf not in codecs.split("+"):
+            fail(f"level {LEVEL} {cname} {pname}: the frame records {codecs}, no {leaf}")
         print(f"check level{LEVEL} {cname} {pname}: roundtrip on the card ok,"
               f" card frame == cpu frame ({len(frame)} bytes)")
     for (cname, pname), frame in frames.items():

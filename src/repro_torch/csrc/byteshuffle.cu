@@ -63,29 +63,35 @@ REPRO_API int repro_byteshuffle(const void* x, void* out, long long n, long long
 //
 // Bound: bytes (n*w read, n*w written, no arithmetic), so the vector paths
 // move 16-byte vectors with streaming loads and stores (ld/st.global.cs: each
-// byte is touched once).  The host picks the path from
-// the plane and output pointers, w and n:
+// byte is touched once).  The host picks the path from w and the output
+// pointer (which the wrapper allocates, so it is 16-byte aligned):
 //
-// - narrow (w in {1, 2, 4, 8}; both pointers 16-byte aligned, n % 16 == 0,
-//   so every plane start p + c*n is aligned): a thread reads one 16-byte
-//   vector from each plane at the same record offset (16 records) and
-//   transposes the bytes in registers with __byte_perm into its 16*w output
-//   bytes.  A warp's output is one contiguous run of 512*w bytes; the warp
-//   stages it through shared memory (16-byte chunks, XOR-swizzled so that
-//   neither side conflicts on banks) so that each store instruction covers
-//   512 contiguous bytes.  w = 1 is a vector copy.  One thread per group of
-//   16 records, no loop.
-// - wide (w % 16 == 0, same alignment and n): a block transposes 128 planes
-//   by 128 records (16 KiB) per tile.  A thread reads 16-byte vectors from
-//   four planes and transposes the four 4 x 4 byte blocks in registers (a
-//   word then holds one record's bytes of four planes); the words go to a
-//   swizzled shared tile, from which a thread gathers the four words of one
-//   record that cover 16 planes and writes them as one 16-byte store, eight
-//   threads covering a record's 128 contiguous bytes.  Tiles are walked by a
-//   grid-stride loop sized to the card: two barriers per 16 KiB.
-// - any other shape (ragged n, a view at an offset, w such as 3 or 33): a
-//   byte-wise tile transpose through shared memory, UP planes by UN records
-//   per tile, read plane-major and written record-major.
+// - narrow (w in {1, 2, 4, 8}): a thread reads 16 bytes from each plane at
+//   the same record offset (16 records) and transposes them in registers
+//   with __byte_perm into its 16*w output bytes.  A warp's output is one
+//   contiguous run of 512*w bytes; the warp stages it through shared memory
+//   (16-byte chunks, XOR-swizzled so that neither side conflicts on banks)
+//   so that each store instruction covers 512 contiguous bytes.  w = 1 is a
+//   vector copy.  One thread per group of 16 records, no loop; the last
+//   n % 16 records are spread over the lanes of the warp that holds them.
+// - wide (w % 16 == 0): a block transposes 128 planes by 128 records (16 KiB)
+//   per tile.  A thread reads 16 bytes from each of four planes and
+//   transposes the four 4 x 4 byte blocks in registers (a word then holds
+//   one record's bytes of four planes); the words go to a swizzled shared
+//   tile, from which a thread gathers the four words of one record that
+//   cover 16 planes and writes them as one 16-byte store, eight threads
+//   covering a record's 128 contiguous bytes.  Tiles are walked by a
+//   grid-stride loop sized to the card: two barriers per 16 KiB.  A plane's
+//   last partial group of 16 records is read byte by byte.
+// - any other w (3, 33, or max_rem symbols in a single lane): a byte-wise
+//   tile transpose through shared memory, UP planes by UN records per tile,
+//   read plane-major and written record-major.
+//
+// A plane starts at p + c*n, which is 16-byte aligned only when p is and
+// n % 16 == 0.  Both vector paths read a plane's 16 bytes through load16:
+// one aligned vector where the start is aligned, else the two aligned
+// vectors that hold the bytes, joined with funnel shifts.  The shift is one
+// per plane, so in the narrow path it is the same in every thread.
 
 // a, b, c, d: four planes' bytes of the same four records -> o[j]: record j's
 // bytes of the four planes, a's in byte 0.
@@ -106,6 +112,31 @@ __device__ __forceinline__ void words_of(const uint4& v, uint32_t* o) {
   o[1] = v.y;
   o[2] = v.z;
   o[3] = v.w;
+}
+
+// The 16 bytes at a, all of them in bounds, as four words.  An aligned a is
+// one streaming vector load.  Otherwise the two aligned vectors that hold the
+// bytes are read (each holds at least one of them, so neither leaves the
+// allocation: device memory is mapped in granules far larger than 16 bytes)
+// and their words are joined at the byte offset with funnel shifts.  The
+// second vector is the next thread's first, so both go through L1 (ld.nc).
+__device__ __forceinline__ void load16(const uint8_t* a, uint32_t* o) {
+  const unsigned s = (unsigned)((uintptr_t)a & 15);
+  const uint4* v = reinterpret_cast<const uint4*>(a - s);
+  if (s == 0) {
+    words_of(__ldcs(v), o);
+    return;
+  }
+  uint32_t b[8];
+  words_of(__ldg(v), b);
+  words_of(__ldg(v + 1), b + 4);
+  const unsigned q = s >> 2, shift = 8 * (s & 3);
+  uint32_t u[5];  // b[q..q+4], selected without indexing a register array
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    u[i] = q == 0 ? b[i] : q == 1 ? b[i + 1] : q == 2 ? b[i + 2] : b[i + 3];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = __funnelshift_r(u[k], u[k + 1], shift);
 }
 
 #define NARROW_THREADS 256
@@ -151,15 +182,15 @@ byteunshuffle_narrow_kernel(const uint8_t* __restrict__ p, uint8_t* __restrict__
   const int lane = threadIdx.x & 31;
   // this warp: 16-record groups base..base+31, output chunks base*W.. (16 bytes each)
   const long long base = ((long long)blockIdx.x * WARPS + (threadIdx.x >> 5)) * 32;
-  if (base >= groups) return;  // the whole warp
+  const int tail = (int)(n - 16 * groups);  // records past the last full group
+  if (base > groups || (base == groups && tail == 0)) return;  // the whole warp
   const long long g = base + lane;
   uint4* dst = reinterpret_cast<uint4*>(out) + base * W;
   uint32_t o[4 * W];
   if (g < groups) {
     uint32_t in[W][4];
 #pragma unroll
-    for (int c = 0; c < W; ++c)
-      words_of(__ldcs(reinterpret_cast<const uint4*>(p + c * n) + g), in[c]);
+    for (int c = 0; c < W; ++c) load16(p + c * n + 16 * g, in[c]);
     records16<W>(in, o);
   }
   if constexpr (W == 1) {
@@ -178,6 +209,14 @@ byteunshuffle_narrow_kernel(const uint8_t* __restrict__ p, uint8_t* __restrict__
     for (int k = 0; k < W; ++k) {
       const int ci = 32 * k + lane;
       if (ci < live) __stcs(dst + ci, st[narrow_slot(ci)]);
+    }
+  }
+  if (tail && base + 32 > groups) {  // the last n % 16 records: at most 15*W bytes
+    const long long r0 = 16 * groups;
+#pragma unroll
+    for (int k = 0; k < (15 * W + 31) / 32; ++k) {
+      const int i = 32 * k + lane;
+      if (i < tail * W) out[r0 * W + i] = p[(i % W) * n + r0 + i / W];
     }
   }
 }
@@ -207,9 +246,21 @@ byteunshuffle_wide_kernel(const uint8_t* __restrict__ p, uint8_t* __restrict__ o
       const long long c = c0 + 4 * q, r = r0 + 16 * rg;
       if (c < w && r < n) {
         uint32_t v[4][4];
+        if (r + 16 <= n) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          words_of(__ldcs(reinterpret_cast<const uint4*>(p + (c + i) * n + r)), v[i]);
+          for (int i = 0; i < 4; ++i) load16(p + (c + i) * n + r, v[i]);
+        } else {  // the planes' last, partial group: byte by byte, zero past n
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              uint32_t word = 0;
+#pragma unroll
+              for (int b = 0; b < 4; ++b)
+                if (r + 4 * k + b < n) word |= (uint32_t)p[(c + i) * n + r + 4 * k + b] << (8 * b);
+              v[i][k] = word;
+            }
+        }
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           uint32_t o[4];
@@ -269,11 +320,12 @@ __global__ void byteunshuffle_kernel(const uint8_t* __restrict__ p,
   }
 }
 
-// One thread per 16-record group, one warp per 512 records, no loop.
+// One thread per 16-record group, one warp per 512 records, no loop; a
+// partial last group adds one thread.
 template <int W>
 static void launch_narrow(const void* p, void* out, long long n, cudaStream_t s) {
   const long long groups = n / 16;
-  byteunshuffle_narrow_kernel<W><<<repro_grid(groups, NARROW_THREADS, 0x7FFFFFFFLL),
+  byteunshuffle_narrow_kernel<W><<<repro_grid((n + 15) / 16, NARROW_THREADS, 0x7FFFFFFFLL),
                                    NARROW_THREADS, 0, s>>>((const uint8_t*)p, (uint8_t*)out,
                                                            n, groups);
 }
@@ -282,7 +334,7 @@ REPRO_API int repro_byteunshuffle(const void* p, void* out, long long w, long lo
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (w < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const bool vec = (uintptr_t)p % 16 == 0 && (uintptr_t)out % 16 == 0 && n % 16 == 0;
+  const bool vec = (uintptr_t)out % 16 == 0;
   if (vec && (w == 1 || w == 2 || w == 4 || w == 8)) {
     switch (w) {
       case 1: launch_narrow<1>(p, out, n, s); break;

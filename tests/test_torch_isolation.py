@@ -1,6 +1,6 @@
 """The port stands alone: no ``jax``, no ``repro``, no ``msgpack``, no CPU default.
 
-An AST scan of every module of ``src/repro_torch/`` and of ``chip_smoke.py``
+An AST scan of every module of ``src/repro_torch/``, ``chip_smoke.py`` and ``kernel_turns.py``
 finds no import of the three, and a fresh interpreter that imports the port
 has none of them in ``sys.modules`` and has not initialised CUDA.  Without a
 card, an entry point called without ``device="cpu"`` raises instead of
@@ -23,7 +23,9 @@ from repro_torch.kernels import ops  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "repro", "msgpack")
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "kernel_turns.py"
+]
 
 
 def _top_level_imports(path):
