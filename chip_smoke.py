@@ -14,22 +14,27 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              byte shuffle, Huffman map, tANS encode, float split on columns
              C's and D's shapes, the histogram on column A's 2^26-byte
              transposed stream, beside ``torch.bincount``), the decode
-             kernels (delta decode, Huffman decode and tANS decode on column
-             A's entropy-coded streams, the lane refill they share, float
-             merge on C's and D's planes, and byte unshuffle on A's and B's
-             planes and both decoders' lanes, and at a ragged size of each
-             regime, (8, 2^23 - 8) and (4096, 16383), each timed in turns
-             with ``t().contiguous()`` (``turns_ms``), then at widths 1 to
+             kernels (delta decode on A's and B's deltas, in turns with
+             ``torch.cumsum`` (``dtype=torch.int32`` on B's carrier), then
+             at widths 1, 2, 4 and 8 on ragged sizes and around its tile,
+             from a tensor's start and from ``d[1:]``, and 50 times back to
+             back on 2^26 and 2^28 uint8 deltas, every result equal; Huffman
+             decode and tANS decode on column A's entropy-coded streams, the
+             lane refill they share, float merge on C's and D's planes, and
+             byte unshuffle on A's and B's planes and both decoders' lanes,
+             and at a ragged size of each regime, (8, 2^23 - 8) and
+             (4096, 16383), each timed in turns with ``t().contiguous()``
+             (``turns_ms``), then at widths 1 to
              1024 on ragged sizes and multiples of 16, from planes at offsets
              0, 1 and 16 bytes, so that its narrow, wide and byte-wise paths
              all run, with their shifted loads and partial groups), and the
              bit packers: bitpack and bitunpack (K5, K6) at every bits in {1,
              2, 4, 8, 16, 32} and stream width 1/2/4 on small ragged sizes,
-             aligned and offset, then timed on column G at 4 bits and on B's
-             deltas at 32 bits (K5 in turns with a clone, and also at 8 and
-             16 bits), and
-             fused delta + bitpack and its decode (K11, K12) at every bits on
-             ragged sizes, then timed on column F at 8 bits.  tANS at
+             aligned and offset (K6 from words 1, 2 and 3 words into their
+             allocation), then timed on column G at 4 bits and on B's
+             deltas at 32 bits (both in turns with a clone, K5 also at 8 and
+             16 bits), and fused delta + bitpack and its decode (K11, K12)
+             at every bits on ragged sizes, then timed on column F at 8 bits.  tANS at
              table_log 16, whose tables the kernels read from global memory,
              is checked on a 4 MiB prefix, and at table_log 27, whose decode
              step entries are 64-bit, on 64 KiB of uniform random bytes: the
@@ -146,6 +151,11 @@ RAGGED_SIZES = (1, 31, 33, 1000, 4097, 100_003)
 # the offset planes run the vector paths' shifted loads and partial groups
 UNSHUFFLE_WIDTHS = (1, 2, 3, 4, 8, 16, 33, 1024)
 UNSHUFFLE_SIZES = RAGGED_SIZES + (16, 4096, 100_000)
+# K2's back-to-back decodes of one input, at 2^26 and 2^28 uint8 deltas
+# (4096 and 16,384 tiles): its look-back's ordering faults would show only
+# under contention, as results that differ between runs
+CONTENTION_RUNS = 50
+CONTENTION_LOG_SIZES = (26, 28)
 # the port's kernels in a profile (their CUDA function names), and the host
 # stages whose cumulative time the profile phase prints: selector trials,
 # the host codecs, and the frame's trip through the host
@@ -386,17 +396,24 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         bf16_exponent_ms=cuda_ms(lambda: ops.histogram(exp_c), 20),
         bf16_exponent_bincount_ms=cuda_ms(lambda: torch.bincount(exp_c, minlength=256), 20))
 
-    # K2 delta decode: the inverse of K1 on both columns' widths
+    # K2 delta decode: the inverse of K1 on both columns' widths, each timed
+    # in turns with the one cumsum call that computes the same function (on
+    # B's int32 carrier with dtype=int32, which wraps as K2 does: a plain
+    # cumsum of an int32 tensor returns int64)
     d_a, d_b = ops.delta_encode(col_a), ops.delta_encode(col_b)
     got = [ops.delta_decode(d_a), ops.delta_decode(d_b)]
     err = max_abs_err(got, [ref.delta_decode(d_a), ref.delta_decode(d_b)])
     err = max(err, max_abs_err(got, [col_a, col_b]))
+    err = max(err, delta_decode_sweep(ops, ref, seed))
+    a_ms, a_cumsum_ms = turns_ms(lambda: ops.delta_decode(d_a), lambda: torch.cumsum(d_a, 0), 20)
+    b_ms, b_cumsum_ms = turns_ms(lambda: ops.delta_decode(d_b),
+                                 lambda: torch.cumsum(d_b, 0, dtype=torch.int32), 20)
     row("delta_decode", "src/repro_torch/csrc/delta.cu", "src/repro/kernels/delta.py:56",
-        err, cuda_ms(lambda: ops.delta_decode(d_a), 20),
-        cuda_ms(lambda: ref.delta_decode(d_a), 5),
-        2 * COLUMN_BYTES, col_a.numel(),
-        cuda_ms(lambda: torch.cumsum(d_a, 0), 20),
-        u32_ms=cuda_ms(lambda: ops.delta_decode(d_b), 20))
+        err, a_ms, cuda_ms(lambda: ref.delta_decode(d_a), 5),
+        2 * COLUMN_BYTES, col_a.numel(), a_cumsum_ms,
+        shape=f"int64[{d_a.numel()}] (column A's deltas)",
+        u32_ms=b_ms, u32_library_ms=b_cumsum_ms,
+        u32_bound_ms=2 * COLUMN_BYTES / HBM_BYTES_PER_S * 1e3)
 
     # K15 Huffman decode and K10 tANS decode on column A's entropy-coded
     # streams, as decompress hands them over
@@ -565,6 +582,58 @@ def unshuffle_sweep(ops, ref, seed) -> float:
     return err
 
 
+def delta_decode_sweep(ops, ref, seed) -> float:
+    """K2 at widths 1, 2, 4 and 8, at ``RAGGED_SIZES`` and around its tile
+    (one less, equal, one more, twice plus one), from a tensor's start and
+    from ``d[1:]``, on values drawn over the whole width so that the sums
+    wrap; then 2^26 and 2^28 uint8 deltas, both ways, and decoded
+    ``CONTENTION_RUNS`` times back to back on one stream, every result equal:
+    each against ``ref.delta_decode``."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    lib = ops._lib()
+    err = 0.0
+
+    def deltas(n, width):  # uniform over the width's every bit pattern
+        hi = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int64, device="cuda",
+                           generator=gen)
+        x = (hi << 32) | torch.randint(0, 1 << 32, (n,), dtype=torch.int64, device="cuda",
+                                       generator=gen)
+        if width == 8:
+            return x
+        if width == 1:
+            return (x & 255).to(torch.uint8)
+        half = 1 << (8 * width - 1)
+        return ((x & (2 * half - 1)) - half).to(torch.int16 if width == 2 else torch.int32)
+
+    tiles = {}
+    for width in (1, 2, 4, 8):
+        t = tiles[width] = lib.repro_delta_decode_tile(width)
+        for n in RAGGED_SIZES + (t - 1, t, t + 1, 2 * t + 1):
+            full = deltas(n + 1, width)
+            for d in (full[:n], full[1:]):
+                err = max(err, max_abs_err([ops.delta_decode(d)], [ref.delta_decode(d)]))
+    for log_n in CONTENTION_LOG_SIZES:
+        full = deltas((1 << log_n) + 1, 1)
+        big = full[:-1]
+        err = max(err, max_abs_err([ops.delta_decode(full[1:])], [ref.delta_decode(full[1:])]))
+        runs = [ops.delta_decode(big) for _ in range(CONTENTION_RUNS)]
+        want = ref.delta_decode(big)
+        differ = sum(not torch.equal(r, want) for r in runs)
+        if differ:
+            fail(f"delta_decode: {differ} of {CONTENTION_RUNS} back-to-back decodes of"
+                 f" 2^{log_n} uint8 deltas differ from the plain version")
+        del full, big, runs, want
+    print(f"check delta_decode: widths (1, 2, 4, 8) x n {RAGGED_SIZES} and each width's tile"
+          f" {json.dumps(tiles)} -1, +0, +1, 2x+1, aligned and from d[1:]; uint8 deltas of"
+          + "".join(f" 2^{k} ({(1 << k) // tiles[1]} tiles)" for k in CONTENTION_LOG_SIZES)
+          + f" both ways and {CONTENTION_RUNS} times back to back, all equal:"
+          f" max_abs_err={err}")
+    return err
+
+
 def bitpack_rows(cols, ops, ref, seed, row) -> None:
     """K5, K6, K11 and K12: every bits and stream width on small ragged
     sizes, then timed at the main path's shapes (G at 4 bits and B's deltas
@@ -602,8 +671,18 @@ def bitpack_rows(cols, ops, ref, seed, row) -> None:
                                 [ref.fused_delta_bitpack_decode(fused, bits, n, out_width)]))
                     errs["bitunpack"] = max(errs["bitunpack"], max_abs_err(
                         [ops.bitunpack(words, bits, n, width)], [v]))
+                # K6 from words 1, 2 and 3 words into their allocation (a
+                # payload view into a frame), at every output width
+                buf = torch.zeros(words.numel() + 3, dtype=torch.int32, device=dev)
+                for offset in (1, 2, 3):
+                    view = buf[offset: offset + words.numel()]
+                    view.copy_(words)
+                    for out_width in carriers:
+                        errs["bitunpack"] = max(errs["bitunpack"], max_abs_err(
+                            [ops.bitunpack(view, bits, n, out_width)],
+                            [ref.bitunpack(view, bits, n, out_width)]))
     print(f"check bit packing: bits {ref.PACK_BITS} x widths (1, 2, 4) x n {RAGGED_SIZES},"
-          f" aligned and offset: {json.dumps(errs)}")
+          f" aligned and offset, bitunpack also from words 1-3 words in: {json.dumps(errs)}")
 
     col_g = torch.from_numpy(cols["G_int4_codes_u8"]).to(dev)
     col_b = torch.from_numpy(cols["B_zipf_ids_u32"].view(np.int32)).to(dev)
@@ -635,13 +714,14 @@ def bitpack_rows(cols, ops, ref, seed, row) -> None:
     err = max(max_abs_err(got, [ref.bitunpack(g_words, 4, n_g, 1),
                                 ref.bitunpack(b_words, 32, n_b, 4)]),
               max_abs_err(got, [col_g, d_b]))
+    u32_ms, u32_clone_ms = turns_ms(lambda: ops.bitunpack(b_words, 32, n_b, 4),
+                                    lambda: b_words.clone(), 20)
     row("bitunpack", "src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:58",
         max(err, errs["bitunpack"]), cuda_ms(lambda: ops.bitunpack(g_words, 4, n_g, 1), 20),
         cuda_ms(lambda: ref.bitunpack(g_words, 4, n_g, 1), 5), g_bytes, n_g, None,
         shape=f"int32[{g_words.numel()}] at 4 bits -> uint8 (column G)",
-        b32_ms=cuda_ms(lambda: ops.bitunpack(b_words, 32, n_b, 4), 20),
-        b32_plain_ms=cuda_ms(lambda: ref.bitunpack(b_words, 32, n_b, 4), 5),
-        b32_bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3)
+        b32_ms=u32_ms, b32_plain_ms=cuda_ms(lambda: ref.bitunpack(b_words, 32, n_b, 4), 5),
+        b32_bound_ms=b_bytes / HBM_BYTES_PER_S * 1e3, b32_clone_ms=u32_clone_ms)
     err = max_abs_err([f_words], [ref.fused_delta_bitpack(col_f, 8)])
     row("fused_delta_bitpack", "src/repro_torch/csrc/fused_delta_bitpack.cu",
         "src/repro/kernels/fused_delta_bitpack.py:45",

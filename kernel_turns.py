@@ -1,4 +1,4 @@
-"""Time the byte and bit kernels of one source tree on one NVIDIA card.
+"""Time the byte, bit and delta-decode kernels of one source tree on one NVIDIA card.
 
 Usage (on a machine with one CUDA card):
 
@@ -21,10 +21,16 @@ What it times, each kernel first held against ``kernels/ref.py`` bit for bit:
 - K5 bitpack at 4 bits on a uint8[2^26] (column G's shape) and at 8, 16 and
   32 bits on an int32[2^24] (B's deltas), and at 32 bits from an input 4
   bytes into its allocation; at 32 bits in turns with ``clone()``;
-- K3 byte shuffle (in turns with ``t().contiguous()``), K6 bitunpack at 4 and
-  32 bits (at 32 in turns with ``clone()``) and K11 fused delta + bitpack at
-  8 bits, at chip_smoke's shapes: kernels whose sources a K4/K5 change must
-  leave as they are.
+- K2 delta decode on an int64[2^23] (column A's deltas) and a uint32[2^24]
+  (B's), from the tensor's start and from ``d[1:]``, each in turns with the
+  ``torch.cumsum`` that computes the same function (``dtype=torch.int32`` on
+  the uint32 carrier, which wraps as K2 does);
+- K6 bitunpack at 4 bits to uint8[2^26] (column G's shape), at 8 bits to
+  int32[2^24], and at 32 bits to int32[2^24], from words at their
+  allocation's start and 1 word into it, at 32 bits in turns with
+  ``clone()``;
+- K3 byte shuffle (in turns with ``t().contiguous()``) and K11 fused delta +
+  bitpack at 8 bits, at chip_smoke's shapes.
 
 Prints a line per shape, then one JSON object with every number, the card's
 name and power limit as ``nvidia-smi`` gives them, and the label.  Exits
@@ -115,15 +121,40 @@ def main() -> None:
     ms, lib = cs.turns_ms(lambda: ops.byteshuffle(recs), lambda: recs.t().contiguous(), 20)
     result["byteshuffle"] = {"(2^23, 8)": {"ms": ms, "library_ms": lib}}
     print(f"{args.label} byteshuffle (2^23, 8): ms={ms} t_contiguous_ms={lib}")
-    g_words, d_words = ops.bitpack(g, 4), ops.bitpack(d, 32)
+    g_words = ops.bitpack(g, 4)
     check(ops.bitunpack(g_words, 4, g.numel(), 1), g, "bitunpack at 4 bits")
-    check(ops.bitunpack(d_words, 32, d.numel(), 4), d, "bitunpack at 32 bits")
     u4 = min(cs.cuda_ms(lambda: ops.bitunpack(g_words, 4, g.numel(), 1), 20) for _ in range(3))
-    u32, clone = cs.turns_ms(lambda: ops.bitunpack(d_words, 32, d.numel(), 4),
-                             lambda: d_words.clone(), 20)
-    result["bitunpack"] = {"4 bits -> uint8[2^26]": {"ms": u4},
-                           "32 bits -> int32[2^24]": {"ms": u32, "clone_ms": clone}}
-    print(f"{args.label} bitunpack: 4 bits ms={u4}; 32 bits ms={u32} clone_ms={clone}")
+    u4_bound = (g.numel() + g.numel() // 2) / cs.HBM_BYTES_PER_S * 1e3
+    result["bitunpack"] = {"4 bits -> uint8[2^26]": {"ms": u4, "bound_ms": u4_bound}}
+    n = d.numel()
+    for key, words, bits in (("8 bits -> int32[2^24]", d[: n // 4], 8),
+                             ("32 bits -> int32[2^24]", d, 32),
+                             ("32 bits -> int32[2^24], words +1 word", d_off, 32)):
+        check(ops.bitunpack(words, bits, n, 4), ref.bitunpack(words, bits, n, 4),
+              f"bitunpack {key}")
+        bound = (words.numel() * 4 + 4 * n) / cs.HBM_BYTES_PER_S * 1e3
+        if bits == 32:
+            ms, lib = cs.turns_ms(lambda w=words: ops.bitunpack(w, 32, n, 4),
+                                  lambda w=words: w.clone(), 20)
+        else:
+            ms, lib = min(cs.cuda_ms(lambda w=words: ops.bitunpack(w, 8, n, 4), 20)
+                          for _ in range(3)), None
+        result["bitunpack"][key] = {"ms": ms, "clone_ms": lib, "bound_ms": bound}
+    print(f"{args.label} bitunpack: {json.dumps(result['bitunpack'])}")
+    result["delta_decode"] = {}
+    for key, width, count in (("int64[2^23]", 8, 1 << 23), ("uint32[2^24]", 4, 1 << 24)):
+        full = torch.randint(-(1 << 62), 1 << 62, (count + 1,), dtype=torch.int64, device="cuda",
+                             generator=gen)
+        full = full if width == 8 else full.to(torch.int32)
+        dtype = None if width == 8 else torch.int32
+        for view, x in (("", full[:-1]), (" from d[1:]", full[1:])):
+            check(ops.delta_decode(x), ref.delta_decode(x), f"delta_decode {key}{view}")
+            ms, lib = cs.turns_ms(lambda x=x: ops.delta_decode(x),
+                                  lambda x=x: torch.cumsum(x, 0, dtype=dtype), 20)
+            bound = 2 * x.numel() * width / cs.HBM_BYTES_PER_S * 1e3
+            result["delta_decode"][key + view] = {"ms": ms, "cumsum_ms": lib, "bound_ms": bound}
+            print(f"{args.label} delta_decode {key}{view}: ms={ms} cumsum_ms={lib}"
+                  f" bound_ms={bound}")
     offsets = torch.cumsum(torch.randint(0, 256, (1 << 24,), dtype=torch.int64, device="cuda",
                                          generator=gen), 0).to(torch.int32)
     check(ops.fused_delta_bitpack(offsets, 8), ref.fused_delta_bitpack(offsets, 8),

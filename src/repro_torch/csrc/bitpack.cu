@@ -24,11 +24,19 @@
 //
 // Replaces src/repro/kernels/bitpack.py, bitunpack_pallas (_unpack_kernel).
 //
-// Bound: bytes.  Reads n*bits/8 bytes, writes n*w bytes.  Design: one thread
-// per word, which writes its PER values: where they fill whole 32-bit
-// registers (a u8 column at 4 bits: 8 bytes), they are assembled in
-// registers and stored as one 16-, 8- or 4-byte vector, where one thread
-// per value would store a single byte per thread for a u8 column.
+// Bound: bytes.  Reads n*bits/8 bytes, writes n*w bytes.  Design: the
+// mirror of K5.  A thread reads G words (four, or as many as give 16 output
+// bytes: 32 bits to uint8 takes sixteen) as 16-byte streaming vectors and
+// writes their G*PER values as 16-byte streaming vectors (ld/st.global.cs),
+// so at 32 bits to int32 the kernel is a vectorised copy.  Where a thread's
+// values fill 2, 4 or 8 vectors (at 4 bits to uint8, two), its warp stages
+// them through shared memory and stores 512 contiguous bytes per
+// instruction: vectors stored at the stride of a thread's output leave each
+// 32-byte sector half written per instruction, which ran up to 1.7 times
+// slower on an H100.  Words may start at any 4-byte boundary (a view into a
+// frame's payload): the host then takes the shifted path, whose lanes join
+// the two aligned vectors around their words (load_run in common.cuh).
+// Only the last, partial group takes the scalar tail.
 #include "bitpack.cuh"
 
 // How a K5 thread reads the 4*PER values of its four words: BYTES input
@@ -128,68 +136,104 @@ static int launch_pack(const void* x, void* out, long long n, cudaStream_t strea
   return (int)cudaGetLastError();
 }
 
-// The PER values of `word`, cut to T, stored at out[0..PER).  Where they fill
-// whole 32-bit registers, the values are assembled in registers and stored
-// 16, 8 or 4 bytes at a time (out is aligned to the chunk: word j's values
-// start at byte j * PER * sizeof(T) of a fresh allocation).
+// How a K6 thread covers its words: G of them (V = G / 4 16-byte input
+// vectors), whose values fill NV 16-byte output vectors.  Four words where
+// they give at least 16 output bytes, else as many as give 16 (at 32 bits
+// to uint8, sixteen words).
 template <typename T, int BITS>
-__device__ __forceinline__ void unpack_word(T* __restrict__ out, uint32_t word) {
+struct UnpackGroup {
+  static constexpr int PER = Packing<BITS>::PER;
+  static constexpr int WORD_BYTES = PER * (int)sizeof(T);  // output bytes of one word
+  static constexpr int G = WORD_BYTES >= 4 ? 4 : 16 / WORD_BYTES;
+  static constexpr int V = G / 4;
+  static constexpr int NV = G * WORD_BYTES / 16;
+};
+
+// Output vector v of a group of G words: values 4v*VPR .. of the group.
+template <typename T, int BITS>
+__device__ __forceinline__ uint4 unpack_vector(const uint32_t* wd, int v) {
   constexpr int PER = Packing<BITS>::PER;
-  constexpr int BYTES = PER * (int)sizeof(T);
-  constexpr uint32_t MASK = Packing<BITS>::MASK;
-  if constexpr (BYTES % 4 == 0) {
-    constexpr int R = BYTES / 4;              // 32-bit registers of values
-    constexpr int VPR = 4 / (int)sizeof(T);   // values per register
-    constexpr int TBITS = 8 * (int)sizeof(T);
-    constexpr uint32_t TMASK = 0xFFFFFFFFu >> (32 - TBITS);
-    uint32_t reg[R];
+  constexpr int VPR = 4 / (int)sizeof(T);  // values per register
+  constexpr int TBITS = 8 * (int)sizeof(T);
+  constexpr uint32_t MASK = Packing<BITS>::MASK & (0xFFFFFFFFu >> (32 - TBITS));
+  uint32_t r[4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      uint32_t v = 0;
+  for (int j = 0; j < 4; ++j) {
+    uint32_t acc = 0;
 #pragma unroll
-      for (int q = 0; q < VPR; ++q)
-        v |= ((word >> ((r * VPR + q) * BITS)) & MASK & TMASK) << (q * TBITS);
-      reg[r] = v;
+    for (int q = 0; q < VPR; ++q) {
+      const int i = (4 * v + j) * VPR + q;  // value index within the group
+      acc |= ((wd[i / PER] >> ((i % PER) * BITS)) & MASK) << (q * TBITS);
     }
-    if constexpr (R % 4 == 0) {
+    r[j] = acc;
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// Thread t unpacks words G*t .. G*t + G - 1 into values G*t*PER onwards.  A
+// warp of full groups with 2, 4 or 8 vectors each stages them (stage_slot
+// in common.cuh); otherwise a full group stores its NV vectors, each
+// assembled in four registers just before its store, so at most one
+// vector's values are live (at 1 bit to uint32 a thread stores 512 bytes).
+// The last, partial group reads its words and stores its values one at a
+// time, up to n.
+template <typename T, int BITS, bool SHIFTED>
+__global__ void __launch_bounds__(256)
+bitunpack_kernel(const uint32_t* __restrict__ words, T* __restrict__ out, long long n,
+                 long long m) {
+  using U = UnpackGroup<T, BITS>;
+  constexpr int PER = U::PER;
+  const long long w0 = U::G * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  const bool full = (w0 + U::G) * PER <= n;
+  uint32_t wd[U::G];
+  load_run<U::V, SHIFTED>(reinterpret_cast<const uint8_t*>(words + w0),
+                          reinterpret_cast<const uint8_t*>(words + m), full, wd);
+  constexpr bool STAGE = U::NV == 2 || U::NV == 4 || U::NV == 8;
+  if constexpr (STAGE) {
+    __shared__ uint4 stage[8][32 * (STAGE ? U::NV : 1)];
+    if (__all_sync(0xffffffffu, full)) {  // the warp's 32*NV vectors, staged
+      const int lane = threadIdx.x & 31;
+      uint4* st = stage[threadIdx.x >> 5];
 #pragma unroll
-      for (int g = 0; g < R / 4; ++g)
-        reinterpret_cast<uint4*>(out)[g] =
-            make_uint4(reg[4 * g], reg[4 * g + 1], reg[4 * g + 2], reg[4 * g + 3]);
-    } else if constexpr (R == 2) {
-      reinterpret_cast<uint2*>(out)[0] = make_uint2(reg[0], reg[1]);
-    } else {
-      reinterpret_cast<uint32_t*>(out)[0] = reg[0];
+      for (int v = 0; v < U::NV; ++v)
+        st[stage_slot(lane * U::NV + v)] = unpack_vector<T, BITS>(wd, v);
+      __syncwarp();
+      uint4* dst = reinterpret_cast<uint4*>(out + (w0 - (long long)U::G * lane) * PER);
+#pragma unroll
+      for (int k = 0; k < U::NV; ++k) __stcs(dst + 32 * k + lane, st[stage_slot(32 * k + lane)]);
+      return;
     }
-  } else {
+  }
+  if (full) {
+    uint4* dst = reinterpret_cast<uint4*>(out + w0 * PER);
 #pragma unroll
-    for (int k = 0; k < PER; ++k) out[k] = (T)((word >> (k * BITS)) & MASK);
+    for (int v = 0; v < U::NV; ++v) __stcs(dst + v, unpack_vector<T, BITS>(wd, v));
+  } else if (w0 < m) {
+    for (long long w = w0; w < m && w < w0 + U::G; ++w) {
+      const uint32_t word = words[w];
+      for (int k = 0; k < PER && w * PER + k < n; ++k)
+        out[w * PER + k] = (T)((word >> (k * BITS)) & Packing<BITS>::MASK);
+    }
   }
 }
 
-template <typename T, int BITS>
-__global__ void bitunpack_kernel(const uint32_t* __restrict__ words, T* __restrict__ out,
-                                 long long n, long long m) {
-  constexpr int PER = Packing<BITS>::PER;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x; w < m; w += stride) {
-    const uint32_t word = words[w];
-    const long long i0 = w * PER;
-    if (i0 + PER <= n) {
-      unpack_word<T, BITS>(out + i0, word);
-    } else {
-      for (int k = 0; i0 + k < n; ++k)
-        out[i0 + k] = (T)((word >> (k * BITS)) & Packing<BITS>::MASK);
-    }
-  }
-}
-
+// words need 4-byte alignment (an int32 tensor's), out 16 (a fresh allocation).
 template <typename T, int BITS>
 static int launch_unpack(const void* words, void* out, long long n, cudaStream_t stream) {
-  const long long m = (n + Packing<BITS>::PER - 1) / Packing<BITS>::PER;
+  using U = UnpackGroup<T, BITS>;
+  const long long m = (n + U::PER - 1) / U::PER;
+  const long long groups = (m + U::G - 1) / U::G;
   const int threads = 256;
-  bitunpack_kernel<T, BITS><<<repro_grid(m, threads, 1LL << 20), threads, 0, stream>>>(
-      (const uint32_t*)words, (T*)out, n, m);
+  if ((uintptr_t)words % 4 || (uintptr_t)out % 16 ||
+      (groups + threads - 1) / threads > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = repro_grid(groups, threads, 0x7FFFFFFFLL);
+  if ((uintptr_t)words % 16 == 0)
+    bitunpack_kernel<T, BITS, false><<<blocks, threads, 0, stream>>>((const uint32_t*)words,
+                                                                     (T*)out, n, m);
+  else
+    bitunpack_kernel<T, BITS, true><<<blocks, threads, 0, stream>>>((const uint32_t*)words,
+                                                                    (T*)out, n, m);
   return (int)cudaGetLastError();
 }
 

@@ -107,13 +107,6 @@ __device__ __forceinline__ void transpose4x4(uint32_t a, uint32_t b, uint32_t c,
   o[3] = __byte_perm(ab_hi, cd_hi, 0x7632);          // a3 b3 c3 d3
 }
 
-__device__ __forceinline__ void words_of(const uint4& v, uint32_t* o) {
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-
 // The 16 bytes at a, all of them in bounds, as four words.  An aligned a is
 // one streaming vector load.  Otherwise the two aligned vectors that hold the
 // bytes are read (each holds at least one of them, so neither leaves the
@@ -167,12 +160,6 @@ __device__ __forceinline__ void records16(uint32_t (*in)[4], uint32_t* o) {
   }
 }
 
-// The staged chunk of a warp's chunk index: the low three bits XORed with
-// the next three, so that a quarter-warp's 16-byte accesses hit eight
-// distinct bank groups both when lane l writes chunks l*W..l*W+W-1 and when
-// it reads chunks l, l + 32, ...
-__device__ __forceinline__ int narrow_slot(int ci) { return ci ^ ((ci >> 3) & 7); }
-
 template <int W>
 __global__ void __launch_bounds__(NARROW_THREADS)
 byteunshuffle_narrow_kernel(const uint8_t* __restrict__ p, uint8_t* __restrict__ out,
@@ -200,7 +187,7 @@ byteunshuffle_narrow_kernel(const uint8_t* __restrict__ p, uint8_t* __restrict__
     if (g < groups) {
 #pragma unroll
       for (int j = 0; j < W; ++j)
-        st[narrow_slot(lane * W + j)] =
+        st[stage_slot(lane * W + j)] =
             make_uint4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
     }
     __syncwarp();
@@ -208,7 +195,7 @@ byteunshuffle_narrow_kernel(const uint8_t* __restrict__ p, uint8_t* __restrict__
 #pragma unroll
     for (int k = 0; k < W; ++k) {
       const int ci = 32 * k + lane;
-      if (ci < live) __stcs(dst + ci, st[narrow_slot(ci)]);
+      if (ci < live) __stcs(dst + ci, st[stage_slot(ci)]);
     }
   }
   if (tail && base + 32 > groups) {  // the last n % 16 records: at most 15*W bytes

@@ -39,9 +39,72 @@ __device__ __forceinline__ uint32_t refill32(const uint8_t* __restrict__ buf,
   return (lo >> r) | ((b4 << 1) << (31u - r));
 }
 
+__device__ __forceinline__ void words_of(const uint4& v, uint32_t* o) {
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+
+// The staged slot of a warp's 16-byte chunk c, where a warp passes its
+// chunks through shared memory so that each global access instruction
+// covers 512 contiguous bytes: the low three bits XORed with the next three,
+// so that a quarter-warp's 16-byte accesses hit eight distinct bank groups
+// both when lane l writes chunks l*W..l*W+W-1 (W = 1, 2, 4 or 8) and when it
+// reads chunks l, l + 32, ...  K4's narrow path, K6 and K2 stage this way.
+__device__ __forceinline__ int stage_slot(int c) { return c ^ ((c >> 3) & 7); }
+
+// A run of 16*V bytes at p, as 4*V words, read as streaming 16-byte vectors
+// (ld.global.cs: each byte is read once).  The caller's warp reads
+// consecutive runs (lane l's p is lane 0's plus 16*V*l), so p's offset
+// s = p % 16 is the same in every lane, and the host chooses SHIFTED from
+// the array's pointer (s != 0).  `full`: the run lies wholly before `end`,
+// the array's end; o is written only for such a lane, and the caller reads
+// a partial run element by element.
+//
+// Aligned, a lane loads its V vectors.  Shifted, a run spans the V + 1
+// aligned vectors from p - s: a lane loads the first V and takes the last
+// from the next lane, whose first vector it is (lane 31 loads it itself),
+// so each vector is read once per warp; the words are then joined at the
+// byte offset with funnel shifts.  Every vector read holds at least one byte
+// of the array (a lane loads its first vector wherever it starts before
+// `end`), so none leaves the allocation: device memory is mapped in
+// granules far larger than 16 bytes.  Every lane of the warp must call it.
+template <int V, bool SHIFTED>
+__device__ __forceinline__ void load_run(const uint8_t* p, const uint8_t* end, bool full,
+                                         uint32_t* o) {
+  if constexpr (!SHIFTED) {
+    if (full) {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        words_of(__ldcs(reinterpret_cast<const uint4*>(p) + v), o + 4 * v);
+    }
+  } else {
+    const unsigned s = (unsigned)((uintptr_t)p & 15);
+    const uint4* a = reinterpret_cast<const uint4*>(p - s);
+    uint32_t b[4 * V + 4] = {};
+    if (reinterpret_cast<const uint8_t*>(a) < end) words_of(__ldcs(a), b);
+    if (full) {
+#pragma unroll
+      for (int v = 1; v < V; ++v) words_of(__ldcs(a + v), b + 4 * v);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) b[4 * V + k] = __shfl_down_sync(0xffffffffu, b[k], 1);
+    if ((threadIdx.x & 31) == 31 && full) words_of(__ldcs(a + V), b + 4 * V);
+    const unsigned q = s >> 2, shift = 8 * (s & 3);
+    uint32_t u[4 * V + 1];  // b[q..q+4V], selected without indexing a register array
+#pragma unroll
+    for (int i = 0; i <= 4 * V; ++i)
+      u[i] = q == 0 ? b[i] : q == 1 ? b[i + 1] : q == 2 ? b[i + 2] : b[i + 3];
+#pragma unroll
+    for (int k = 0; k < 4 * V; ++k) o[k] = __funnelshift_r(u[k], u[k + 1], shift);
+  }
+}
+
 // Exclusive prefix of v over the block (blockDim a multiple of 32, at most
 // 1024); *total receives the block's sum.  Every thread must call it.  The
-// carry designs of K2 (delta.cu) and K12 (fused_delta_bitpack.cu) share it.
+// single-pass scan of K2 (delta.cu) and the carry design of K12
+// (fused_delta_bitpack.cu) share it.
 template <typename A>
 __device__ __forceinline__ A block_exclusive_scan(A v, A* total) {
   __shared__ A warp_sums[32];

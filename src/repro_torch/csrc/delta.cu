@@ -52,124 +52,296 @@ REPRO_API int repro_delta_encode(const void* x, void* out, long long n, int widt
 // _scan_carry_kernel), whose carry relied on the grid running in order.
 //
 // Bound: bytes.  The function reads n*w bytes and writes n*w bytes with one
-// addition per element.  Design: blocks on the card run in no order, so the
-// cross-block carry takes three launches, all of them here:
-//   1. delta_block_sums  — each block reduces its tile of DTILE elements;
-//   2. delta_scan_sums   — one block turns the block sums into an exclusive
-//                          prefix, in chunks of blockDim with a running carry;
-//   3. delta_scan_carry  — each block stages its tile in shared memory
-//                          (coalesced both ways), scans DITEMS elements per
-//                          thread in registers, scans the thread totals with
-//                          warp shuffles, and adds its block's carry.
+// addition per element.  Design: one launch, a single-pass scan with
+// decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan
+// with Decoupled Look-back", NVIDIA NVR-2016-002), so each byte is read once
+// and written once.  A block takes one tile of DTILE_BYTES: each thread owns
+// a contiguous run of DRUN bytes (16 uint8, 8 uint16, 4 uint32 or 2 uint64
+// per 16-byte vector), which its warp loads as streaming vectors (load_run
+// in common.cuh, shifted where d is a view off the vector alignment) and
+// hands over through shared memory.  The thread sums its run in registers,
+// and the block scans the thread totals (block_exclusive_scan).  Warp 0
+// then publishes the tile's aggregate, finds the sum of all earlier tiles by
+// looking back over its predecessors' statuses 32 at a time, and publishes
+// the tile's inclusive prefix; each thread scans its run again from its
+// base, and its warp stores the runs as streaming vectors.  The run and
+// block sizes were the fastest on an H100 among runs of 32-128 bytes and
+// blocks of 128-512 threads.
+//
+// Blocks start in no order, and a block that waits on a tile no block holds
+// yet would wait forever.  So a block takes its tile index from a ticket
+// (atomicAdd on a counter in the scratch), not from blockIdx: when it waits
+// on tile j < i, tile j's block is already running and itself waits only on
+// tiles below j.  The call zeroes the counter and the statuses with a
+// memset on its stream before the launch, so no call reads another's.
+//
 // All sums are unsigned (32 bits for widths 1, 2 and 4, 64 bits for width 8)
 // and are cut to the element's width only at the store: 2^(8w) divides the
 // accumulator's modulus, so the result is the wrapping sum of the element
-// type exactly, and no step relies on signed overflow.  The input is read
-// twice (passes 1 and 3), so the kernel moves 3 n*w bytes against the
-// function's 2 n*w.
-#define DTHREADS 256
-#define DITEMS 8
-#define DTILE (DTHREADS * DITEMS)
+// type exactly, and no step relies on signed overflow.
+#define DTHREADS 128
+#define DRUN 128  // input bytes a thread owns: eight vectors
+#define DTILE_BYTES (DTHREADS * DRUN)  // 16 KiB per tile
+#define DCOUNTER_BYTES 16              // the ticket counter, ahead of the statuses
 
-template <typename T> struct Acc { typedef unsigned int type; };
+enum : unsigned { TILE_INVALID = 0, TILE_AGGREGATE = 1, TILE_PREFIX = 2 };
+
+template <typename T> struct Acc { typedef uint32_t type; };
 template <> struct Acc<unsigned long long> { typedef unsigned long long type; };
 
-template <typename T>
-__global__ void delta_block_sums(const T* __restrict__ d,
-                                 typename Acc<T>::type* __restrict__ sums,
-                                 long long n) {
-  typedef typename Acc<T>::type A;
-  const long long base = (long long)blockIdx.x * DTILE;
-  A s = 0;
-  for (int k = threadIdx.x; k < DTILE; k += DTHREADS) {
-    const long long i = base + k;
-    if (i < n) s += (A)d[i];
+// A tile's status: K = sizeof(A) / 4 64-bit words (one for 32-bit sums, two
+// for 64-bit ones), word k holding the flag in its high half and bits
+// 32k..32k+31 of the value in its low half.  Each word is written at most
+// twice per call (the aggregate, then the prefix), after the memset's zero.
+// An aligned 64-bit access is single-copy atomic, so a word read shows the
+// zero (TILE_INVALID) or a whole (flag, piece) pair; the two words of a
+// 64-bit status may be read torn, which shows as unequal flags, and the
+// reader polls again.  A reader uses only what the status words carry, so
+// the stores and loads need no ordering against other memory: volatile
+// (relaxed) accesses suffice, where release stores and acquire loads, which
+// also order the rest of memory, made the kernel slower on an H100.
+template <typename A>
+struct Status {
+  static constexpr int K = (int)sizeof(A) / 4;
+  unsigned long long* word;
+  __device__ explicit Status(unsigned char* scratch)
+      : word(reinterpret_cast<unsigned long long*>(scratch + DCOUNTER_BYTES)) {}
+  __device__ void publish(long long tile, unsigned flag, A value) const {
+    const unsigned long long f = (unsigned long long)flag << 32;
+    const unsigned long long lo = f | (uint32_t)value;
+    const unsigned long long hi = f | (uint32_t)((unsigned long long)value >> 32);
+    unsigned long long* p = word + K * tile;
+    if constexpr (K == 1)
+      asm volatile("st.volatile.global.u64 [%0], %1;" ::"l"(p), "l"(lo) : "memory");
+    else
+      asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(lo), "l"(hi)
+                   : "memory");
   }
-  A total;
-  block_exclusive_scan<A>(s, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+  __device__ unsigned poll(long long tile, A* value) const {
+    const unsigned long long* p = word + K * tile;
+    unsigned long long lo, hi = 0;
+    if constexpr (K == 1)
+      asm volatile("ld.volatile.global.u64 %0, [%1];" : "=l"(lo) : "l"(p) : "memory");
+    else
+      asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];" : "=l"(lo), "=l"(hi) : "l"(p)
+                   : "memory");
+    const unsigned flag = (unsigned)(lo >> 32);
+    if constexpr (K == 2) {
+      if ((unsigned)(hi >> 32) != flag) return TILE_INVALID;  // torn: poll again
+      *value = (uint32_t)lo | ((A)(uint32_t)hi << 32);
+    } else {
+      *value = (uint32_t)lo;
+    }
+    return flag;
+  }
+};
+
+// The scratch bytes of a call over `tiles` tiles of `width`-byte elements:
+// the counter, then the statuses, all zeroed by the call.
+static long long scratch_bytes(long long tiles, int width) {
+  return DCOUNTER_BYTES + 8 * (width == 8 ? 2 : 1) * tiles;
 }
 
 template <typename A>
-__global__ void delta_scan_sums(A* __restrict__ sums, long long n_blocks) {
-  A carry = 0;
-  for (long long c0 = 0; c0 < n_blocks; c0 += blockDim.x) {
-    const long long i = c0 + threadIdx.x;
-    const A v = i < n_blocks ? sums[i] : (A)0;
-    A total;
-    const A before = block_exclusive_scan<A>(v, &total);
-    if (i < n_blocks) sums[i] = carry + before;
-    carry += total;
+__device__ __forceinline__ A warp_sum(A x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Run by warp 0 of the block that holds `tile`, whose sum is `total`:
+// publishes the tile's aggregate, returns (in every lane) the sum of all
+// earlier tiles, and publishes the tile's inclusive prefix.  Lane l inspects
+// predecessor `end - l`; the warp waits until every predecessor nearer than
+// the nearest inclusive prefix in the window has at least its aggregate,
+// then adds those aggregates and that prefix, or, with no prefix in the
+// window, all 32 aggregates, and moves the window back by 32.
+template <typename A>
+__device__ __forceinline__ A look_back(const Status<A>& st, long long tile, A total) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) st.publish(0, TILE_PREFIX, total);
+    return 0;
+  }
+  if (lane == 0) st.publish(tile, TILE_AGGREGATE, total);
+  A before = 0;
+  for (long long end = tile - 1;; end -= 32) {
+    const long long p = end - lane;
+    A value = 0;
+    unsigned flag = p >= 0 ? TILE_INVALID : TILE_PREFIX;  // before tile 0: a prefix of 0
+    unsigned prefix, nearer;
+    for (;;) {
+      if (flag == TILE_INVALID) flag = st.poll(p, &value);
+      prefix = __ballot_sync(0xffffffffu, flag == TILE_PREFIX);
+      nearer = prefix ? (prefix & (0u - prefix)) - 1 : 0xffffffffu;
+      if (!(__ballot_sync(0xffffffffu, flag == TILE_INVALID) & nearer)) break;
+    }
+    const unsigned used = prefix ? nearer | (prefix & (0u - prefix)) : 0xffffffffu;
+    before += warp_sum<A>((used >> lane) & 1 ? value : (A)0);
+    if (prefix) break;
+  }
+  if (lane == 0) st.publish(tile, TILE_PREFIX, before + total);
+  return before;
+}
+
+// Element j of a run held as its DRUN / 4 words, zero-extended to A.
+template <typename T, typename A>
+__device__ __forceinline__ A item(const uint32_t* b, int j) {
+  constexpr int W = (int)sizeof(T);
+  if constexpr (W == 8)
+    return b[2 * j] | ((A)b[2 * j + 1] << 32);
+  else
+    return (b[j / (4 / W)] >> (8 * W * (j % (4 / W)))) & (0xFFFFFFFFu >> (32 - 8 * W));
+}
+
+// The run's words with element j replaced by base + x[0] + ... + x[j], cut to T.
+template <typename T, typename A>
+__device__ __forceinline__ void scan_words(uint32_t* b, A base) {
+  constexpr int W = (int)sizeof(T);
+  A run = base;
+  if constexpr (W == 8) {
+#pragma unroll
+    for (int j = 0; j < DRUN / 8; ++j) {
+      run += item<T, A>(b, j);
+      b[2 * j] = (uint32_t)run;
+      b[2 * j + 1] = (uint32_t)(run >> 32);
+    }
+  } else {
+    constexpr int PW = 4 / W;
+    constexpr uint32_t M = 0xFFFFFFFFu >> (32 - 8 * W);
+#pragma unroll
+    for (int k = 0; k < DRUN / 4; ++k) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int i = 0; i < PW; ++i) {
+        run += item<T, A>(b, k * PW + i);
+        word |= (run & M) << (8 * W * i);
+      }
+      b[k] = word;
+    }
+  }
+}
+
+// A thread keeps its run as the DRUN / 4 words it loaded, whatever the
+// width, and scans them twice: once for its total, once from its base for
+// the store.  The elements widened to A would take up to twice the
+// registers (uint8 into 32-bit sums) and cut the blocks that fit on an SM,
+// and with them the bytes in flight.  A warp passes its 32 runs through
+// shared memory on the way in and out (stage_slot), so that each load and
+// store instruction covers 512 contiguous bytes: 16-byte accesses at the
+// stride of a run leave each 32-byte sector half written per instruction.
+template <typename T, bool SHIFTED>
+__global__ void __launch_bounds__(DTHREADS)
+delta_decode_kernel(const T* __restrict__ d, T* __restrict__ out, long long n,
+                    unsigned char* scratch) {
+  typedef typename Acc<T>::type A;
+  constexpr int W = (int)sizeof(T);
+  constexpr int ITEMS = DRUN / W;
+  constexpr int V = DRUN / 16;  // vectors per run
+  constexpr long long TILE = DTILE_BYTES / W;
+  __shared__ unsigned int ticket;
+  __shared__ A tile_before;
+  __shared__ uint4 stage[DTHREADS / 32][32 * V];
+  if (threadIdx.x == 0) ticket = atomicAdd(reinterpret_cast<unsigned int*>(scratch), 1u);
+  __syncthreads();
+  const long long tile = ticket;
+  const int lane = threadIdx.x & 31;
+  const long long g = tile * TILE + (long long)threadIdx.x * ITEMS;
+  const long long gw = g - (long long)lane * ITEMS;  // the warp's first element
+  const bool warp_full = gw + 32 * ITEMS <= n;     // the same in every lane
+  uint4* st = stage[threadIdx.x >> 5];
+  uint32_t b[DRUN / 4] = {};
+  if (warp_full) {
+    const uint8_t* wp = reinterpret_cast<const uint8_t*>(d + gw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {  // the warp's vector 32k + lane
+      uint32_t w[4];
+      load_run<1, SHIFTED>(wp + 16 * (32 * k + lane), reinterpret_cast<const uint8_t*>(d + n),
+                           true, w);
+      st[stage_slot(32 * k + lane)] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int v = 0; v < V; ++v) words_of(st[stage_slot(lane * V + v)], b + 4 * v);
+  } else {  // the last warp's runs: element by element, zero past n
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      if (g + j < n) {
+        const A x = d[g + j];
+        if constexpr (W == 8) {
+          b[2 * j] = (uint32_t)x;
+          b[2 * j + 1] = (uint32_t)((unsigned long long)x >> 32);
+        } else {
+          b[j / (4 / W)] |= (uint32_t)x << (8 * W * (j % (4 / W)));
+        }
+      }
+    }
+  }
+  A total = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) total += item<T, A>(b, j);
+  A tile_total;
+  const A before = block_exclusive_scan<A>(total, &tile_total);
+  if (threadIdx.x < 32) {
+    const A tiles_before = look_back<A>(Status<A>(scratch), tile, tile_total);
+    if (threadIdx.x == 0) tile_before = tiles_before;
+  }
+  __syncthreads();
+  scan_words<T, A>(b, tile_before + before);
+  if (warp_full) {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      st[stage_slot(lane * V + v)] = make_uint4(b[4 * v], b[4 * v + 1], b[4 * v + 2], b[4 * v + 3]);
+    __syncwarp();
+    uint4* dst = reinterpret_cast<uint4*>(out + gw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) __stcs(dst + 32 * k + lane, st[stage_slot(32 * k + lane)]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      if (g + j < n) out[g + j] = (T)item<T, A>(b, j);
   }
 }
 
 template <typename T>
-__global__ void delta_scan_carry(const T* __restrict__ d,
-                                 const typename Acc<T>::type* __restrict__ carry_in,
-                                 T* __restrict__ out, long long n) {
-  typedef typename Acc<T>::type A;
-  __shared__ T tile[DTILE];
-  const long long base = (long long)blockIdx.x * DTILE;
-  for (int k = threadIdx.x; k < DTILE; k += DTHREADS) {
-    const long long i = base + k;
-    tile[k] = i < n ? d[i] : (T)0;
-  }
-  __syncthreads();
-  A run[DITEMS];
-  A acc = 0;
-#pragma unroll
-  for (int j = 0; j < DITEMS; ++j) {
-    acc += (A)tile[threadIdx.x * DITEMS + j];
-    run[j] = acc;
-  }
-  A total;
-  const A before = block_exclusive_scan<A>(acc, &total) + carry_in[blockIdx.x];
-  // block_exclusive_scan synchronised the block: every tile read is done
-#pragma unroll
-  for (int j = 0; j < DITEMS; ++j) tile[threadIdx.x * DITEMS + j] = (T)(before + run[j]);
-  __syncthreads();
-  for (int k = threadIdx.x; k < DTILE; k += DTHREADS) {
-    const long long i = base + k;
-    if (i < n) out[i] = tile[k];
-  }
-}
-
-template <typename T>
-static int launch_decode(const void* d, void* out, void* scratch, long long n,
-                         cudaStream_t stream) {
-  typedef typename Acc<T>::type A;
-  const long long n_blocks = (n + DTILE - 1) / DTILE;
-  A* sums = (A*)scratch;
-  delta_block_sums<T><<<(unsigned int)n_blocks, DTHREADS, 0, stream>>>((const T*)d, sums, n);
-  cudaError_t err = cudaGetLastError();
+static int launch_decode(const void* d, void* out, void* scratch, long long tiles,
+                         long long n, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)scratch_bytes(tiles, (int)sizeof(T)),
+                                    stream);
   if (err != cudaSuccess) return (int)err;
-  delta_scan_sums<A><<<1, 1024, 0, stream>>>(sums, n_blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  delta_scan_carry<T><<<(unsigned int)n_blocks, DTHREADS, 0, stream>>>(
-      (const T*)d, sums, (T*)out, n);
+  if ((uintptr_t)d % 16 == 0)
+    delta_decode_kernel<T, false><<<(unsigned int)tiles, DTHREADS, 0, stream>>>(
+        (const T*)d, (T*)out, n, (unsigned char*)scratch);
+  else
+    delta_decode_kernel<T, true><<<(unsigned int)tiles, DTHREADS, 0, stream>>>(
+        (const T*)d, (T*)out, n, (unsigned char*)scratch);
   return (int)cudaGetLastError();
 }
 
-// The scratch that repro_delta_decode needs for n elements: one 8-byte
-// accumulator per tile (enough for every width).  The tile size lives here
-// alone; the wrapper asks for the count.
-REPRO_API long long repro_delta_decode_scratch(long long n) {
-  return (n + DTILE - 1) / DTILE;
+// The scratch bytes that repro_delta_decode needs for n elements of `width`
+// bytes.  The tile size lives here alone; the wrapper asks for the size.
+REPRO_API long long repro_delta_decode_scratch(long long n, int width) {
+  return scratch_bytes((n * width + DTILE_BYTES - 1) / DTILE_BYTES, width);
 }
 
+// The elements of one tile at `width` bytes (the checks size inputs around it).
+REPRO_API long long repro_delta_decode_tile(int width) { return DTILE_BYTES / width; }
+
+// d: n elements of `width` bytes, aligned to the element; out: n elements,
+// 16-byte aligned (a fresh allocation); scratch: n_scratch bytes.
 REPRO_API int repro_delta_decode(const void* d, void* out, void* scratch,
                                  long long n_scratch, long long n, int width,
                                  void* stream) {
-  const long long n_blocks = repro_delta_decode_scratch(n);
-  if (n_blocks < 1 || n_blocks > 0x7FFFFFFFLL || n_scratch < n_blocks)
+  if (width != 1 && width != 2 && width != 4 && width != 8) return (int)cudaErrorInvalidValue;
+  const long long tiles = (n * width + DTILE_BYTES - 1) / DTILE_BYTES;
+  if (tiles < 1 || tiles > 0x7FFFFFFFLL || n_scratch < scratch_bytes(tiles, width) ||
+      (uintptr_t)d % width || (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (width) {
-    case 1: return launch_decode<uint8_t>(d, out, scratch, n, s);
-    case 2: return launch_decode<uint16_t>(d, out, scratch, n, s);
-    case 4: return launch_decode<uint32_t>(d, out, scratch, n, s);
-    case 8: return launch_decode<unsigned long long>(d, out, scratch, n, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return launch_decode<uint8_t>(d, out, scratch, tiles, n, s);
+    case 2: return launch_decode<uint16_t>(d, out, scratch, tiles, n, s);
+    case 4: return launch_decode<uint32_t>(d, out, scratch, tiles, n, s);
+    default: return launch_decode<unsigned long long>(d, out, scratch, tiles, n, s);
   }
 }

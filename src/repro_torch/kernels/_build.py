@@ -37,6 +37,7 @@ _I32 = ctypes.c_int
 # returns its cudaError_t as an int unless RESTYPES names another type
 RESTYPES = {
     "repro_delta_decode_scratch": _I64,
+    "repro_delta_decode_tile": _I64,
     "repro_fused_delta_bitpack_decode_scratch": _I64,
 }
 SIGNATURES = {
@@ -44,7 +45,8 @@ SIGNATURES = {
     "repro_byteshuffle": [_P, _P, _I64, _I64, _P],
     "repro_huffman_map": [_P, _P, _P, _P, _P, _I64, _P],
     "repro_fse_encode": [_P] * 11 + [_I32, _I64, _I32, _I32, _P],
-    "repro_delta_decode_scratch": [_I64],
+    "repro_delta_decode_scratch": [_I64, _I32],
+    "repro_delta_decode_tile": [_I32],
     "repro_delta_decode": [_P, _P, _P, _I64, _I64, _I32, _P],
     "repro_byteunshuffle": [_P, _P, _I64, _I64, _P],
     "repro_huffman_decode": [_P, _P, _P, _P, _I32, _I64, _P],

@@ -130,11 +130,13 @@ def delta_decode(d: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(d)
     if n:
         lib = _lib()
-        sums = torch.empty(lib.repro_delta_decode_scratch(n), dtype=torch.int64, device=d.device)
+        w = d.element_size()
+        scratch = torch.empty(lib.repro_delta_decode_scratch(n, w), dtype=torch.uint8,
+                              device=d.device)
         _launched(
             lib.repro_delta_decode(
-                d.data_ptr(), out.data_ptr(), sums.data_ptr(), sums.numel(), n,
-                d.element_size(), _stream(d),
+                d.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, w,
+                _stream(d),
             ),
             "delta_decode",
         )

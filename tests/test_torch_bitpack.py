@@ -100,6 +100,24 @@ def test_bitunpack_plain_cuts_every_word_to_the_output_width(bits):
         np.testing.assert_array_equal(got.numpy().view(UNSIGNED[width]), want.astype(UNSIGNED[width]))
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("bits", BITS)
+def test_bitunpack_plain_from_words_inside_their_allocation(bits, offset):
+    """Words 1-3 words into their tensor (a payload view into a frame, which
+    the card's kernel reads through its shifted path), at every output width
+    on chip_smoke.py's ragged sizes."""
+    rng = np.random.default_rng(bits * 10 + offset)
+    for n in (1, 31, 33, 1000, 4097, 100_003):
+        m = -(-n // (32 // bits))
+        buf = rng.integers(0, 1 << 32, m + 3, dtype=np.uint64).astype(np.uint32)
+        words = torch.from_numpy(buf.view(np.int32))[offset: offset + m]
+        assert words.storage_offset() == offset
+        want = np.asarray(jref.bitpack_decode(jnp.asarray(buf[offset: offset + m]), bits))[:n]
+        for width in WIDTHS:
+            got = ops.bitunpack(words, bits, n, width)
+            np.testing.assert_array_equal(got.numpy().view(UNSIGNED[width]), want.astype(UNSIGNED[width]))
+
+
 # --------------------------------------------- K11 / K12 plain versions
 @pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("n", SIZES)

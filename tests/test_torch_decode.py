@@ -71,6 +71,34 @@ def test_delta_decode_plain_matches_reference(width, n):
         np.testing.assert_array_equal(got, want.astype(UNSIGNED[width]))
 
 
+# elements per tile of the card's single-pass scan at each width (16 KiB
+# tiles, csrc/delta.cu), around which chip_smoke.py checks it
+DELTA_TILE = {1: 16384, 2: 8192, 4: 4096, 8: 2048}
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["d", "d[1:]"])
+@pytest.mark.parametrize("edge", ["tile-1", "tile", "tile+1", "2tile+1"])
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+def test_delta_decode_plain_around_the_tile_and_from_an_offset_view(width, edge, offset):
+    """The plain K2 at the tile's edges, from a view that starts one element
+    into its tensor (as a payload view does), on deltas over the width's
+    every bit pattern, so that the sums wrap."""
+    t = DELTA_TILE[width]
+    n = {"tile-1": t - 1, "tile": t, "tile+1": t + 1, "2tile+1": 2 * t + 1}[edge]
+    full = np.random.default_rng(n * 10 + width + offset).integers(
+        0, np.iinfo(UNSIGNED[width]).max, n + 1, dtype=UNSIGNED[width], endpoint=True
+    )
+    d = full[offset: offset + n]
+    view = numeric(full).data[offset: offset + n]
+    assert view.storage_offset() == offset
+    got = ops.delta_decode(view).numpy().view(UNSIGNED[width])
+    (host,) = ref_host_delta_dec([RefStream(d, RefSType.NUMERIC, width)], b"")
+    np.testing.assert_array_equal(got, host.data)
+    if width <= 4:  # the TPU kernel works in u32; truncating back is exact
+        want = np.asarray(jops.delta_decode(jnp.asarray(d.astype(np.uint32)), use_pallas=False))
+        np.testing.assert_array_equal(got, want.astype(UNSIGNED[width]))
+
+
 def test_delta_decode_inverts_delta_encode_at_width_8():
     x = np.random.default_rng(4).integers(0, 1 << 64, 3000, dtype=np.uint64, endpoint=False)
     back = ops.delta_decode(ops.delta_encode(numeric(x).data))
