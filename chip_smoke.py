@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              kernels (delta decode on A's and B's deltas, in turns with
              ``torch.cumsum`` (``dtype=torch.int32`` on B's carrier), then
              at widths 1, 2, 4 and 8 on ragged sizes and around its tile,
-             from a tensor's start and from ``d[1:]``, and 50 times back to
+             from every element offset below 16 bytes into its tensor
+             (``d[0:]`` to ``d[15:]`` for uint8), and 50 times back to
              back on 2^26 and 2^28 uint8 deltas, every result equal; Huffman
              decode and tANS decode on column A's entropy-coded streams, the
              lane refill they share, float merge on C's and D's planes, and
@@ -584,8 +585,10 @@ def unshuffle_sweep(ops, ref, seed) -> float:
 
 def delta_decode_sweep(ops, ref, seed) -> float:
     """K2 at widths 1, 2, 4 and 8, at ``RAGGED_SIZES`` and around its tile
-    (one less, equal, one more, twice plus one), from a tensor's start and
-    from ``d[1:]``, on values drawn over the whole width so that the sums
+    (one less, equal, one more, twice plus one), from every element offset
+    of a tensor below 16 bytes (``d[0:]`` to ``d[15:]`` for uint8, ``d[0:]``
+    and ``d[1:]`` for int64), so that the shifted loads run at every byte
+    offset, on values drawn over the whole width so that the sums
     wrap; then 2^26 and 2^28 uint8 deltas, both ways, and decoded
     ``CONTENTION_RUNS`` times back to back on one stream, every result equal:
     each against ``ref.delta_decode``."""
@@ -593,7 +596,6 @@ def delta_decode_sweep(ops, ref, seed) -> float:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    lib = ops._lib()
     err = 0.0
 
     def deltas(n, width):  # uniform over the width's every bit pattern
@@ -610,10 +612,12 @@ def delta_decode_sweep(ops, ref, seed) -> float:
 
     tiles = {}
     for width in (1, 2, 4, 8):
-        t = tiles[width] = lib.repro_delta_decode_tile(width)
+        t = tiles[width] = ops.delta_decode_tile(width)
+        offsets = 16 // width
         for n in RAGGED_SIZES + (t - 1, t, t + 1, 2 * t + 1):
-            full = deltas(n + 1, width)
-            for d in (full[:n], full[1:]):
+            full = deltas(n + offsets, width)
+            for o in range(offsets):
+                d = full[o: o + n]
                 err = max(err, max_abs_err([ops.delta_decode(d)], [ref.delta_decode(d)]))
     for log_n in CONTENTION_LOG_SIZES:
         full = deltas((1 << log_n) + 1, 1)
@@ -627,7 +631,7 @@ def delta_decode_sweep(ops, ref, seed) -> float:
                  f" 2^{log_n} uint8 deltas differ from the plain version")
         del full, big, runs, want
     print(f"check delta_decode: widths (1, 2, 4, 8) x n {RAGGED_SIZES} and each width's tile"
-          f" {json.dumps(tiles)} -1, +0, +1, 2x+1, aligned and from d[1:]; uint8 deltas of"
+          f" {json.dumps(tiles)} -1, +0, +1, 2x+1, from byte offsets 0-15; uint8 deltas of"
           + "".join(f" 2^{k} ({(1 << k) // tiles[1]} tiles)" for k in CONTENTION_LOG_SIZES)
           + f" both ways and {CONTENTION_RUNS} times back to back, all equal:"
           f" max_abs_err={err}")

@@ -111,7 +111,7 @@ __device__ __forceinline__ void transpose4x4(uint32_t a, uint32_t b, uint32_t c,
 // one streaming vector load.  Otherwise the two aligned vectors that hold the
 // bytes are read (each holds at least one of them, so neither leaves the
 // allocation: device memory is mapped in granules far larger than 16 bytes)
-// and their words are joined at the byte offset with funnel shifts.  The
+// and their words are joined at the byte offset (join_at).  The
 // second vector is the next thread's first, so both go through L1 (ld.nc).
 __device__ __forceinline__ void load16(const uint8_t* a, uint32_t* o) {
   const unsigned s = (unsigned)((uintptr_t)a & 15);
@@ -123,13 +123,7 @@ __device__ __forceinline__ void load16(const uint8_t* a, uint32_t* o) {
   uint32_t b[8];
   words_of(__ldg(v), b);
   words_of(__ldg(v + 1), b + 4);
-  const unsigned q = s >> 2, shift = 8 * (s & 3);
-  uint32_t u[5];  // b[q..q+4], selected without indexing a register array
-#pragma unroll
-  for (int i = 0; i < 5; ++i)
-    u[i] = q == 0 ? b[i] : q == 1 ? b[i + 1] : q == 2 ? b[i + 2] : b[i + 3];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) o[k] = __funnelshift_r(u[k], u[k + 1], shift);
+  join_at<4>(b, s, o);
 }
 
 #define NARROW_THREADS 256

@@ -54,6 +54,21 @@ __device__ __forceinline__ void words_of(const uint4& v, uint32_t* o) {
 // reads chunks l, l + 32, ...  K4's narrow path, K6 and K2 stage this way.
 __device__ __forceinline__ int stage_slot(int c) { return c ^ ((c >> 3) & 7); }
 
+// N words of a byte stream at byte offset s (0-15) into its words b[0..N+3]:
+// o[k] holds bytes 4k+s..4k+s+3.  The word select avoids indexing a register
+// array (which would put b in local memory), and funnel shifts join each
+// pair of neighbours.  K4's load16 and load_run below share it.
+template <int N>
+__device__ __forceinline__ void join_at(const uint32_t* b, unsigned s, uint32_t* o) {
+  const unsigned q = s >> 2, shift = 8 * (s & 3);
+  uint32_t u[N + 1];  // b[q..q+N]
+#pragma unroll
+  for (int i = 0; i <= N; ++i)
+    u[i] = q == 0 ? b[i] : q == 1 ? b[i + 1] : q == 2 ? b[i + 2] : b[i + 3];
+#pragma unroll
+  for (int k = 0; k < N; ++k) o[k] = __funnelshift_r(u[k], u[k + 1], shift);
+}
+
 // A run of 16*V bytes at p, as 4*V words, read as streaming 16-byte vectors
 // (ld.global.cs: each byte is read once).  The caller's warp reads
 // consecutive runs (lane l's p is lane 0's plus 16*V*l), so p's offset
@@ -66,7 +81,7 @@ __device__ __forceinline__ int stage_slot(int c) { return c ^ ((c >> 3) & 7); }
 // aligned vectors from p - s: a lane loads the first V and takes the last
 // from the next lane, whose first vector it is (lane 31 loads it itself),
 // so each vector is read once per warp; the words are then joined at the
-// byte offset with funnel shifts.  Every vector read holds at least one byte
+// byte offset (join_at).  Every vector read holds at least one byte
 // of the array (a lane loads its first vector wherever it starts before
 // `end`), so none leaves the allocation: device memory is mapped in
 // granules far larger than 16 bytes.  Every lane of the warp must call it.
@@ -91,13 +106,7 @@ __device__ __forceinline__ void load_run(const uint8_t* p, const uint8_t* end, b
 #pragma unroll
     for (int k = 0; k < 4; ++k) b[4 * V + k] = __shfl_down_sync(0xffffffffu, b[k], 1);
     if ((threadIdx.x & 31) == 31 && full) words_of(__ldcs(a + V), b + 4 * V);
-    const unsigned q = s >> 2, shift = 8 * (s & 3);
-    uint32_t u[4 * V + 1];  // b[q..q+4V], selected without indexing a register array
-#pragma unroll
-    for (int i = 0; i <= 4 * V; ++i)
-      u[i] = q == 0 ? b[i] : q == 1 ? b[i + 1] : q == 2 ? b[i + 2] : b[i + 3];
-#pragma unroll
-    for (int k = 0; k < 4 * V; ++k) o[k] = __funnelshift_r(u[k], u[k + 1], shift);
+    join_at<4 * V>(b, s, o);
   }
 }
 

@@ -79,9 +79,12 @@ REPRO_API int repro_delta_encode(const void* x, void* out, long long n, int widt
 // and are cut to the element's width only at the store: 2^(8w) divides the
 // accumulator's modulus, so the result is the wrapping sum of the element
 // type exactly, and no step relies on signed overflow.
+#ifndef DTILE_BYTES  // the bytes of a tile, from the build (kernels/_build.py)
+#error "delta.cu is built with -DDTILE_BYTES=<bytes of a tile>"
+#endif
 #define DTHREADS 128
-#define DRUN 128  // input bytes a thread owns: eight vectors
-#define DTILE_BYTES (DTHREADS * DRUN)  // 16 KiB per tile
+#define DRUN (DTILE_BYTES / DTHREADS)  // input bytes a thread owns: 128, eight vectors
+static_assert(DRUN % 16 == 0 && DRUN * DTHREADS == DTILE_BYTES, "a run is whole vectors");
 #define DCOUNTER_BYTES 16              // the ticket counter, ahead of the statuses
 
 enum : unsigned { TILE_INVALID = 0, TILE_AGGREGATE = 1, TILE_PREFIX = 2 };
@@ -319,13 +322,10 @@ static int launch_decode(const void* d, void* out, void* scratch, long long tile
 }
 
 // The scratch bytes that repro_delta_decode needs for n elements of `width`
-// bytes.  The tile size lives here alone; the wrapper asks for the size.
+// bytes; the wrapper asks for the size.
 REPRO_API long long repro_delta_decode_scratch(long long n, int width) {
   return scratch_bytes((n * width + DTILE_BYTES - 1) / DTILE_BYTES, width);
 }
-
-// The elements of one tile at `width` bytes (the checks size inputs around it).
-REPRO_API long long repro_delta_decode_tile(int width) { return DTILE_BYTES / width; }
 
 // d: n elements of `width` bytes, aligned to the element; out: n elements,
 // 16-byte aligned (a fresh allocation); scratch: n_scratch bytes.

@@ -28,7 +28,12 @@ from typing import List, Optional
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# the bytes of one tile of K2's single-pass scan (csrc/delta.cu reads it as
+# DTILE_BYTES); defined here alone, so that the checks that size inputs
+# around the tile (ops.delta_decode_tile) read the value the kernel was built with
+DELTA_TILE_BYTES = 16384
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+                              f"-DDTILE_BYTES={DELTA_TILE_BYTES}"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -37,7 +42,6 @@ _I32 = ctypes.c_int
 # returns its cudaError_t as an int unless RESTYPES names another type
 RESTYPES = {
     "repro_delta_decode_scratch": _I64,
-    "repro_delta_decode_tile": _I64,
     "repro_fused_delta_bitpack_decode_scratch": _I64,
 }
 SIGNATURES = {
@@ -46,7 +50,6 @@ SIGNATURES = {
     "repro_huffman_map": [_P, _P, _P, _P, _P, _I64, _P],
     "repro_fse_encode": [_P] * 11 + [_I32, _I64, _I32, _I32, _P],
     "repro_delta_decode_scratch": [_I64, _I32],
-    "repro_delta_decode_tile": [_I32],
     "repro_delta_decode": [_P, _P, _P, _I64, _I64, _I32, _P],
     "repro_byteunshuffle": [_P, _P, _I64, _I64, _P],
     "repro_huffman_decode": [_P, _P, _P, _P, _I32, _I64, _P],

@@ -147,6 +147,13 @@ def delta_decode(d: torch.Tensor) -> torch.Tensor:
 delta_decode.launches = 0
 
 
+def delta_decode_tile(width: int) -> int:
+    """Elements of one tile of the card's K2 at ``width`` bytes."""
+    from ._build import DELTA_TILE_BYTES
+
+    return DELTA_TILE_BYTES // width
+
+
 # ------------------------------------------------------------ K3 byteshuffle
 def byteshuffle(x: torch.Tensor) -> torch.Tensor:
     """(n, w) uint8 records -> (w, n) byte planes, for any w >= 1."""

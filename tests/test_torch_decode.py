@@ -71,11 +71,6 @@ def test_delta_decode_plain_matches_reference(width, n):
         np.testing.assert_array_equal(got, want.astype(UNSIGNED[width]))
 
 
-# elements per tile of the card's single-pass scan at each width (16 KiB
-# tiles, csrc/delta.cu), around which chip_smoke.py checks it
-DELTA_TILE = {1: 16384, 2: 8192, 4: 4096, 8: 2048}
-
-
 @pytest.mark.parametrize("offset", [0, 1], ids=["d", "d[1:]"])
 @pytest.mark.parametrize("edge", ["tile-1", "tile", "tile+1", "2tile+1"])
 @pytest.mark.parametrize("width", [1, 2, 4, 8])
@@ -83,7 +78,7 @@ def test_delta_decode_plain_around_the_tile_and_from_an_offset_view(width, edge,
     """The plain K2 at the tile's edges, from a view that starts one element
     into its tensor (as a payload view does), on deltas over the width's
     every bit pattern, so that the sums wrap."""
-    t = DELTA_TILE[width]
+    t = ops.delta_decode_tile(width)  # the card's tile, around which chip_smoke.py checks K2
     n = {"tile-1": t - 1, "tile": t, "tile+1": t + 1, "2tile+1": 2 * t + 1}[edge]
     full = np.random.default_rng(n * 10 + width + offset).integers(
         0, np.iinfo(UNSIGNED[width]).max, n + 1, dtype=UNSIGNED[width], endpoint=True
