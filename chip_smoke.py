@@ -10,8 +10,17 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
 2. kernels — each of the sixteen kernels at the main path's shapes, held
              bit-exactly (tolerance 0) against its plain PyTorch version on
              the same card, and timed beside the plain version and a one-call
-             PyTorch yardstick where one exists: the encode kernels (delta,
-             byte shuffle, Huffman map, tANS encode, float split on columns
+             PyTorch yardstick where one exists: the encode kernels (delta;
+             byte shuffle at widths 1 to 1024, n a multiple of 16 and n % 16
+             of 1, 7 and 15, from records at offsets 0, 1 and 16 bytes, so
+             that its narrow, wide and byte-wise paths all run with their
+             unaligned plane stores, then timed in turns with
+             ``t().contiguous()`` at column A's and B's records, the tANS
+             lane layout (65,536, 1024) and a 64 KiB trial's (8192, 8);
+             Huffman map; tANS encode at 65,536 lanes and at a 64 KiB
+             trial's 64, each at table_log 11, 15 and 16, with full lanes
+             and with lanes of length 1 and 2 and a short last lane, timed
+             at both lane counts; float split on columns
              C's and D's shapes, the histogram on column A's 2^26-byte
              transposed stream, beside ``torch.bincount``), the decode
              kernels (delta decode on A's and B's deltas, in turns with
@@ -152,6 +161,13 @@ RAGGED_SIZES = (1, 31, 33, 1000, 4097, 100_003)
 # the offset planes run the vector paths' shifted loads and partial groups
 UNSHUFFLE_WIDTHS = (1, 2, 3, 4, 8, 16, 33, 1024)
 UNSHUFFLE_SIZES = RAGGED_SIZES + (16, 4096, 100_000)
+# K3's sizes: multiples of 16 and n % 16 of 1, 7 and 15, so that its vector
+# paths' unaligned plane stores and partial groups run at every width
+SHUFFLE_SIZES = (1, 7, 15, 16, 31, 33, 1000, 4096, 4103, 100_000, 100_007)
+# and one size at which the narrow path takes its eight-warp blocks
+SHUFFLE_LARGE = (1 << 21) + 15
+# K9's tables: the default, the largest held in shared memory, and global
+FSE_TABLE_LOGS = (11, 15, 16)
 # K2's back-to-back decodes of one input, at 2^26 and 2^28 uint8 deltas
 # (4096 and 16,384 tiles): its look-back's ordering faults would show only
 # under contention, as results that differ between runs
@@ -314,17 +330,28 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         2 * COLUMN_BYTES, col_a.numel(),
         cuda_ms(lambda: torch.diff(col_a, prepend=zero), 20))
 
-    # K3 byte shuffle: the transpose of column A's 8-byte records, and the
-    # tANS lane layout (65,536 lanes of 1024 symbols)
+    # K3 byte shuffle: every width, n % 16 and input offset of the sweep,
+    # then the main path's shapes, each timed in turns with t().contiguous():
+    # column A's 8-byte and B's 4-byte records, the tANS lane layout (65,536
+    # lanes of 1024 symbols) and a 64 KiB selector trial's records
     recs = col_a.view(torch.uint8).view(-1, 8)
     lanes = col_b.view(torch.uint8).view(-1, 1024)
-    err = max_abs_err([ops.byteshuffle(recs), ops.byteshuffle(lanes)],
-                      [ref.byteshuffle(recs), ref.byteshuffle(lanes)])
+    shuffle_shapes = {"(2^23, 8)": recs, "(2^24, 4)": col_b.view(torch.uint8).view(-1, 4),
+                      "(65536, 1024)": lanes, "(8192, 8)": recs[:8192]}
+    err = max_abs_err([ops.byteshuffle(x) for x in shuffle_shapes.values()],
+                      [ref.byteshuffle(x) for x in shuffle_shapes.values()])
+    err = max(err, shuffle_sweep(ops, ref, seed))
+    timed = {k: turns_ms(lambda x=x: ops.byteshuffle(x), lambda x=x: x.t().contiguous(), 20)
+             for k, x in shuffle_shapes.items()}
     row("byteshuffle", "src/repro_torch/csrc/byteshuffle.cu",
         "src/repro/kernels/byteshuffle.py:21",
-        err, cuda_ms(lambda: ops.byteshuffle(recs), 20),
-        cuda_ms(lambda: ref.byteshuffle(recs), 20),
-        2 * COLUMN_BYTES, 0, cuda_ms(lambda: recs.t().contiguous(), 20))
+        err, timed["(2^23, 8)"][0], cuda_ms(lambda: ref.byteshuffle(recs), 20),
+        2 * COLUMN_BYTES, 0, timed["(2^23, 8)"][1],
+        shape="uint8 (2^23, 8) (column A's records)",
+        ms_by_shape={k: t[0] for k, t in timed.items()},
+        library_ms_by_shape={k: t[1] for k, t in timed.items()},
+        bound_ms_by_shape={k: 2 * x.numel() / HBM_BYTES_PER_S * 1e3
+                           for k, x in shuffle_shapes.items()})
 
     # K14 Huffman map over 2^26 byte symbols (the transposed column B)
     planes = ops.byteshuffle(col_b.view(torch.uint8).view(-1, 4)).reshape(-1)
@@ -342,23 +369,28 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         n_sym * (1 + 4 + 4) + 2 * 256 * 4, 0,
         cuda_ms(lambda: tcodes[planes.long()], 5))
 
-    # K9 tANS lane walk over the same 2^26 symbols: 65,536 lanes of 1024
-    table_log = 11
-    norm = entropy._normalize_counts(counts, table_log)
-    _ds, _dn, _db, enc, nb0, thr, st0 = entropy._fse_tables_cached(norm, table_log)
-    i32 = lambda a: torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)  # noqa: E731
-    lanesT = ops.byteshuffle(planes.view(-1, 1024))
-    n_lanes = lanesT.shape[1]
-    rem = torch.full((n_lanes,), 1024, dtype=torch.int32, device=dev)
-    sym_start, compact = ref.compact_encode_table(i32(norm), i32(enc.reshape(-1)), enc.shape[1])
-    args = (lanesT, rem, i32(nb0), i32(thr), i32(st0), i32(norm),
-            sym_start, compact, enc.shape[1], 1 << table_log)
-    err = max_abs_err(ops.fse_encode(*args), ref.fse_encode_lanes(*args))
+    # K9 tANS lane walk over the same 2^26 symbols (65,536 lanes of 1024) and
+    # over a 64 KiB selector trial's 64 lanes, checked at every table_log and
+    # lane-length pattern of fse_encode_check, timed at table_log 11
+    err, k9 = fse_encode_check(ops, ref, entropy, planes, counts)
+    args, trial = k9[11, 1 << 16], k9[11, 64]
+    n_lanes = args[0].shape[1]
+    k9_bytes = lambda a: (a[0].numel() * (1 + 4 + 4) + a[0].shape[1] * 8  # noqa: E731
+                          + (5 * 256 + a[-1]) * 4)
     row("fse_encode", "src/repro_torch/csrc/fse.cu", "src/repro/kernels/fse.py:76",
         err, cuda_ms(lambda: ops.fse_encode(*args), 10),
         cuda_ms(lambda: ref.fse_encode_lanes(*args), 2),
-        n_sym * (1 + 4 + 4) + n_lanes * 8 + (5 * 256 + (1 << table_log)) * 4,
-        n_sym * 12, None)
+        k9_bytes(args), n_sym * 12, None,
+        shape=f"{n_lanes} lanes x 1024, table_log 11",
+        trial_ms=cuda_ms(lambda: ops.fse_encode(*trial), 20),
+        trial_shape="64 lanes x 1024 (a 64 KiB selector trial)",
+        trial_bound_ms=k9_bytes(trial) / HBM_BYTES_PER_S * 1e3,
+        table_log_15_ms=cuda_ms(lambda: ops.fse_encode(*k9[15, 1 << 16]), 10),
+        table_log_16_ms=cuda_ms(lambda: ops.fse_encode(*k9[16, 1 << 16]), 10))
+    print(f"latency floor, from an assumed {STEP_CYCLES} cycles per dependent step at"
+          f" the max SM clock (derived, not measured):"
+          f" fse_encode_64_lanes_ms={trial[0].shape[0] * STEP_CYCLES / sm_hz * 1e3}")
+    del k9, args, trial
 
     # K7 float split on columns C's and D's shapes (bfloat16 2^25, float32 2^24)
     col_c = torch.from_numpy(cols["C_weights_bf16"].view(np.int16)).to(dev)
@@ -559,6 +591,67 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         if r["max_abs_err"] != 0:
             fail(f"kernel {r['name']} disagrees with its plain version")
     return rows
+
+
+def shuffle_sweep(ops, ref, seed) -> float:
+    """K3 at every width of ``UNSHUFFLE_WIDTHS`` and size of ``SHUFFLE_SIZES``
+    (multiples of 16 and n % 16 of 1, 7 and 15), and at the narrow widths
+    also at ``SHUFFLE_LARGE`` records, on records that start at
+    their allocation, 1 byte into it and 16 bytes into it: the narrow, wide
+    and byte-wise paths with their shifted loads, unaligned plane stores and
+    partial groups, each against ``ref.byteshuffle``."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    err = 0.0
+    cases = [(w, n) for w in UNSHUFFLE_WIDTHS for n in SHUFFLE_SIZES]
+    cases += [(w, SHUFFLE_LARGE) for w in (1, 2, 4, 8)]
+    for w, n in cases:
+        buf = torch.randint(0, 256, (w * n + 16,), dtype=torch.uint8, device="cuda",
+                            generator=gen)
+        for offset in (0, 1, 16):
+            x = buf[offset: offset + w * n].view(n, w)
+            err = max(err, max_abs_err([ops.byteshuffle(x)], [ref.byteshuffle(x)]))
+    print(f"check byteshuffle: w {UNSHUFFLE_WIDTHS} x n {SHUFFLE_SIZES}, and w (1, 2, 4, 8)"
+          f" x n {SHUFFLE_LARGE}, x record offsets (0, 1, 16): max_abs_err={err}")
+    return err
+
+
+def fse_encode_check(ops, ref, entropy, planes, counts):
+    """K9 against ``ref.fse_encode_lanes`` on the 2^26 symbols of ``planes``
+    as 65,536 lanes and on their first 64 KiB as a selector trial's 64 lanes,
+    at each table_log of ``FSE_TABLE_LOGS`` (tables from ``counts``), with
+    every lane full and with lanes of length 1 and 2 and a short last lane.
+    Returns the error and each (table_log, n_lanes) case's arguments with
+    full lanes."""
+    import torch
+
+    dev = "cuda"
+    i32 = lambda a: torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)  # noqa: E731
+    layouts = [ops.byteshuffle(planes.view(-1, 1024)),
+               ops.byteshuffle(planes[: 64 * 1024].view(64, 1024))]
+    err = 0.0
+    cases = {}
+    for table_log in FSE_TABLE_LOGS:
+        norm = entropy._normalize_counts(counts, table_log)
+        _ds, _dn, _db, enc, nb0, thr, st0 = entropy._fse_tables_cached(norm, table_log)
+        sym_start, compact = ref.compact_encode_table(i32(norm), i32(enc.reshape(-1)),
+                                                      enc.shape[1])
+        tables = (i32(nb0), i32(thr), i32(st0), i32(norm), sym_start, compact, enc.shape[1],
+                  1 << table_log)
+        for lanesT in layouts:
+            n_lanes = lanesT.shape[1]
+            full = torch.full((n_lanes,), 1024, dtype=torch.int32, device=dev)
+            short = full.clone()
+            short[0], short[1], short[-1] = 1, 2, 517
+            for rem in (full, short):
+                args = (lanesT, rem, *tables)
+                err = max(err, max_abs_err(ops.fse_encode(*args), ref.fse_encode_lanes(*args)))
+            cases[table_log, n_lanes] = (lanesT, full, *tables)
+    print(f"check fse_encode: table_log {FSE_TABLE_LOGS} x (65536, 64) lanes x (all full;"
+          f" lanes of 1 and 2 and a last lane of 517): max_abs_err={err}")
+    return err, cases
 
 
 def unshuffle_sweep(ops, ref, seed) -> float:

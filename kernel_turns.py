@@ -1,4 +1,4 @@
-"""Time the byte, bit and delta-decode kernels of one source tree on one NVIDIA card.
+"""Time the byte, bit, delta-decode and tANS-encode kernels of one source tree on one NVIDIA card.
 
 Usage (on a machine with one CUDA card):
 
@@ -29,8 +29,12 @@ What it times, each kernel first held against ``kernels/ref.py`` bit for bit:
   int32[2^24], and at 32 bits to int32[2^24], from words at their
   allocation's start and 1 word into it, at 32 bits in turns with
   ``clone()``;
-- K3 byte shuffle (in turns with ``t().contiguous()``) and K11 fused delta +
-  bitpack at 8 bits, at chip_smoke's shapes.
+- K3 byte shuffle at chip_smoke's four shapes (column A's and B's records,
+  the tANS lane layout, a 64 KiB selector trial), at ragged ones and from
+  an input 1 byte into its allocation, each in turns with
+  ``t().contiguous()``;
+- K9 tANS encode at 65,536 and at 64 lanes of 1024 symbols (table_log 11);
+- K11 fused delta + bitpack at 8 bits, at chip_smoke's shape.
 
 Prints a line per shape, then one JSON object with every number, the card's
 name and power limit as ``nvidia-smi`` gives them, and the label.  Exits
@@ -51,6 +55,18 @@ K4_SHAPES = (
     (4096, 16383), (1024, 65535),  # ragged lane counts
 )
 K4_OFFSET_SHAPES = ((8, 1 << 23), (4096, 16384))
+# K3: (n, w, input offset) -> chip_smoke's shapes (column A's and B's
+# records, the tANS lane layout, a 64 KiB selector trial), ragged ones, and
+# from 1 byte into the allocation
+K3_SHAPES = {
+    "(2^23, 8)": (1 << 23, 8, 0), "(2^24, 4)": (1 << 24, 4, 0),
+    "(65536, 1024)": (65536, 1024, 0), "(8192, 8)": (8192, 8, 0),
+    "(2^23 - 8, 8)": ((1 << 23) - 8, 8, 0), "(2^24 - 1, 4)": ((1 << 24) - 1, 4, 0),
+    "(65535, 1024)": (65535, 1024, 0), "(2^23, 8) +1 byte": (1 << 23, 8, 1),
+}
+# K9: lanes of 1024 symbols at table_log 11, the main path's 65,536 lanes
+# and a 64 KiB selector trial's 64
+K9_LANES = (65536, 64)
 
 
 def main() -> None:
@@ -116,11 +132,15 @@ def main() -> None:
         result["bitpack"][key] = {"ms": ms, "clone_ms": lib, "bound_ms": bound}
         print(f"{args.label} bitpack {key}: ms={ms} clone_ms={lib} bound_ms={bound}")
 
-    recs = planes(8, 1 << 23).reshape(-1, 8)
-    check(ops.byteshuffle(recs), ref.byteshuffle(recs), "byteshuffle")
-    ms, lib = cs.turns_ms(lambda: ops.byteshuffle(recs), lambda: recs.t().contiguous(), 20)
-    result["byteshuffle"] = {"(2^23, 8)": {"ms": ms, "library_ms": lib}}
-    print(f"{args.label} byteshuffle (2^23, 8): ms={ms} t_contiguous_ms={lib}")
+    result["byteshuffle"] = {}
+    for key, (n, w, offset) in K3_SHAPES.items():
+        x = planes(w, n, offset).reshape(n, w)
+        check(ops.byteshuffle(x), ref.byteshuffle(x), f"byteshuffle {key}")
+        ms, lib = cs.turns_ms(lambda x=x: ops.byteshuffle(x), lambda x=x: x.t().contiguous(), 20)
+        bound = 2 * x.numel() / cs.HBM_BYTES_PER_S * 1e3
+        result["byteshuffle"][key] = {"ms": ms, "library_ms": lib, "bound_ms": bound}
+        print(f"{args.label} byteshuffle {key}: ms={ms} t_contiguous_ms={lib} bound_ms={bound}")
+    result["fse_encode"] = fse_encode_times(args.label, ops, ref, gen, check)
     g_words = ops.bitpack(g, 4)
     check(ops.bitunpack(g_words, 4, g.numel(), 1), g, "bitunpack at 4 bits")
     u4 = min(cs.cuda_ms(lambda: ops.bitunpack(g_words, 4, g.numel(), 1), 20) for _ in range(3))
@@ -165,6 +185,40 @@ def main() -> None:
 
     result["card"] = cs.nvidia_smi("name,power.limit")
     print(json.dumps(result))
+
+
+def fse_encode_times(label, ops, ref, gen, check):
+    """K9 at ``K9_LANES`` lanes of 1024 exponentially distributed bytes, with the
+    tables of table_log 11 that the port's codec builds for them; each held
+    against ``ref.fse_encode_lanes``, then timed (least of three
+    ``cuda_ms``)."""
+    import numpy as np
+    import torch
+    from repro_torch.codecs import entropy
+
+    import chip_smoke as cs
+
+    dev = "cuda"
+    i32 = lambda a: torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)  # noqa: E731
+    sym = (torch.empty(K9_LANES[0] * 1024, device=dev).exponential_(1 / 24, generator=gen)
+           .clamp_(max=255).to(torch.uint8))  # skewed bytes, mean ~24
+    counts = torch.bincount(sym, minlength=256).cpu().numpy().astype(np.int64)
+    norm = entropy._normalize_counts(counts, 11)
+    _ds, _dn, _db, enc, nb0, thr, st0 = entropy._fse_tables_cached(norm, 11)
+    sym_start, compact = ref.compact_encode_table(i32(norm), i32(enc.reshape(-1)), enc.shape[1])
+    out = {}
+    for n_lanes in K9_LANES:
+        lanesT = ops.byteshuffle(sym[: n_lanes * 1024].view(n_lanes, 1024))
+        rem = torch.full((n_lanes,), 1024, dtype=torch.int32, device=dev)
+        a = (lanesT, rem, i32(nb0), i32(thr), i32(st0), i32(norm), sym_start, compact,
+             enc.shape[1], 1 << 11)
+        for got, want in zip(ops.fse_encode(*a), ref.fse_encode_lanes(*a)):
+            check(got, want, f"fse_encode {n_lanes} lanes")
+        ms = min(cs.cuda_ms(lambda a=a: ops.fse_encode(*a), 20) for _ in range(3))
+        bound = (n_lanes * 1024 * 9 + n_lanes * 8 + (5 * 256 + (1 << 11)) * 4) / cs.HBM_BYTES_PER_S * 1e3
+        out[f"{n_lanes} lanes x 1024"] = {"ms": ms, "bound_ms": bound}
+        print(f"{label} fse_encode {n_lanes} lanes x 1024: ms={ms} bound_ms={bound}")
+    return out
 
 
 if __name__ == "__main__":

@@ -46,7 +46,7 @@ RESTYPES = {
 }
 SIGNATURES = {
     "repro_delta_encode": [_P, _P, _I64, _I32, _P],
-    "repro_byteshuffle": [_P, _P, _I64, _I64, _P],
+    "repro_byteshuffle": [_P, _P, _I64, _I64, _I32, _P],
     "repro_huffman_map": [_P, _P, _P, _P, _P, _I64, _P],
     "repro_fse_encode": [_P] * 11 + [_I32, _I64, _I32, _I32, _P],
     "repro_delta_decode_scratch": [_I64, _I32],

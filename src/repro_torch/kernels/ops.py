@@ -155,6 +155,20 @@ def delta_decode_tile(width: int) -> int:
 
 
 # ------------------------------------------------------------ K3 byteshuffle
+# K3's paths (csrc/byteshuffle.cu SHUFFLE_*): 16-byte vectors transposed in
+# registers for w of 1, 2, 4 and 8, a 128 x 128 shared tile for multiples of
+# 16 (the tANS lanes' 1024), byte-wise tiles for any other w
+SHUFFLE_NARROW, SHUFFLE_WIDE, SHUFFLE_BYTES = 0, 1, 2
+
+
+def byteshuffle_path(w: int) -> int:
+    """The K3 path that records of ``w`` bytes take on the card, at any n and
+    any input offset."""
+    if w in (1, 2, 4, 8):
+        return SHUFFLE_NARROW
+    return SHUFFLE_WIDE if w % 16 == 0 else SHUFFLE_BYTES
+
+
 def byteshuffle(x: torch.Tensor) -> torch.Tensor:
     """(n, w) uint8 records -> (w, n) byte planes, for any w >= 1."""
     if x.dim() != 2:
@@ -166,7 +180,9 @@ def byteshuffle(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((w, n), dtype=torch.uint8, device=x.device)
     if x.numel():
         _launched(
-            _lib().repro_byteshuffle(x.data_ptr(), out.data_ptr(), n, w, _stream(x)),
+            _lib().repro_byteshuffle(
+                x.data_ptr(), out.data_ptr(), n, w, byteshuffle_path(w), _stream(x)
+            ),
             "byteshuffle",
         )
         byteshuffle.launches += 1
@@ -247,7 +263,13 @@ def fse_encode(
     the per-symbol tables int32[256], and the encode table in its compact
     form (``ref.compact_encode_table``: ``total`` entries, located per
     symbol by ``sym_start``), which the kernel holds in shared memory up to
-    2^15 entries and reads from global memory above.
+    2^15 entries and reads from global memory above.  ``width`` is the
+    reference table's row length, the largest norm.  The card computes the
+    plain walk for tables as the codec builds them
+    (``codecs.entropy._fse_tables_cached``: nb0 = table_log + 1 -
+    bit_length(norm), thr = norm << nb0, st0[s] = enc[s][0], states in [0,
+    total)); it reads neither ``st0`` nor ``width``, which those tables fix
+    (``ref.fse_encode_words`` is its arithmetic, on the CPU).
     """
     max_rem, n_lanes = lanesT.shape
     tables = (nb0, thr, st0, norm, sym_start)
@@ -255,6 +277,8 @@ def fse_encode(
         raise ValueError("fse_encode: rem[n_lanes] and 256-entry tables expected")
     if enc_compact.shape != (total,):
         raise ValueError("fse_encode: the compact encode table holds total entries")
+    if width < 1:
+        raise ValueError(f"fse_encode: the encode table's width must be >= 1, got {width}")
     if _on_cpu(lanesT, rem, enc_compact, *tables):
         return ref.fse_encode_lanes(
             lanesT, rem, nb0, thr, st0, norm, sym_start, enc_compact, width, total
