@@ -372,7 +372,7 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     # K9 tANS lane walk over the same 2^26 symbols (65,536 lanes of 1024) and
     # over a 64 KiB selector trial's 64 lanes, checked at every table_log and
     # lane-length pattern of fse_encode_check, timed at table_log 11
-    err, k9 = fse_encode_check(ops, ref, entropy, planes, counts)
+    err, k9 = fse_encode_check(ops, ref, entropy, planes, counts, seed)
     args, trial = k9[11, 1 << 16], k9[11, 64]
     n_lanes = args[0].shape[1]
     k9_bytes = lambda a: (a[0].numel() * (1 + 4 + 4) + a[0].shape[1] * 8  # noqa: E731
@@ -618,13 +618,16 @@ def shuffle_sweep(ops, ref, seed) -> float:
     return err
 
 
-def fse_encode_check(ops, ref, entropy, planes, counts):
+def fse_encode_check(ops, ref, entropy, planes, counts, seed):
     """K9 against ``ref.fse_encode_lanes`` on the 2^26 symbols of ``planes``
     as 65,536 lanes and on their first 64 KiB as a selector trial's 64 lanes,
     at each table_log of ``FSE_TABLE_LOGS`` (tables from ``counts``), with
     every lane full and with lanes of length 1 and 2 and a short last lane.
-    Returns the error and each (table_log, n_lanes) case's arguments with
-    full lanes."""
+    Then symbols the table does not hold (norm 0), which step to state 0:
+    uniform bytes in 1000 lanes, a short last one zero-padded, under tables
+    of table_log 11 (shared) and 16 (global) normalized from bytes 64-127
+    alone, so that byte 0 and most symbols are absent.  Returns the error
+    and each (table_log, n_lanes) case's arguments with full lanes."""
     import torch
 
     dev = "cuda"
@@ -651,7 +654,30 @@ def fse_encode_check(ops, ref, entropy, planes, counts):
             cases[table_log, n_lanes] = (lanesT, full, *tables)
     print(f"check fse_encode: table_log {FSE_TABLE_LOGS} x (65536, 64) lanes x (all full;"
           f" lanes of 1 and 2 and a last lane of 517): max_abs_err={err}")
-    return err, cases
+
+    rng = np.random.default_rng(seed + 9)
+    other = np.bincount(rng.zipf(1.3, 4000) % 64 + 64, minlength=256).astype(np.int64)
+    n_sym = 999 * 1024 + 517
+    padded = np.zeros(1000 * 1024, np.uint8)
+    padded[:n_sym] = rng.integers(0, 256, n_sym, dtype=np.uint8)
+    lanesT = ops.byteshuffle(torch.from_numpy(padded).to(dev).view(1000, 1024))
+    rem = torch.full((1000,), 1024, dtype=torch.int32, device=dev)
+    rem[0], rem[1], rem[-1] = 1, 2, 517
+    absent_err = 0.0
+    for table_log in (11, 16):
+        norm = entropy._normalize_counts(other, table_log)
+        if not (norm[padded[:n_sym]] == 0).any() or norm[0] != 0:
+            fail(f"fse_encode absent-symbol case at table_log {table_log} holds every symbol")
+        _ds, _dn, _db, enc, nb0, thr, st0 = entropy._fse_tables_cached(norm, table_log)
+        sym_start, compact = ref.compact_encode_table(i32(norm), i32(enc.reshape(-1)),
+                                                      enc.shape[1])
+        args = (lanesT, rem, i32(nb0), i32(thr), i32(st0), i32(norm), sym_start, compact,
+                enc.shape[1], 1 << table_log)
+        absent_err = max(absent_err, max_abs_err(ops.fse_encode(*args),
+                                                 ref.fse_encode_lanes(*args)))
+    print(f"check fse_encode: absent symbols, table_log (11, 16) x 1000 lanes (lanes of 1"
+          f" and 2, a zero-padded last lane of 517): max_abs_err={absent_err}")
+    return max(err, absent_err), cases
 
 
 def unshuffle_sweep(ops, ref, seed) -> float:

@@ -36,8 +36,8 @@
 //   state 0 through its own entry, as the clip sends it there.  A lane's
 //   first step is a table step too: until then the lane carries X = thr of
 //   its next symbol, whose X >> nb is norm, the index of enc[s][0] = st0[s].
-//   kernels/ref.py fse_symbol_words and fse_encode_words are this
-//   arithmetic in PyTorch, held against the plain walk on the CPU.
+//   chip_smoke.py holds the kernel against the plain walk, absent symbols
+//   included.
 // - Up to FSE_SHARED_TABLE entries the table lives in shared memory as u16
 //   entries that hold X = enc + total directly (below 2^16 while table_log
 //   <= 15), plus one entry of X = total for the absent symbols, and nb is
@@ -55,7 +55,10 @@
 //   barrier took the time the chain left idle.
 #include "common.cuh"
 
-#define FSE_SHARED_TABLE (1 << 15)  // the largest table held in shared memory
+#ifndef FSE_SHARED_TABLE  // the largest table held in shared memory, from the build
+#error "fse.cu is built with -DFSE_SHARED_TABLE=<entries> (kernels/_build.py)"
+#endif
+static_assert(FSE_SHARED_TABLE <= (1 << 15), "u16 entries hold X = state + total < 2^16");
 #define FSE_LANES 128               // lanes (threads) per block
 #define FSE_ROWS 32                 // rows per staged chunk
 #define FSE_RING 4                  // chunks in the symbol ring

@@ -32,8 +32,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # DTILE_BYTES); defined here alone, so that the checks that size inputs
 # around the tile (ops.delta_decode_tile) read the value the kernel was built with
 DELTA_TILE_BYTES = 16384
+# the entries of the largest tANS table that K9 and K10 hold in shared memory
+# (csrc/fse.cu reads it as FSE_SHARED_TABLE); a larger one stays in global memory
+FSE_SHARED_TABLE = 1 << 15
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-                              f"-DDTILE_BYTES={DELTA_TILE_BYTES}"]
+                              f"-DDTILE_BYTES={DELTA_TILE_BYTES}",
+                              f"-DFSE_SHARED_TABLE={FSE_SHARED_TABLE}"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong

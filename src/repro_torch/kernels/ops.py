@@ -268,8 +268,7 @@ def fse_encode(
     plain walk for tables as the codec builds them
     (``codecs.entropy._fse_tables_cached``: nb0 = table_log + 1 -
     bit_length(norm), thr = norm << nb0, st0[s] = enc[s][0], states in [0,
-    total)); it reads neither ``st0`` nor ``width``, which those tables fix
-    (``ref.fse_encode_words`` is its arithmetic, on the CPU).
+    total)); it reads neither ``st0`` nor ``width``, which those tables fix.
     """
     max_rem, n_lanes = lanesT.shape
     tables = (nb0, thr, st0, norm, sym_start)

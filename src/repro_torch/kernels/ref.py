@@ -29,8 +29,6 @@ _U32 = 0xFFFFFFFF
 # nb | base << 5 holds base up to table_log 26, and larger tables take u64
 FSE_MAX_TABLE_LOG = 30
 FSE_NARROW_TABLE_LOG = 26
-# the largest tANS table K9 and K10 hold in shared memory (csrc/fse.cu)
-FSE_SHARED_TABLE = 1 << 15
 
 # float_split formats: fmt -> (width, exp_bits, man_bits, exp_width, man_width),
 # the bytes of a value, of its exponent plane and of its mantissa plane
@@ -149,74 +147,6 @@ def fse_encode_lanes(
         new_state = torch.where(xprime < norm[s], enc[idx], 0)
         state = torch.where(emit, new_state, torch.where(rem == i + 1, st0[s], state))
     return vals, nbs, state.to(torch.int32)
-
-
-def fse_symbol_words(
-    nb0: torch.Tensor, thr: torch.Tensor, norm: torch.Tensor, sym_start: torch.Tensor,
-    total: int,
-) -> torch.Tensor:
-    """K9's 16-byte word per symbol, (256, 4) int64, as its prologue builds
-    them (``FseSym`` in ``csrc/fse.cu``): thr; the nb term, (nb0 << 16) - thr
-    where the table is shared (``total <= FSE_SHARED_TABLE``), else nb0; the
-    table index of X >> nb = 0, sym_start - norm (for a symbol the table
-    does not hold: total, the shared table's state-0 entry, or 0); and
-    whether the table holds the symbol."""
-    shared = total <= FSE_SHARED_TABLE
-    nb0, thr, norm = (t.to(torch.int64) for t in (nb0, thr, norm))
-    held = norm != 0
-    nbt = (nb0 << 16) - thr if shared else nb0
-    base = torch.where(held, sym_start.to(torch.int64) - norm, total if shared else 0)
-    return torch.stack([thr, nbt, base, held.to(torch.int64)], dim=1)
-
-
-def fse_table_x(enc_compact: torch.Tensor, total: int) -> torch.Tensor:
-    """K9's table entries in the form its walk carries, X = state + total
-    (int64).  A shared table (``total <= FSE_SHARED_TABLE``, held as u16
-    entries: states lie in [0, total)) ends with one more entry, X = total
-    (state 0), where the symbols it does not hold step."""
-    x = enc_compact.to(torch.int64) + total
-    if total <= FSE_SHARED_TABLE:
-        x = torch.cat([x, x.new_full((1,), total)])
-    return x
-
-
-def fse_encode_words(
-    lanesT: torch.Tensor,
-    rem: torch.Tensor,
-    words: torch.Tensor,
-    table_x: torch.Tensor,
-    total: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`fse_encode_lanes` computed as K9 computes it, from
-    :func:`fse_symbol_words` and :func:`fse_table_x`, for tables as the
-    codec builds them (nb0 = table_log + 1 - bit_length(norm), thr = norm <<
-    nb0, st0[s] = enc[s][0], states in [0, total)): X >> nb then lies in
-    [norm, 2 * norm) and needs no clip; a lane that has not started carries
-    X = thr of its next symbol, so that its first step reads enc[s][0] =
-    st0[s] from the table.  Same outputs."""
-    max_rem, n_lanes = lanesT.shape
-    dev = lanesT.device
-    shared = total <= FSE_SHARED_TABLE
-    rem = rem.to(torch.int64)
-    vals = torch.zeros((max_rem, n_lanes), dtype=torch.int32, device=dev)
-    nbs = torch.zeros((max_rem, n_lanes), dtype=torch.int32, device=dev)
-    X = torch.full((n_lanes,), total, dtype=torch.int64, device=dev)
-    one = torch.ones(n_lanes, dtype=torch.int64, device=dev)
-    if max_rem:
-        X = torch.where(rem - 1 <= max_rem - 1, words[lanesT[max_rem - 1].long(), 0], X)
-    for i in range(max_rem - 1, -1, -1):
-        thr, nbt, base, held = words[lanesT[i].long()].unbind(1)
-        nb = (X + nbt) >> 16 if shared else nbt - (X < thr).long()
-        stepped = table_x[base + (X >> nb)]
-        if not shared:
-            stepped = torch.where(held != 0, stepped, total)
-        emit = rem > i + 1
-        nbe = torch.where(emit, nb, 0)
-        vals[i] = (X & ((one << nbe) - 1)).to(torch.int32)
-        nbs[i] = nbe.to(torch.int32)
-        thr_next = words[lanesT[i - 1].long(), 0] if i else X
-        X = torch.where(rem > i, stepped, thr_next)
-    return vals, nbs, torch.where(rem > 0, X - total, 0).to(torch.int32)
 
 
 # -------------------------------------------------------------- K16 refill
