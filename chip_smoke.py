@@ -29,8 +29,14 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              from every element offset below 16 bytes into its tensor
              (``d[0:]`` to ``d[15:]`` for uint8), and 50 times back to
              back on 2^26 and 2^28 uint8 deltas, every result equal; Huffman
-             decode and tANS decode on column A's entropy-coded streams, the
-             lane refill they share, float merge on C's and D's planes, and
+             decode and tANS decode on column A's entropy-coded streams, 50
+             times back to back, then Huffman decode at 1 to 16,384 lanes
+             started in order, reversed, all equal and at the stream's end,
+             and on streams of 1 to 12,805 symbols (short last lanes) under
+             tables with 15-bit codes, codes of at most 8 bits and one
+             symbol, and tANS decode on 1000 lanes of 1 (no bits), 2, 517
+             and 1024 symbols at table_log 5, 11, 15 and 16; the lane
+             refill, float merge on C's and D's planes, and
              byte unshuffle on A's and B's planes and both decoders' lanes,
              and at a ragged size of each regime, (8, 2^23 - 8) and
              (4096, 16383), each timed in turns with ``t().contiguous()``
@@ -89,7 +95,7 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
 6. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
-             goes" record.
+             goes" record, then each kernel's device ms summed over them.
 7. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line, the
@@ -168,9 +174,17 @@ SHUFFLE_SIZES = (1, 7, 15, 16, 31, 33, 1000, 4096, 4103, 100_000, 100_007)
 SHUFFLE_LARGE = (1 << 21) + 15
 # K9's tables: the default, the largest held in shared memory, and global
 FSE_TABLE_LOGS = (11, 15, 16)
+# K15's lane counts (one, around its 128-lane blocks, column A's) and
+# stream lengths (so max_rem of 1, 2, 3, 4095 and 4096, and short last lanes)
+HUFF_LANE_COUNTS = (1, 63, 64, 65, 127, 128, 129, 16384)
+HUFF_LENGTHS = (1, 2, 3, 4095, 4096, 3 * 4096 + 517)
+# K10's tables: from 32 states to the largest held in shared memory, and
+# global (table_log 27 is checked on a frame of its own)
+FSE_DECODE_TABLE_LOGS = (5, 11, 15, 16)
 # K2's back-to-back decodes of one input, at 2^26 and 2^28 uint8 deltas
 # (4096 and 16,384 tiles): its look-back's ordering faults would show only
-# under contention, as results that differ between runs
+# under contention, as results that differ between runs; K15 and K10 are
+# run as many times on column A's streams
 CONTENTION_RUNS = 50
 CONTENTION_LOG_SIZES = (26, 28)
 # the port's kernels in a profile (their CUDA function names), and the host
@@ -217,9 +231,7 @@ def columns(seed: int):
     import torch
 
     rng = np.random.default_rng(seed)
-    n_a = COLUMN_BYTES // 8
-    gaps = 1_000_000 + rng.integers(-250_000, 250_000, n_a)  # ~1 ms ticks, jittered
-    col_a = (1_700_000_000_000_000_000 + np.cumsum(gaps)).astype(np.int64)
+    col_a = timestamps(rng, COLUMN_BYTES // 8)
     n_b = COLUMN_BYTES // 4
     id_space = rng.integers(0, 1 << 32, 1 << 22, dtype=np.uint64).astype(np.uint32)
     rank = np.minimum(rng.zipf(1.15, n_b), id_space.size) - 1
@@ -234,6 +246,12 @@ def columns(seed: int):
     return {"A_timestamps_i64": col_a, "B_zipf_ids_u32": col_b, "C_weights_bf16": col_c,
             "D_weights_f32": col_d, "E_weights_f64": col_e, "F_string_offsets_u32": col_f,
             "G_int4_codes_u8": col_g}
+
+
+def timestamps(rng, n: int) -> np.ndarray:
+    """Column A: n int64 nanosecond timestamps, ~1 ms ticks jittered by ±25 %."""
+    gaps = 1_000_000 + rng.integers(-250_000, 250_000, n)
+    return (1_700_000_000_000_000_000 + np.cumsum(gaps)).astype(np.int64)
 
 
 def stream_of(rt, cname: str, col: np.ndarray):
@@ -458,6 +476,9 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     buf, pos, lut, max_rem, n_sym_a, _stype = huff
     h_planes = ops.huffman_decode(buf, pos, lut, max_rem)
     err = max_abs_err([h_planes], [ref.huffman_decode_lanes(buf, pos, lut, max_rem)])
+    err = max(err, back_to_back("huffman_decode", lambda: ops.huffman_decode(buf, pos, lut, max_rem),
+                                h_planes))
+    err = max(err, huffman_decode_sweep(rt, ops, ref, entropy, huff, seed))
     stream_bytes = buf.numel()
     row("huffman_decode", "src/repro_torch/csrc/huffman.cu", "src/repro/kernels/huffman.py:84",
         err, cuda_ms(lambda: ops.huffman_decode(buf, pos, lut, max_rem), 5),
@@ -473,6 +494,8 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     fbuf, _base, bitlen, _state0, sym, _nbb, f_rem = f_args
     f_planes = ops.fse_decode(*f_args)
     err = max_abs_err([f_planes], [ref.fse_decode_lanes(*f_args)])
+    err = max(err, back_to_back("fse_decode", lambda: ops.fse_decode(*f_args), f_planes))
+    err = max(err, fse_decode_sweep(ops, ref, entropy, seed))
     # table_log 16: K9 and K10 read tables of 2^16 entries from global memory
     wide = rt.pipeline("delta", "transpose", ("fse", {"table_log": 16}))
     prefix_a = col_a_np[: PREFIX_BYTES // 8]
@@ -584,7 +607,7 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         err, cuda_ms(lambda: ops.lane_refill(buf, cursors), 20),
         cuda_ms(lambda: ref.lane_refill(buf, cursors), 20),
         cursors.numel() * (8 + 5 + 4), cursors.numel() * 8, None,
-        runs_inside=["huffman_decode", "fse_decode"])
+        runs_inside=[])
 
     bitpack_rows(cols, ops, ref, seed, row)
     for r in rows:
@@ -680,6 +703,117 @@ def fse_encode_check(ops, ref, entropy, planes, counts, seed):
     return max(err, absent_err), cases
 
 
+def back_to_back(name, fn, want, what="column A's stream") -> float:
+    """``fn`` run ``CONTENTION_RUNS`` times back to back on ``what``, every
+    result equal to ``want`` (the plain version's result, or the kernel's
+    own first one held against it by the caller); 1.0 if one differs."""
+    import torch
+
+    runs = [fn() for _ in range(CONTENTION_RUNS)]
+    differ = sum(not torch.equal(r, want) for r in runs)
+    print(f"check {name}: {CONTENTION_RUNS} back-to-back runs on {what}, {differ} differ")
+    return 1.0 if differ else 0.0
+
+
+def huffman_decode_sweep(rt, ops, ref, entropy, huff, seed) -> float:
+    """K15 against ``ref.huffman_decode_lanes``: column A's lanes (``huff``)
+    at lane counts ``HUFF_LANE_COUNTS``, started in reverse order, with
+    equal starts and with starts at the stream's end; then streams the codec
+    writes on the card at every length of ``HUFF_LENGTHS`` (so max_rem of 1,
+    2, 3, 4095 and 4096, and short last lanes) under a table with 15-bit
+    codes, one whose codes have at most 8 bits, and a one-symbol table."""
+    import torch
+
+    buf, pos, lut, max_rem, _n, _stype = huff
+    n_data = buf.numel() - 16 - ((15 * max_rem + 7) >> 3)  # the glue's pad
+    err = 0.0
+    for k in HUFF_LANE_COUNTS:
+        p = pos[:k]
+        starts = {"in order": p, "reversed": p.flip(0),
+                  "equal": p[:1].expand(k).contiguous(),
+                  "at the end": torch.full_like(p, 8 * n_data)}
+        for q in starts.values():
+            err = max(err, max_abs_err([ops.huffman_decode(buf, q, lut, max_rem)],
+                                       [ref.huffman_decode_lanes(buf, q, lut, max_rem)]))
+    rng = np.random.default_rng(seed + 15)
+    tables = {  # counts 1, 1, 2, 4, ..., 2^14 give codes of 15 bits down to 1
+        "15-bit codes": rng.permutation(np.repeat(np.arange(16, dtype=np.uint8),
+                                                  [1] + [1 << i for i in range(15)])),
+        "codes of at most 8 bits": rng.integers(0, 16, 1 << 16, dtype=np.uint8),
+        "one symbol": np.full(1 << 16, 42, np.uint8),
+    }
+    logs = {}
+    plan = rt.pipeline("huffman")
+    for name, data in tables.items():
+        for n in HUFF_LENGTHS + (data.size,):  # the LUT's period is read at the last
+            raw = np.resize(data, n).tobytes()
+            frame = rt.compress(plan, rt.serial(raw), device="cuda")
+            hb, hp, hl, hm, _n, _st = entropy.huffman_lanes(*node_streams(frame, "huffman"))
+            logs[name] = ops.huffman_lut_log(hl)
+            q = torch.cat([hp, hp.flip(0)])  # every lane twice, the second time in reverse
+            err = max(err, max_abs_err([ops.huffman_decode(hb, q, hl, hm)],
+                                       [ref.huffman_decode_lanes(hb, q, hl, hm)]))
+            (back,) = rt.decompress(frame, device="cuda")
+            if back.content_bytes() != raw:
+                fail(f"huffman_decode sweep: {name}, {n} symbols did not decode on the card")
+    if logs["15-bit codes"] != 15 or logs["codes of at most 8 bits"] > 8:
+        fail(f"huffman_decode sweep: the tables' LUT periods are {logs}")
+    print(f"check huffman_decode: column A's lanes x {HUFF_LANE_COUNTS} (in order, reversed,"
+          f" equal, at the stream's end); streams of {HUFF_LENGTHS} symbols under tables with"
+          f" 15-bit codes, codes of at most 8 bits and one symbol (LUT logs {logs}):"
+          f" max_abs_err={err}")
+    return err
+
+
+def fse_decode_sweep(ops, ref, entropy, seed) -> float:
+    """K10 against ``ref.fse_decode_lanes`` on 1000 lanes that the port's K9
+    encodes on the card, at each table_log of ``FSE_DECODE_TABLE_LOGS``: lanes
+    of 1 symbol (no bits) and 2, a last lane of 517, the rest full; then on
+    the same lanes repeated to more than 128 lanes per SM, so that K10 runs
+    its 256-lane blocks as well as its 128-lane ones at each table_log."""
+    import torch
+
+    dev = "cuda"
+    copies = 128 * torch.cuda.get_device_properties(0).multi_processor_count // 1000 + 1
+    i32 = lambda a: torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)  # noqa: E731
+    rng = np.random.default_rng(seed + 10)
+    rem = torch.full((1000,), 1024, dtype=torch.int32, device=dev)
+    rem[0], rem[1], rem[-1] = 1, 2, 517
+    err = 0.0
+    empty = 0
+    for table_log in FSE_DECODE_TABLE_LOGS:
+        alphabet = min(200, 1 << (table_log - 1))
+        lanes = torch.from_numpy((rng.zipf(1.25, (1000, 1024)) % alphabet).astype(np.uint8))
+        lanes[torch.arange(1024)[None, :] >= rem.cpu()[:, None]] = 0
+        counts = np.bincount(lanes.numpy().reshape(-1), minlength=256).astype(np.int64)
+        norm = entropy._normalize_counts(counts, table_log)
+        ds, dn, db, enc, nb0, thr, st0 = entropy._fse_tables_cached(norm, table_log)
+        sym_start, compact = ref.compact_encode_table(i32(norm), i32(enc.reshape(-1)),
+                                                      enc.shape[1])
+        vals, nbs, state = ops.fse_encode(
+            ops.byteshuffle(lanes.to(dev)), rem, i32(nb0), i32(thr), i32(st0), i32(norm),
+            sym_start, compact, enc.shape[1], 1 << table_log)
+        goffs, bitlen, byte_off = ref.fse_lane_offsets(nbs)
+        stream = ref.pack_bits(vals, goffs, int(byte_off[-1]))[: int(byte_off[-1])]
+        sym, nbb = ref.pack_fse_table(*(torch.from_numpy(a.copy()).to(dev) for a in (ds, dn, db)))
+        args = (torch.cat([stream, stream.new_zeros(8)]),
+                ref.exclusive_offsets((bitlen + 7) >> 3)[:-1], bitlen, state, sym, nbb, 1024)
+        got = ops.fse_decode(*args)
+        err = max(err, max_abs_err([got], [ref.fse_decode_lanes(*args)]))
+        many = (args[0], *(a.repeat(copies) for a in args[1:4]), *args[4:])
+        err = max(err, max_abs_err([ops.fse_decode(*many)], [ref.fse_decode_lanes(*many)]))
+        back = ops.byteunshuffle(got).cpu()
+        if not all(torch.equal(back[k, :r], lanes[k, :r]) for k, r in enumerate(rem.tolist())):
+            fail(f"fse_decode sweep: table_log {table_log} did not return the lanes")
+        empty += int((bitlen == 0).sum())
+    if not empty:
+        fail("fse_decode sweep: no lane of bitlen 0")
+    print(f"check fse_decode: 1000 lanes (of 1 symbol and no bits, 2, a last one of 517, the"
+          f" rest full), and {copies} times over, x table_log {FSE_DECODE_TABLE_LOGS}:"
+          f" max_abs_err={err}")
+    return err
+
+
 def unshuffle_sweep(ops, ref, seed) -> float:
     """K4 at every width of ``UNSHUFFLE_WIDTHS`` and size of ``UNSHUFFLE_SIZES``,
     on planes that start at their allocation, 1 byte into it and 16 bytes
@@ -742,13 +876,9 @@ def delta_decode_sweep(ops, ref, seed) -> float:
         full = deltas((1 << log_n) + 1, 1)
         big = full[:-1]
         err = max(err, max_abs_err([ops.delta_decode(full[1:])], [ref.delta_decode(full[1:])]))
-        runs = [ops.delta_decode(big) for _ in range(CONTENTION_RUNS)]
-        want = ref.delta_decode(big)
-        differ = sum(not torch.equal(r, want) for r in runs)
-        if differ:
-            fail(f"delta_decode: {differ} of {CONTENTION_RUNS} back-to-back decodes of"
-                 f" 2^{log_n} uint8 deltas differ from the plain version")
-        del full, big, runs, want
+        err = max(err, back_to_back("delta_decode", lambda: ops.delta_decode(big),
+                                    ref.delta_decode(big), f"2^{log_n} uint8 deltas"))
+        del full, big
     print(f"check delta_decode: widths (1, 2, 4, 8) x n {RAGGED_SIZES} and each width's tile"
           f" {json.dumps(tiles)} -1, +0, +1, 2x+1, from byte offsets 0-15; uint8 deltas of"
           + "".join(f" 2^{k} ({(1 << k) // tiles[1]} tiles)" for k in CONTENTION_LOG_SIZES)
@@ -1052,17 +1182,25 @@ def profile_phase(cols, frames, rt) -> None:
     time from ``torch.profiler`` (its kernels, by name) and the host's time
     from ``cProfile`` (its functions, by cumulative time)."""
     plans = {name: make(rt) for name, make in PLANS.items()}
+    sums = {"compress": {}, "decompress": {}}
     for cname, pname in column_plans(cols):
         plan, frame = plans[pname], frames[cname, pname]
         stream = stream_of(rt, cname, cols[cname])
         codecs = frame_codecs(rt, frame)
-        profile_call(f"{cname} {pname} [{codecs}]",
-                     lambda: rt.compress(plan, stream, device="cuda"))
-        profile_call(f"decompress {cname} {pname} [{codecs}]",
-                     lambda: rt.decompress(frame, device="cuda"))
+        for way, fn in (("compress", lambda: rt.compress(plan, stream, device="cuda")),
+                        ("decompress", lambda: rt.decompress(frame, device="cuda"))):
+            label = f"{cname} {pname} [{codecs}]"
+            ours = profile_call(label if way == "compress" else f"decompress {label}", fn)
+            for k, ms in ours.items():
+                sums[way][k] = sums[way].get(k, 0.0) + ms
+    total = {k: sums["compress"].get(k, 0.0) + sums["decompress"].get(k, 0.0)
+             for k in {**sums["compress"], **sums["decompress"]}}
+    print(f"profile sums, device ms per kernel over the {len(frames)} compress and"
+          f" {len(frames)} decompress calls: {json.dumps(dict(sorted(total.items())))}"
+          f" compress: {json.dumps(sums['compress'])} decompress: {json.dumps(sums['decompress'])}")
 
 
-def profile_call(label: str, fn) -> None:
+def profile_call(label: str, fn) -> dict:
     import cProfile
     import pstats
 
@@ -1107,6 +1245,7 @@ def profile_call(label: str, fn) -> None:
     print(f"profile {label} host_self_ms: "
           + ", ".join(f"{name}={ms:.1f}" for ms, name in rows[:8])
           + f" host_cumulative_ms: {json.dumps(cum)}")
+    return ours
 
 
 def nvidia_smi(query: str) -> str:

@@ -1,4 +1,4 @@
-"""Time the byte, bit, delta-decode and tANS-encode kernels of one source tree on one NVIDIA card.
+"""Time the byte, bit, delta and entropy-lane kernels of one source tree on one NVIDIA card.
 
 Usage (on a machine with one CUDA card):
 
@@ -34,7 +34,18 @@ What it times, each kernel first held against ``kernels/ref.py`` bit for bit:
   an input 1 byte into its allocation, each in turns with
   ``t().contiguous()``;
 - K9 tANS encode at 65,536 and at 64 lanes of 1024 symbols (table_log 11);
-- K11 fused delta + bitpack at 8 bits, at chip_smoke's shape.
+- K11 fused delta + bitpack at 8 bits, at chip_smoke's shape;
+- K15 Huffman decode at 16,384 lanes of 4096 (columns A and B) and K10
+  tANS decode at 65,536 lanes of 1024 and their first 16,384 (table_log 11;
+  column D's exponent plane has as many) and at 4096 lanes (table_log 16),
+  on the lanes the tree's own codec writes for chip_smoke's columns (A's
+  4 MiB prefix at table_log 16) through ``delta``, ``transpose`` and the coder;
+  where the tree's K15 copies only its LUT's least period
+  (``ops.huffman_lut_log``), it is also timed in turns with a launch that
+  copies the whole 2^15-entry LUT;
+  and K10 at 64 lanes (table_log 27, 64-bit step entries) on chip_smoke's
+  64 KiB of uniform bytes through ``fse`` alone (its tables take ~45 s to
+  build on the host).
 
 Prints a line per shape, then one JSON object with every number, the card's
 name and power limit as ``nvidia-smi`` gives them, and the label.  Exits
@@ -183,6 +194,8 @@ def main() -> None:
     result["fused_delta_bitpack"] = {"uint32[2^24] at 8 bits": {"ms": f8}}
     print(f"{args.label} fused_delta_bitpack at 8 bits: ms={f8}")
 
+    result.update(entropy_decode_times(args.label, args.seed, ops, ref, check))
+
     result["card"] = cs.nvidia_smi("name,power.limit")
     print(json.dumps(result))
 
@@ -218,6 +231,81 @@ def fse_encode_times(label, ops, ref, gen, check):
         bound = (n_lanes * 1024 * 9 + n_lanes * 8 + (5 * 256 + (1 << 11)) * 4) / cs.HBM_BYTES_PER_S * 1e3
         out[f"{n_lanes} lanes x 1024"] = {"ms": ms, "bound_ms": bound}
         print(f"{label} fse_encode {n_lanes} lanes x 1024: ms={ms} bound_ms={bound}")
+    return out
+
+
+def entropy_decode_times(label, seed, ops, ref, check):
+    """K15 on columns A's and B's lanes and K10 on A's, as the tree's
+    decoders hand them over (``entropy.huffman_lanes`` / ``fse_lanes``), K10
+    also on A's first 16,384 lanes and on ``WIDE_BYTES`` uniform bytes at
+    table_log 27, each held against its plain version, then timed (least of
+    three ``cuda_ms``; K15 in turns with a whole-LUT launch where the tree
+    has one)."""
+    import numpy as np
+    import repro_torch as rt
+    from repro_torch.codecs import entropy
+
+    import chip_smoke as cs
+
+    cols = cs.columns(seed)
+    col_a = cols["A_timestamps_i64"]
+    out = {"huffman_decode": {}, "fse_decode": {}}
+
+    def lanes(codec, col, params=None):
+        step = (codec, params) if params else codec
+        if isinstance(col, bytes):
+            frame = rt.compress(rt.pipeline(step), rt.serial(col), device="cuda")
+        else:
+            frame = rt.compress(rt.pipeline("delta", "transpose", step), rt.numeric(col),
+                                device="cuda")
+        streams = cs.node_streams(frame, codec)
+        return entropy.huffman_lanes(*streams) if codec == "huffman" else entropy.fse_lanes(*streams)
+
+    for cname in ("A_timestamps_i64", "B_zipf_ids_u32"):
+        buf, pos, lut, max_rem, _n, _stype = lanes("huffman", cols[cname])
+        want = ref.huffman_decode_lanes(buf, pos, lut, max_rem)
+        check(ops.huffman_decode(buf, pos, lut, max_rem), want, f"huffman_decode {cname}")
+        key = f"{cname[0]}: {pos.numel()} lanes x {max_rem}"
+        kernel = lambda a=(buf, pos, lut, max_rem): ops.huffman_decode(*a)  # noqa: E731
+        if hasattr(ops, "huffman_lut_log"):
+            whole = lambda a=(buf, pos, lut, max_rem): whole_lut_decode(ops, *a)  # noqa: E731
+            check(whole(), want, f"huffman_decode {cname}, the whole LUT copied")
+            ms, whole_ms = cs.turns_ms(kernel, whole, 20)
+            out["huffman_decode"][key] = {"ms": ms, "whole_lut_ms": whole_ms,
+                                          "lut_log": ops.huffman_lut_log(lut)}
+        else:
+            out["huffman_decode"][key] = {"ms": min(cs.cuda_ms(kernel, 20) for _ in range(3))}
+        print(f"{label} huffman_decode {key}: {json.dumps(out['huffman_decode'][key])}")
+    del cols
+    wide = np.random.default_rng(seed + cs.WIDE_TABLE_LOG).integers(
+        0, 256, cs.WIDE_BYTES, dtype=np.uint8).tobytes()
+    a11, _n, _stype = lanes("fse", col_a)
+    first = (a11[0], *(a[:16384] for a in a11[1:4]), *a11[4:])
+    cases = {"table_log 11": a11, "table_log 11, first lanes": first,
+             "table_log 16": lanes("fse", col_a[: cs.PREFIX_BYTES // 8], {"table_log": 16})[0],
+             f"table_log {cs.WIDE_TABLE_LOG}":
+                 lanes("fse", wide, {"table_log": cs.WIDE_TABLE_LOG})[0]}
+    for name, args in cases.items():
+        check(ops.fse_decode(*args), ref.fse_decode_lanes(*args), f"fse_decode {name}")
+        ms = min(cs.cuda_ms(lambda a=args: ops.fse_decode(*a), 20) for _ in range(3))
+        key = f"{args[2].numel()} lanes x {args[6]}, {name}"
+        out["fse_decode"][key] = {"ms": ms}
+        print(f"{label} fse_decode {key}: ms={ms}")
+    del cases, args
+    entropy._TABLES.clear()  # drop the 2^27-state tables from the table cache
+    return out
+
+
+def whole_lut_decode(ops, buf, pos, lut, max_rem):
+    """K15 as ``ops.huffman_decode`` launches it, but copying all 2^15 LUT
+    entries into each block (a LUT is periodic in its least period, so the
+    result is the same)."""
+    import torch
+
+    out = torch.empty((max_rem, pos.numel()), dtype=torch.uint8, device=buf.device)
+    ops._launched(ops._lib().repro_huffman_decode(
+        buf.data_ptr(), buf.numel(), pos.data_ptr(), lut.data_ptr(), 15, out.data_ptr(),
+        max_rem, pos.numel(), ops._stream(buf)), "huffman_decode")
     return out
 
 

@@ -21,23 +21,84 @@ static inline unsigned int repro_grid(long long n, int threads, long long cap) {
   return (unsigned int)blocks;
 }
 
-// K16's body: the LSB-first 32-bit window of `buf` at bit cursor `bitpos`.
-//
-// Reads the five bytes that straddle the cursor (the caller pads `buf` so
-// that five bytes past every cursor are readable) and stitches them as the
-// reference's lane_refill kernel does.  `(b4 << 1) << (31 - r)` is
-// b4 << (32 - r) written so that it stays defined at r == 0 (a shift by 32 of
-// a 32-bit value is undefined).  K15 (Huffman decode) and K10 (tANS decode)
-// call it for every refill; csrc/lane_refill.cu launches it on its own.
-__device__ __forceinline__ uint32_t refill32(const uint8_t* __restrict__ buf,
-                                             long long bitpos) {
-  const uint8_t* p = buf + (bitpos >> 3);
-  const uint32_t r = (uint32_t)(bitpos & 7);
-  const uint32_t lo = (uint32_t)p[0] | ((uint32_t)p[1] << 8) |
-                      ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
-  const uint32_t b4 = p[4];
-  return (lo >> r) | ((b4 << 1) << (31u - r));
+// cp.async: 16 bytes from global to shared memory, bypassing L1, in groups
+// that a thread commits and waits for (K9's symbol ring, and the K15 and K10
+// lane rings below).  `src_bytes` 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           unsigned src_bytes = 16) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
 }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One entropy lane's bytes, fetched ahead of its decode into a ring of RING
+// 16-byte slots in shared memory (K15 reads its lane forward, K10 backward).
+// The decoders take their bits from it, not from a window gathered at the
+// cursor in device memory (K16's refill32, which runs only in its own launch
+// in csrc/lane_refill.cu).
+//
+// Vector v of the lane is the aligned 16 bytes at v0 + 16v (forward) or
+// v0 - 16v (backward); word d is its word d & 3 (forward) or 3 - (d & 3)
+// (backward), so the words run in the lane's reading order.  Vector v lands
+// in slot v + rot mod RING (backward: the slots in reverse), so word d sits
+// at ring word d + 4 rot mod 4*RING (backward: ~d + 4 rot).  `rot`, the
+// thread's index mod 8, spreads lanes that read the same word of their rings
+// (a warp decoding a run of one symbol does) over the eight 16-byte bank
+// groups of shared memory: a 4-way bank conflict at worst instead of 32.
+//
+// The copies are cp.async issued by the lane's own thread: `fill<N>(keep)`
+// issues up to N more vectors, none past vector keep + RING - 1, so the slot
+// of vector keep - 1 and older ones are reused.  A vector that holds no byte
+// of [lo, hi), the bitstream's allocation, is written as zeros and never
+// read: the read-ahead stays inside the allocation whatever the caller
+// padded, and every bit the decode uses is a bit of the allocation.  The
+// caller commits and waits on a schedule that is the same for every lane of
+// a warp (a warp's loads share one scoreboard, so a lane that waited on its
+// own recent copy would stall the warp for every other lane's).  Word
+// indices are 32-bit: a lane reads less than 16 GiB.
+template <int RING, bool kForward>
+struct LaneRing {
+  uint32_t* words;        // this thread's 4 * RING words
+  const uint8_t* v0;      // the lane's vector 0, 16-byte aligned
+  unsigned rot;           // the slots' rotation, threadIdx.x mod 8
+  unsigned filled;        // vectors issued so far
+
+  template <int N>
+  __device__ __forceinline__ void fill(unsigned keep, const uint8_t* lo, const uint8_t* hi) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (filled < keep + RING) {
+        const uint8_t* a = kForward ? v0 + 16ll * filled : v0 - 16ll * filled;
+        const bool held = a + 16 > lo && a < hi;
+        cp_async16(words + 4 * (((kForward ? filled : ~filled) + rot) & (RING - 1)),
+                   held ? a : lo, held ? 16u : 0u);
+        ++filled;
+      }
+    }
+  }
+
+  // A word's ring index: d (backward: ~d) + 4 rot, so the next word's is
+  // one more (backward: one less); `word` reads it, `word_of` inverts it.
+  __device__ __forceinline__ unsigned index(unsigned d) const {
+    return (kForward ? d : ~d) + 4 * rot;
+  }
+  __device__ __forceinline__ unsigned word_of(unsigned i) const {
+    return kForward ? i - 4 * rot : ~(i - 4 * rot);
+  }
+  __device__ __forceinline__ uint32_t word(unsigned i) const {
+    return words[i & (4 * RING - 1)];
+  }
+};
 
 __device__ __forceinline__ void words_of(const uint4& v, uint32_t* o) {
   o[0] = v.x;

@@ -58,7 +58,9 @@
 #ifndef FSE_SHARED_TABLE  // the largest table held in shared memory, from the build
 #error "fse.cu is built with -DFSE_SHARED_TABLE=<entries> (kernels/_build.py)"
 #endif
-static_assert(FSE_SHARED_TABLE <= (1 << 15), "u16 entries hold X = state + total < 2^16");
+// (K9's u16 entries hold X = state + total < 2^16; K10's u32 entries hold
+// 4 * dec_base above bit 13)
+static_assert(FSE_SHARED_TABLE <= (1 << 15), "a shared table has at most 2^15 entries");
 #define FSE_LANES 128               // lanes (threads) per block
 #define FSE_ROWS 32                 // rows per staged chunk
 #define FSE_RING 4                  // chunks in the symbol ring
@@ -79,20 +81,6 @@ struct FseShared {
   uint8_t spare[2][FSE_ROW_BYTES];  // read, and unused, by the last slot's look-ahead
   // then, for a shared table, total + 1 u16 entries: enc + total, then total
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Copy chunk c (rows hi..hi-FSE_ROWS+1, hi = max_rem-1 - c*FSE_ROWS) of the
 // lanes lane0..lane0+nl-1 into ring slot `slot`: each row as the aligned
@@ -277,107 +265,232 @@ REPRO_API int repro_fse_encode(const void* lanesT, const void* rem, const void* 
                               max_rem, n_lanes, total, (cudaStream_t)stream);
 }
 
-// K10 — tANS (FSE) decode: the forward state walk of every 1024-symbol lane,
-// reading the lane's bits backward from its end.
+// K10 — tANS (FSE) decode: the forward state walk of every lane (1024
+// symbols on the wire), reading the lane's bits backward from its end.
 //
 // Replaces the TPU kernel src/repro/kernels/fse.py, fse_decode_pallas
 // (_decode_kernel), which ran 256 lanes per grid step over per-lane padded
 // buffers built on the host, with int32 cursors.
 //
-// Per step a lane emits dec_sym[state], moves its cursor back by
-// nb = dec_nb[state] bits, takes the 32-bit window there (refill32, the K16
-// body in common.cuh) and steps to dec_base[state] + (window & (2^nb - 1)).
-// A cursor that falls below the lane's start reads the lane's first byte at
-// bit (cursor & 7), as the reference clamps it (max(cursor >> 3, 0)); only
-// the step after a lane's last symbol does that, and its state is unused.
+// Per step (kernels/ref.py fse_decode_lanes) a lane emits dec_sym[state],
+// moves its cursor back by nb = dec_nb[state] bits and steps to
+// dec_base[state] + the nb bits at the cursor (LSB-first).  A cursor that
+// falls below the lane's start reads the lane's first byte at bit
+// (cursor & 7), as the reference clamps it (max(cursor >> 3, 0)); a full lane
+// does that only on the step after its last symbol, whose state is unused,
+// a short lane on every surplus row.
 //
-// Bound: latency.  Each lane is a chain of 1024 dependent table steps.
-// Design: one thread per lane.  The decode tables come as two arrays of
-// 2^table_log entries: the symbols (u8) and nb | dec_base << 5 (u32 up to
-// table_log 26; from table_log 27, where dec_base needs more than 27 bits,
-// u64, so the tables of those frames take 9 bytes a state: 1.125 GiB at
-// table_log 27).  Up to FSE_SHARED_TABLE entries the
-// block merges them into one u32 per state in dynamic shared memory
-// (sym | (nb | dec_base << 5) << 8, which fits up to table_log 19),
-// so a step is one shared-memory load (8 KiB at table_log 11, 128 KiB at
-// table_log 15; above 48 KB the launch sets the attribute).  A larger table
-// is read from global memory, two loads per step, where the L2 holds it
-// (the kernel is templated on where the tables live and on the step entry's
-// width).  Lanes read the concatenated wire bitstream at
-// their own byte offsets (lane_base, the exclusive sum of (bitlen + 7) / 8):
-// every unmasked bit a step uses lies inside its own lane, and the caller
-// pads the tail by 8 bytes.  The output is the (max_rem, n_lanes) plane
-// layout, coalesced per step; K4 puts it back into symbol order.
-template <bool kSharedTable, typename Entry>
-__global__ void fse_decode_kernel(const uint8_t* __restrict__ buf,
-                                  const long long* __restrict__ lane_base,
-                                  const long long* __restrict__ bitlen,
-                                  const int* __restrict__ state0,
-                                  const uint8_t* __restrict__ sym,
-                                  const Entry* __restrict__ nbb,
-                                  uint8_t* __restrict__ out, int max_rem,
-                                  long long n_lanes, int total) {
-  extern __shared__ uint32_t s_tab[];
-  if (kSharedTable) {
-    for (int i = threadIdx.x; i < total; i += blockDim.x)
-      s_tab[i] = (uint32_t)sym[i] | ((uint32_t)nbb[i] << 8);
-    __syncthreads();
-  }
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const uint8_t* lb = buf + lane_base[lane];
-  long long cursor = bitlen[lane];
-  uint32_t state = (uint32_t)state0[lane];
-  uint8_t* o = out + lane;
-  for (int i = 0; i < max_rem; ++i) {
-    Entry e;
-    if (kSharedTable) {
-      const uint32_t packed = s_tab[state];
-      o[(long long)i * n_lanes] = (uint8_t)packed;
-      e = packed >> 8;
-    } else {
-      e = nbb[state];
-      o[(long long)i * n_lanes] = sym[state];
+// Bound: the 65,536-lane main path reads ~31 MB and writes 64 MiB, but each
+// lane is a chain of 1024 dependent steps, so the walk's instructions and
+// their latency set the time.  Design: nothing on a lane's chain reads
+// device memory, unless the table itself lives there.
+// - Bits fetched ahead, as K15 does (huffman.cu): each lane's bytes come,
+//   from its end down, into its LaneRing (common.cuh) of FSE_DEC_RING
+//   16-byte slots by cp.async, topped up every FSE_DEC_ROUND steps.  A copy
+//   of a vector that holds no byte of `buf` writes zeros and reads nothing,
+//   so the read-ahead is clamped to the allocation and the glue's padding
+//   (8 zero bytes, entropy.fse_lanes) is unchanged; the clamped reads below
+//   the lane's start use its first five bytes, read once.
+// - A 64-bit container D holds the bits below the cursor left-aligned (bit
+//   63 is the bit just below it), at least 32 at a step's start; the nb bits
+//   a step takes are D's top nb bits.  When fewer than 32 remain, the ring's
+//   next word (read a step before) goes in under them, without a branch.
+// - The clamp is off the chain: a warp tracks its cursors and selects the
+//   clamped read only in a round where one of its lanes is within 32 bits a
+//   step of its start (found from the ring position once a round).
+// - Up to FSE_SHARED_TABLE entries the block packs each state's entry into
+//   one u32 in shared memory: 31 - nb in bits 0-4, the symbol in bits 5-12
+//   and 4 * dec_base from bit 13 (dec_base < 2^15).  Then a step is one
+//   shared load, a funnel shift of E = D_hi >> 1 by the entry (its low five
+//   bits: 31 - nb, so E >> (31 - nb) is the top nb bits, 0 for nb = 0), and
+//   one multiply-add to the next entry's byte offset; the container's shift
+//   and refill run while the next entry loads.  A larger table is read from
+//   global memory, where the L2 holds it, with its symbol, as int32 entries
+//   nb | dec_base << 5 up to table_log 26 and int64 from 27 (the kernel is
+//   templated on where the tables live and on the entry's width).
+// - Stores go straight from the walk into the (max_rem, n_lanes) plane
+//   layout, 32 contiguous bytes a warp a row; K4 puts them back into symbol
+//   order.
+// - Blocks of 256 lanes, or of 128 where 128-lane blocks are at most one per
+//   SM (repro_fse_decode asks the device for its SM count), so that the
+//   16,384- and 4096-lane launches of the decode path still reach every SM.
+#define FSE_DEC_RING 16    // 16-byte slots in a lane's ring
+#define FSE_DEC_ROUND 8    // steps between two rounds of ring copies
+#define FSE_DEC_PENDING 5  // rounds whose copies may be in flight after a round's wait
+static_assert((4 * FSE_DEC_RING - 11) / FSE_DEC_ROUND >= FSE_DEC_PENDING + 1,
+              "a ring vector must land before a lane can reach it");
+
+template <int kLanes, bool kSharedTable, typename Entry>
+__global__ void __launch_bounds__(kLanes)
+fse_decode_kernel(const uint8_t* __restrict__ buf, long long n_bytes,
+                  const long long* __restrict__ lane_base, const long long* __restrict__ bitlen,
+                  const int* __restrict__ state0, const uint8_t* __restrict__ sym,
+                  const Entry* __restrict__ nbb, uint8_t* __restrict__ out, int max_rem,
+                  long long n_lanes, int total) {
+  constexpr int kRingBytes = kLanes * FSE_DEC_RING * 16;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint8_t* s_tab = smem + kRingBytes;
+  const int t = threadIdx.x;
+  if (kSharedTable)
+    for (int i = t; i < total; i += kLanes) {
+      const uint32_t e = (uint32_t)nbb[i];
+      reinterpret_cast<uint32_t*>(smem + kRingBytes)[i] =
+          (31u - (e & 31u)) | ((uint32_t)sym[i] << 5) | ((e >> 5) << 15);
     }
-    const uint32_t nb = (uint32_t)e & 0x1Fu;
-    cursor -= nb;
-    const uint32_t win = refill32(lb, cursor >= 0 ? cursor : (cursor & 7));
-    state = (uint32_t)(e >> 5) + (win & ((1u << nb) - 1u));
+  const long long lane = (long long)blockIdx.x * kLanes + t;
+  const bool live = lane < n_lanes;
+  const uint8_t* end = buf + n_bytes;
+  const uint8_t* lb = buf + (live ? lane_base[lane] : 0);
+  const long long bl = live ? bitlen[lane] : 0;
+  const uint8_t* top = lb + ((bl - 1) >> 3);  // the byte of the last bit (empty: the one before)
+  LaneRing<FSE_DEC_RING, false> ring{reinterpret_cast<uint32_t*>(smem) + 4 * FSE_DEC_RING * t,
+                                     (const uint8_t*)((uintptr_t)top & ~(uintptr_t)15), t & 7u, 0};
+  if (live) ring.fill<FSE_DEC_RING>(0, buf, end);
+  cp_async_commit();
+  cp_async_wait<0>();
+  if (kSharedTable) __syncthreads();  // the table is in place
+  if (!live) return;
+
+  // the clamped reads: the lane's first five bytes
+  uint32_t f_lo = 0, f_hi = 0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const uint8_t* q = lb + k;
+    const uint32_t b = q >= buf && q < end ? *q : 0u;
+    if (k < 4) f_lo |= b << (8 * k);
+    else f_hi = b;
   }
+  // the container: the bits below the lane's end, left-aligned; the bits
+  // under the avail held ones are zero, and avail stays below 64, so that a
+  // refill is avail |= 32 (one word where two would fill the container)
+  const unsigned excess = 31u - ((((unsigned)(uintptr_t)top & 3u) << 3) | (unsigned)((bl - 1) & 7));
+  unsigned d = 3u - (unsigned)(((uintptr_t)top & 15) >> 2);  // the ring word of the last bit
+  const uint32_t w0 = ring.word(ring.index(d));
+  const uint32_t w1 = excess ? ring.word(ring.index(d + 1)) : 0u;
+  uint32_t Dhi = __funnelshift_l(w1, w0, excess), Dlo = w1 << excess;
+  int avail = excess ? 64 - (int)excess : 32;
+  unsigned wi = ring.index(d + (excess ? 2 : 1));
+  uint32_t w_next = ring.word(wi);
+  // the cursor, from where the container's lowest bit lies: word d - 1, at
+  // v0 + 16 - 4d, was the last to go in
+  const long long c_base = 8 * (ring.v0 - lb + 16);
+  const auto cursor = [&]() { return c_base - 32ll * ring.word_of(wi) + avail; };
+  long long c = bl;
+  uint32_t state = (uint32_t)state0[lane] * (kSharedTable ? 4u : 1u);  // shared: a byte offset
+  uint8_t* o = out + lane;
+
+  // Step j of a round, without a branch: every step reads the ring's next
+  // word for the next one.  `clamp`: the cursor may fall below the lane's
+  // start within this round, so it is tracked and the clamped read selected.
+  auto step = [&](int j, const bool clamp) {
+    uint32_t nb, t_nb, symbol, base;
+    if constexpr (kSharedTable) {
+      const uint32_t e = *reinterpret_cast<const uint32_t*>(s_tab + state);
+      t_nb = e;  // 31 - nb in the low five bits
+      nb = ~e & 31u;
+      symbol = e >> 5;  // the store keeps its low byte
+      base = e >> 13;   // 4 * dec_base
+    } else {
+      const Entry e = nbb[state];
+      nb = (uint32_t)e & 31u;
+      t_nb = ~nb;  // 31 - nb mod 32
+      symbol = sym[state];
+      base = (uint32_t)(e >> 5);
+    }
+    // E >> (31 - nb), E = D_hi >> 1: the top nb bits of D (0 for nb = 0)
+    uint32_t value = __funnelshift_r(Dhi >> 1, 0u, t_nb);
+    if (clamp) {
+      c -= nb;
+      if (c < 0) value = __funnelshift_r(f_lo, f_hi, (uint32_t)c & 7u) & ((1u << nb) - 1u);
+    }
+    state = base + (kSharedTable ? value << 2 : value);
+    Dhi = __funnelshift_l(Dlo, Dhi, nb);  // D <<= nb
+    Dlo <<= nb;
+    avail -= (int)nb;
+    const uint32_t w = avail < 32 ? w_next : 0u;  // a refill, under the held bits
+    Dlo |= __funnelshift_l(0u, w, (unsigned)-avail);  // w << (32 - avail)
+    Dhi |= __funnelshift_r(w, 0u, avail);             // w >> avail
+    wi -= avail < 32;
+    avail |= 32;
+    w_next = ring.word(wi);
+    o[(long long)j * n_lanes] = (uint8_t)symbol;
+  };
+
+  int i = 0;
+  for (; i + FSE_DEC_ROUND <= max_rem; i += FSE_DEC_ROUND) {
+    if (i) {
+      ring.fill<FSE_DEC_ROUND / 4>(ring.word_of(wi) >> 2, buf, end);
+      cp_async_commit();
+      cp_async_wait<FSE_DEC_PENDING>();
+    }
+    // a round takes at most 30 * FSE_DEC_ROUND bits; the warp clamps if one
+    // of its lanes may reach its start
+    c = cursor();
+    if (__any_sync(__activemask(), c < 32 * FSE_DEC_ROUND)) {
+#pragma unroll
+      for (int j = 0; j < FSE_DEC_ROUND; ++j) step(j, true);
+    } else {
+#pragma unroll
+      for (int j = 0; j < FSE_DEC_ROUND; ++j) step(j, false);
+    }
+    o += (long long)FSE_DEC_ROUND * n_lanes;
+  }
+  c = cursor();
+  for (; i < max_rem; ++i, o += n_lanes) step(0, true);
 }
 
-template <bool kSharedTable, typename Entry>
-static int launch_decode(const void* buf, const void* lane_base, const void* bitlen,
-                         const void* state0, const void* sym, const void* nbb, void* out,
-                         int max_rem, long long n_lanes, int total, cudaStream_t stream) {
-  const int threads = 128;
-  const size_t smem = kSharedTable ? (size_t)total * sizeof(uint32_t) : 0;
-  cudaError_t err = cudaFuncSetAttribute(fse_decode_kernel<kSharedTable, Entry>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int kLanes, bool kSharedTable, typename Entry>
+static int launch_decode(const void* buf, long long n_bytes, const void* lane_base,
+                         const void* bitlen, const void* state0, const void* sym,
+                         const void* nbb, void* out, int max_rem, long long n_lanes, int total,
+                         cudaStream_t stream) {
+  constexpr int kRingBytes = kLanes * FSE_DEC_RING * 16;
+  const size_t smem = kRingBytes + (kSharedTable ? (size_t)total * sizeof(uint32_t) : 0);
+  // the limit for the largest shared table; a launch takes what its table needs
+  cudaError_t err = cudaFuncSetAttribute(
+      fse_decode_kernel<kLanes, kSharedTable, Entry>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kRingBytes + (kSharedTable ? FSE_SHARED_TABLE * (int)sizeof(uint32_t) : 0));
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_lanes + threads - 1) / threads;
-  if (blocks < 1 || blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  fse_decode_kernel<kSharedTable, Entry><<<(unsigned int)blocks, threads, smem, stream>>>(
-      (const uint8_t*)buf, (const long long*)lane_base, (const long long*)bitlen,
-      (const int*)state0, (const uint8_t*)sym, (const Entry*)nbb, (uint8_t*)out,
-      max_rem, n_lanes, total);
+  const long long blocks = (n_lanes + kLanes - 1) / kLanes;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  fse_decode_kernel<kLanes, kSharedTable, Entry><<<(unsigned int)blocks, kLanes, smem, stream>>>(
+      (const uint8_t*)buf, n_bytes, (const long long*)lane_base, (const long long*)bitlen,
+      (const int*)state0, (const uint8_t*)sym, (const Entry*)nbb, (uint8_t*)out, max_rem,
+      n_lanes, total);
   return (int)cudaGetLastError();
 }
 
 // entry_bytes is 4 (nb | dec_base << 5 in a u32, table_log <= 26) or 8 (u64)
-REPRO_API int repro_fse_decode(const void* buf, const void* lane_base, const void* bitlen,
-                               const void* state0, const void* sym, const void* nbb,
-                               void* out, int max_rem, long long n_lanes, int total,
-                               int entry_bytes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+template <int kLanes>
+static int decode_tables(const void* buf, long long n_bytes, const void* lane_base,
+                         const void* bitlen, const void* state0, const void* sym,
+                         const void* nbb, void* out, int max_rem, long long n_lanes, int total,
+                         int entry_bytes, cudaStream_t s) {
   if (entry_bytes == 8)
-    return launch_decode<false, unsigned long long>(buf, lane_base, bitlen, state0, sym,
-                                                    nbb, out, max_rem, n_lanes, total, s);
+    return launch_decode<kLanes, false, unsigned long long>(
+        buf, n_bytes, lane_base, bitlen, state0, sym, nbb, out, max_rem, n_lanes, total, s);
   if (entry_bytes != 4) return (int)cudaErrorInvalidValue;
   if (total <= FSE_SHARED_TABLE)
-    return launch_decode<true, uint32_t>(buf, lane_base, bitlen, state0, sym, nbb, out,
-                                         max_rem, n_lanes, total, s);
-  return launch_decode<false, uint32_t>(buf, lane_base, bitlen, state0, sym, nbb, out,
-                                        max_rem, n_lanes, total, s);
+    return launch_decode<kLanes, true, uint32_t>(buf, n_bytes, lane_base, bitlen, state0, sym,
+                                                 nbb, out, max_rem, n_lanes, total, s);
+  return launch_decode<kLanes, false, uint32_t>(buf, n_bytes, lane_base, bitlen, state0, sym,
+                                                nbb, out, max_rem, n_lanes, total, s);
+}
+
+REPRO_API int repro_fse_decode(const void* buf, long long n_bytes, const void* lane_base,
+                               const void* bitlen, const void* state0, const void* sym,
+                               const void* nbb, void* out, int max_rem, long long n_lanes,
+                               int total, int entry_bytes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (max_rem < 1 || n_lanes < 1 || n_bytes < 1) return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_lanes <= 128LL * sms)
+    return decode_tables<128>(buf, n_bytes, lane_base, bitlen, state0, sym, nbb, out, max_rem,
+                              n_lanes, total, entry_bytes, s);
+  return decode_tables<256>(buf, n_bytes, lane_base, bitlen, state0, sym, nbb, out, max_rem,
+                            n_lanes, total, entry_bytes, s);
 }

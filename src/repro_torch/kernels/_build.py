@@ -56,8 +56,8 @@ SIGNATURES = {
     "repro_delta_decode_scratch": [_I64, _I32],
     "repro_delta_decode": [_P, _P, _P, _I64, _I64, _I32, _P],
     "repro_byteunshuffle": [_P, _P, _I64, _I64, _P],
-    "repro_huffman_decode": [_P, _P, _P, _P, _I32, _I64, _P],
-    "repro_fse_decode": [_P] * 7 + [_I32, _I64, _I32, _I32, _P],
+    "repro_huffman_decode": [_P, _I64, _P, _P, _I32, _P, _I32, _I64, _P],
+    "repro_fse_decode": [_P, _I64] + [_P] * 6 + [_I32, _I64, _I32, _I32, _P],
     "repro_lane_refill": [_P, _P, _P, _I64, _P],
     "repro_float_split": [_P] * 4 + [_I64] + [_I32] * 5 + [_P],
     "repro_float_merge": [_P] * 4 + [_I64] + [_I32] * 5 + [_P],

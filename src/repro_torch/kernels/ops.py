@@ -30,8 +30,8 @@ Kernels and the TPU kernels they replace:
   ``lane_refill``                 ``lane_refill.py`` ``lane_refill_pallas`` (K16)
   ==============================  ======================================================================
 
-K16's body is the ``__device__`` function ``refill32`` (``csrc/common.cuh``)
-that K15 and K10 call at every step; ``lane_refill`` launches it on its own.
+K16's body, ``refill32``, runs only in its own launch (``csrc/lane_refill.cu``):
+K15 and K10 fetch each lane's bytes ahead of their walk instead.
 """
 from __future__ import annotations
 
@@ -49,6 +49,7 @@ KERNELS = (
     "bitpack", "bitunpack", "fused_delta_bitpack", "fused_delta_bitpack_decode",
 )
 HUFFMAN_LUT_ENTRIES = 1 << 15
+MAX_CODE_LEN = 15
 
 
 def _lib():
@@ -314,7 +315,8 @@ def huffman_decode(
     ``buf`` is the uint8 bitstream padded with zeros past every cursor (the
     decoder pads by 16 + (15 * max_rem + 7) // 8 bytes), ``pos`` the lanes'
     int64 first bits, ``lut`` the int16 decode LUT of 2^15 entries
-    (``ref.pack_huffman_lut``).
+    (``ref.pack_huffman_lut``).  The kernel copies only the LUT's least
+    period into each block (:func:`huffman_lut_log`).
     """
     if buf.dim() != 1 or pos.dim() != 1 or lut.shape != (HUFFMAN_LUT_ENTRIES,):
         raise ValueError("huffman_decode: 1-D buffer and cursors, 2^15-entry LUT expected")
@@ -332,8 +334,8 @@ def huffman_decode(
     if n_lanes and max_rem:
         _launched(
             _lib().repro_huffman_decode(
-                buf.data_ptr(), pos.data_ptr(), lut.data_ptr(), out.data_ptr(),
-                max_rem, n_lanes, _stream(buf),
+                buf.data_ptr(), buf.numel(), pos.data_ptr(), lut.data_ptr(),
+                max(huffman_lut_log(lut), 3), out.data_ptr(), max_rem, n_lanes, _stream(buf),
             ),
             "huffman_decode",
         )
@@ -342,6 +344,29 @@ def huffman_decode(
 
 
 huffman_decode.launches = 0
+
+
+def huffman_lut_log(lut: torch.Tensor) -> int:
+    """The least p with ``lut[i] == lut[i % 2^p]`` for every i.
+
+    A canonical LSB-first LUT whose longest code has L bits has p <= L, so
+    K15 copies only its first 2^p entries.  Raises ``ValueError`` for an
+    entry whose length is above 15 (the kernel shifts by an entry's low five
+    bits).  Found once per LUT tensor, with one synchronisation, and kept on
+    the tensor until it is written to.
+    """
+    known = getattr(lut, "_repro_lut_log", None)
+    if known is not None and known[0] == lut._version:
+        return known[1]
+    lengths = (lut.to(torch.int32) & 0xFFFF) >> 8
+    checks = [lengths.max() <= MAX_CODE_LEN]
+    checks += [(lut.view(-1, 1 << p) == lut[: 1 << p]).all() for p in range(16)]
+    ok, *periodic = torch.stack(checks).tolist()
+    if not ok:
+        raise ValueError(f"huffman_decode: a LUT entry's length is above {MAX_CODE_LEN}")
+    log = periodic.index(True)
+    lut._repro_lut_log = (lut._version, log)
+    return log
 
 
 # ----------------------------------------------------------- K10 tANS decode
@@ -389,9 +414,9 @@ def fse_decode(
     if n_lanes and max_rem:
         _launched(
             _lib().repro_fse_decode(
-                buf.data_ptr(), lane_base.data_ptr(), bitlen.data_ptr(), state0.data_ptr(),
-                sym.data_ptr(), nbb.data_ptr(), out.data_ptr(), max_rem, n_lanes, total,
-                nbb.element_size(), _stream(buf),
+                buf.data_ptr(), buf.numel(), lane_base.data_ptr(), bitlen.data_ptr(),
+                state0.data_ptr(), sym.data_ptr(), nbb.data_ptr(), out.data_ptr(), max_rem,
+                n_lanes, total, nbb.element_size(), _stream(buf),
             ),
             "fse_decode",
         )
