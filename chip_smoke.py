@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              and with lanes of length 1 and 2 and a short last lane, timed
              at both lane counts; float split on columns
              C's and D's shapes, the histogram on column A's 2^26-byte
-             transposed stream, beside ``torch.bincount``), the decode
+             transposed stream, uniform bytes, C's exponent plane, 2^26
+             equal bytes and a 64 KiB trial's sample (one launch a call),
+             beside ``torch.bincount``, and at every size up to 64 bytes,
+             64 KiB and past it from byte offsets 0-15 of a view, and on
+             2^32 + 17 equal bytes), the decode
              kernels (delta decode on A's and B's deltas, in turns with
              ``torch.cumsum`` (``dtype=torch.int32`` on B's carrier), then
              at widths 1, 2, 4 and 8 on ragged sizes and around its tile,
@@ -36,7 +40,8 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              tables with 15-bit codes, codes of at most 8 bits and one
              symbol, and tANS decode on 1000 lanes of 1 (no bits), 2, 517
              and 1024 symbols at table_log 5, 11, 15 and 16; the lane
-             refill, float merge on C's and D's planes, and
+             refill (65,536 and 2^24 cursors), float merge on C's and D's
+             planes, and
              byte unshuffle on A's and B's planes and both decoders' lanes,
              and at a ragged size of each regime, (8, 2^23 - 8) and
              (4096, 16383), each timed in turns with ``t().contiguous()``
@@ -50,7 +55,10 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              allocation), then timed on column G at 4 bits and on B's
              deltas at 32 bits (both in turns with a clone, K5 also at 8 and
              16 bits), and fused delta + bitpack and its decode (K11, K12)
-             at every bits on ragged sizes, then timed on column F at 8 bits.  tANS at
+             at every bits on ragged sizes (K12 also at every bits and
+             width around its tile, from words 0-3 words in, and 50 times
+             back to back on 2^26 and 2^28 values), then timed on column F
+             at 8 bits.  tANS at
              table_log 16, whose tables the kernels read from global memory,
              is checked on a 4 MiB prefix, and at table_log 27, whose decode
              step entries are 64-bit, on 64 KiB of uniform random bytes: the
@@ -187,12 +195,25 @@ FSE_DECODE_TABLE_LOGS = (5, 11, 15, 16)
 # run as many times on column A's streams
 CONTENTION_RUNS = 50
 CONTENTION_LOG_SIZES = (26, 28)
+# K13's sweep: every size up to 64 bytes, a 64 KiB selector trial's sample,
+# and sizes past it at which the card takes one block of its large
+# configuration, then several, then all it holds at once, each from byte
+# offsets 0-15 of a view; single-value streams past the one-block size; a
+# single-value stream of 2^32 + 17 bytes (a bin above 2^32) from byte 1 of
+# its buffer; and the ms of a 64 KiB trial's call
+HIST_SMALL_SIZES = tuple(range(65)) + (1 << 16, (1 << 16) + 16, (1 << 18) + 17, (1 << 25) + 5)
+HIST_HUGE = (1 << 32) + 17
+TRIAL_BYTES = 1 << 16
 # the port's kernels in a profile (their CUDA function names), and the host
 # stages whose cumulative time the profile phase prints: selector trials,
 # the host codecs, and the frame's trip through the host
 PORT_KERNEL = re.compile(
     r"(?:void )?((?:delta|byte(?:un)?shuffle|huffman|fse|lane_refill|float_split|float_merge"
-    r"|histogram|bit(?:un)?pack|fused_delta_bitpack|fdb)_\w*)")
+    r"|histogram|bit(?:un)?pack|fused_delta_bitpack|fdb)_\w*)(<HConfig<\d+, \d+> >)?")
+# K13's configurations, by the template argument in its kernel's name: one
+# block for up to 64 KiB (the selector trials' samples), a grid above
+HIST_CONFIGS = {"<HConfig<1, 8> >": "histogram_kernel (one block, <= 64 KiB)",
+                "<HConfig<2, 16> >": "histogram_kernel (grid, > 64 KiB)"}
 HOST_STAGES = ("choose_best", "_lz77_enc", "_lz77_dec", "_zlib_enc", "_zlib_dec",
                "_lzma_enc", "_lzma_dec", "_bz2_enc", "_bz2_dec", "write_frame", "read_frame")
 COLUMN_BYTES = 64 << 20
@@ -427,15 +448,23 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         f32_bound_ms=tensor_bytes(col_d, *split_d) / HBM_BYTES_PER_S * 1e3)
 
     # K13 histogram: column A's delta + transposed stream (2^26 bytes, the
-    # high planes nearly all one value), uniform random bytes, and column C's
-    # exponent plane; timed beside torch.bincount, its plain version
+    # high planes nearly all one value), uniform random bytes, column C's
+    # exponent plane and a single-value stream, then a 64 KiB selector
+    # trial's sample of A's stream; timed beside torch.bincount, its plain
+    # version, and held against it on the sweep of histogram_sweep
     a_stream = ops.byteshuffle(ops.delta_encode(col_a).view(torch.uint8).view(-1, 8)).reshape(-1)
     uniform = torch.from_numpy(
         np.random.default_rng(seed).integers(0, 256, a_stream.numel(), dtype=np.uint8)).to(dev)
     exp_c = split_c[1]
-    hist_inputs = [a_stream, uniform, exp_c, a_stream[3:-5]]
+    single = torch.full_like(a_stream, 7)
+    trial = a_stream[:TRIAL_BYTES]
+    hist_inputs = [a_stream, uniform, exp_c, single, trial, a_stream[3:-5]]
     err = max_abs_err([ops.histogram(x) for x in hist_inputs],
                       [ref.histogram_exact(x) for x in hist_inputs])
+    err = max(err, histogram_sweep(ops, ref, seed))
+    ops.reset_launches()
+    ops.histogram(trial)
+    trial_launches = ops.histogram.launches
     row("histogram", "src/repro_torch/csrc/histogram.cu", "src/repro/kernels/histogram.py:38",
         err, cuda_ms(lambda: ops.histogram(a_stream), 20),
         cuda_ms(lambda: ref.histogram_exact(a_stream), 20),
@@ -445,7 +474,17 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         uniform_ms=cuda_ms(lambda: ops.histogram(uniform), 20),
         uniform_bincount_ms=cuda_ms(lambda: torch.bincount(uniform, minlength=256), 20),
         bf16_exponent_ms=cuda_ms(lambda: ops.histogram(exp_c), 20),
-        bf16_exponent_bincount_ms=cuda_ms(lambda: torch.bincount(exp_c, minlength=256), 20))
+        bf16_exponent_bincount_ms=cuda_ms(lambda: torch.bincount(exp_c, minlength=256), 20),
+        bf16_exponent_bound_ms=(exp_c.numel() + 256 * 8) / HBM_BYTES_PER_S * 1e3,
+        single_value_ms=cuda_ms(lambda: ops.histogram(single), 20),
+        trial_ms=cuda_ms(lambda: ops.histogram(trial), 20),
+        trial_ms_one_call=cuda_ms(lambda: ops.histogram(trial), 1),
+        trial_bincount_ms=cuda_ms(lambda: torch.bincount(trial, minlength=256), 20),
+        trial_bound_ms=(TRIAL_BYTES + 256 * 8) / HBM_BYTES_PER_S * 1e3,
+        trial_launches_per_call=trial_launches)
+    if trial_launches != 1:
+        fail(f"histogram: a 64 KiB trial's call launched {trial_launches} kernels, not 1")
+    del single
 
     # K2 delta decode: the inverse of K1 on both columns' widths, each timed
     # in turns with the one cumsum call that computes the same function (on
@@ -598,16 +637,23 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         f32_plain_ms=cuda_ms(lambda: ref.float_merge(*split_d, 2), 5),
         f32_bound_ms=tensor_bytes(col_d, *split_d) / HBM_BYTES_PER_S * 1e3)
 
-    # K16 lane refill on 65,536 cursors into column A's Huffman bitstream
+    # K16 lane refill on 65,536 cursors into column A's Huffman bitstream,
+    # and on 2^24, where its bytes and not the launch set its time
     rng = np.random.default_rng(seed)
     cursors = torch.from_numpy(rng.integers(0, 8 * (stream_bytes - 16), 1 << 16)).to(dev)
-    err = max_abs_err([ops.lane_refill(buf, cursors)], [ref.lane_refill(buf, cursors)])
+    many = torch.from_numpy(rng.integers(0, 8 * (stream_bytes - 16), 1 << 24)).to(dev)
+    err = max_abs_err([ops.lane_refill(buf, c) for c in (cursors, many)],
+                      [ref.lane_refill(buf, c) for c in (cursors, many)])
     row("lane_refill", "src/repro_torch/csrc/lane_refill.cu",
         "src/repro/kernels/lane_refill.py:39",
         err, cuda_ms(lambda: ops.lane_refill(buf, cursors), 20),
         cuda_ms(lambda: ref.lane_refill(buf, cursors), 20),
         cursors.numel() * (8 + 5 + 4), cursors.numel() * 8, None,
-        runs_inside=[])
+        runs_inside=[],
+        cursors_2_24_ms=cuda_ms(lambda: ops.lane_refill(buf, many), 20),
+        cursors_2_24_plain_ms=cuda_ms(lambda: ref.lane_refill(buf, many), 2),
+        cursors_2_24_bound_ms=many.numel() * (8 + 5 + 4) / HBM_BYTES_PER_S * 1e3)
+    del many
 
     bitpack_rows(cols, ops, ref, seed, row)
     for r in rows:
@@ -887,6 +933,94 @@ def delta_decode_sweep(ops, ref, seed) -> float:
     return err
 
 
+def histogram_sweep(ops, ref, seed) -> float:
+    """K13 against ``ref.histogram_exact``: every size of ``HIST_SMALL_SIZES``
+    from byte offsets 0-15 of a view (the unaligned head and tail, the
+    one-block trial grid, and the large configuration at one block, several
+    and every block the card holds); single-value streams of the last three
+    sizes in bins 0 and 255; and a single-value stream of ``HIST_HUGE``
+    bytes, one bin above 2^32, from byte 1 of its buffer.  (The grid keeps a
+    block's counts under 2^32, so on an 80 GB card no counter comes near
+    its cap: that takes 2^32 bytes a block, past 500 GB at one block an SM.)"""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    buf = torch.randint(0, 256, (HIST_SMALL_SIZES[-1] + 16,), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    err = 0.0
+    for n in HIST_SMALL_SIZES:
+        for offset in range(16):
+            x = buf[offset: offset + n]
+            err = max(err, max_abs_err([ops.histogram(x)], [ref.histogram_exact(x)]))
+    for value in (0, 255):
+        buf.fill_(value)
+        for n in HIST_SMALL_SIZES[-3:]:
+            x = buf[1: 1 + n]
+            err = max(err, max_abs_err([ops.histogram(x)], [ref.histogram_exact(x)]))
+    del buf, x
+    huge = torch.full((HIST_HUGE + 1,), 200, dtype=torch.uint8, device="cuda")[1:]
+    got = ops.histogram(huge)
+    err = max(err, max_abs_err([got], [chunked_histogram(ref, huge)]))
+    if int(got[200]) != HIST_HUGE:
+        fail(f"histogram: bin 200 of {HIST_HUGE} equal bytes counts {int(got[200])}")
+    del huge
+    print(f"check histogram: n 0-64 and {HIST_SMALL_SIZES[65:]} x byte offsets 0-15; single"
+          f" values (bins 0, 255) at {HIST_SMALL_SIZES[-3:]}; {HIST_HUGE} equal bytes from"
+          f" byte 1: max_abs_err={err}")
+    return err
+
+
+def chunked_histogram(ref, x):
+    """``ref.histogram_exact`` of x, summed over pieces of 2^30 bytes."""
+    return sum(ref.histogram_exact(x[i: i + (1 << 30)]) for i in range(0, x.numel(), 1 << 30))
+
+
+def fdb_decode_sweep(ops, ref, seed) -> float:
+    """K12 against ``ref.fused_delta_bitpack_decode`` at every bits of
+    ``ref.PACK_BITS`` and width 1, 2 and 4, at n around the tile
+    (``ops.fused_delta_bitpack_decode_tile``: one word's values and one value
+    on either side of one and two tiles, and inside the first tile at its
+    quarters, where the runs of a tile's sub-tiles meet), from words 0-3 words into their
+    buffer, on random words, so the sums wrap; then ``CONTENTION_RUNS`` runs
+    back to back at 2^26 and 2^28 values (8 bits to uint8), every result
+    equal."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    err = 0.0
+    tiles = {}
+    for width in (1, 2, 4):
+        for bits in ref.PACK_BITS:
+            per = 32 // bits
+            t = tiles[f"{bits}->{width}"] = ops.fused_delta_bitpack_decode_tile(width, bits)
+            for n in (1, per, t // 4 - 1, t // 2 + 1, 3 * t // 4 + per, t - per, t - 1, t,
+                      t + 1, t + per, 2 * t - 1, 2 * t + per + 1):
+                m = -(-n // per)
+                buf = torch.randint(-(1 << 31), 1 << 31, (m + 3,), dtype=torch.int64,
+                                    device="cuda", generator=gen).to(torch.int32)
+                for offset in range(4):
+                    w = buf[offset: offset + m]
+                    err = max(err, max_abs_err(
+                        [ops.fused_delta_bitpack_decode(w, bits, n, width)],
+                        [ref.fused_delta_bitpack_decode(w, bits, n, width)]))
+    for log_n in CONTENTION_LOG_SIZES:
+        n = 1 << log_n
+        w = torch.randint(-(1 << 31), 1 << 31, (n // 4,), dtype=torch.int64, device="cuda",
+                          generator=gen).to(torch.int32)
+        err = max(err, back_to_back("fused_delta_bitpack_decode",
+                                    lambda: ops.fused_delta_bitpack_decode(w, 8, n, 1),
+                                    ref.fused_delta_bitpack_decode(w, 8, n, 1),
+                                    f"2^{log_n} values at 8 bits"))
+        del w
+    print(f"check fused_delta_bitpack_decode: bits {ref.PACK_BITS} x widths (1, 2, 4) around"
+          f" the tiles {json.dumps(tiles)}, from words 0-3 words in; {CONTENTION_RUNS} runs"
+          f" back to back at 2^{CONTENTION_LOG_SIZES[0]} and 2^{CONTENTION_LOG_SIZES[1]}"
+          f" values: max_abs_err={err}")
+    return err
+
+
 def bitpack_rows(cols, ops, ref, seed, row) -> None:
     """K5, K6, K11 and K12: every bits and stream width on small ragged
     sizes, then timed at the main path's shapes (G at 4 bits and B's deltas
@@ -934,6 +1068,8 @@ def bitpack_rows(cols, ops, ref, seed, row) -> None:
                         errs["bitunpack"] = max(errs["bitunpack"], max_abs_err(
                             [ops.bitunpack(view, bits, n, out_width)],
                             [ref.bitunpack(view, bits, n, out_width)]))
+    errs["fused_delta_bitpack_decode"] = max(errs["fused_delta_bitpack_decode"],
+                                             fdb_decode_sweep(ops, ref, seed))
     print(f"check bit packing: bits {ref.PACK_BITS} x widths (1, 2, 4) x n {RAGGED_SIZES},"
           f" aligned and offset, bitunpack also from words 1-3 words in: {json.dumps(errs)}")
 
@@ -991,7 +1127,8 @@ def bitpack_rows(cols, ops, ref, seed, row) -> None:
         cuda_ms(lambda: ops.fused_delta_bitpack_decode(f_words, 8, n_f, 4), 20),
         cuda_ms(lambda: ref.fused_delta_bitpack_decode(f_words, 8, n_f, 4), 5),
         f_bytes, 2 * n_f, None,
-        shape=f"int32[{f_words.numel()}] at 8 bits -> uint32 (column F)")
+        shape=f"int32[{f_words.numel()}] at 8 bits -> uint32 (column F)",
+        tile_values=ops.fused_delta_bitpack_decode_tile(4, 8))
 
 
 def tensor_bytes(*tensors) -> int:
@@ -1228,6 +1365,12 @@ def profile_call(label: str, fn) -> dict:
         m = PORT_KERNEL.match(k)
         if m:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms
+    for e in prof.key_averages():  # launches and ms of K13's two configurations
+        m = PORT_KERNEL.match(e.key) if e.device_type == DeviceType.CUDA else None
+        if m and m.group(2) in HIST_CONFIGS:
+            name = HIST_CONFIGS[m.group(2)]
+            ours[name] = ours.get(name, 0.0) + e.self_device_time_total / 1e3
+            ours[name + " launches"] = ours.get(name + " launches", 0) + e.count
     print(f"profile {label}: wall_ms={wall_ms} device_busy_ms={busy_ms}"
           f" idle_share={1 - busy_ms / wall_ms} top_device_ms: {top}"
           f" port_kernels_ms: {json.dumps(ours)}")

@@ -1,4 +1,4 @@
-"""Time the byte, bit, delta and entropy-lane kernels of one source tree on one NVIDIA card.
+"""Time the byte, bit, delta, histogram and entropy-lane kernels of one source tree on one NVIDIA card.
 
 Usage (on a machine with one CUDA card):
 
@@ -35,6 +35,16 @@ What it times, each kernel first held against ``kernels/ref.py`` bit for bit:
   ``t().contiguous()``;
 - K9 tANS encode at 65,536 and at 64 lanes of 1024 symbols (table_log 11);
 - K11 fused delta + bitpack at 8 bits, at chip_smoke's shape;
+- K12 fused delta + bitpack decode on column F's shape (2^22 words at 8
+  bits to uint32[2^24], the words K11 packs from string offsets), from
+  words 1 word into their allocation, and on random words at every bits to
+  2^24 uint32 and uint8 values, each beside its bound;
+- K13 histogram on a 64 KiB selector trial's sample of column A's delta +
+  transposed stream, on the whole 2^26-byte stream, on 2^26 uniform bytes,
+  on column C's bfloat16 exponent plane (2^25 bytes) and on 2^26 equal
+  bytes, each timed as one ``ops.histogram`` call (any fill the wrapper
+  launches included); for the trial's call and K12's, the device
+  operations of one call (kernels and memsets, from ``torch.profiler``);
 - K15 Huffman decode at 16,384 lanes of 4096 (columns A and B) and K10
   tANS decode at 65,536 lanes of 1024 and their first 16,384 (table_log 11;
   column D's exponent plane has as many) and at 4096 lanes (table_log 16),
@@ -194,10 +204,91 @@ def main() -> None:
     result["fused_delta_bitpack"] = {"uint32[2^24] at 8 bits": {"ms": f8}}
     print(f"{args.label} fused_delta_bitpack at 8 bits: ms={f8}")
 
+    result.update(hist_fdb_times(args.label, args.seed, ops, ref, gen, check))
     result.update(entropy_decode_times(args.label, args.seed, ops, ref, check))
 
     result["card"] = cs.nvidia_smi("name,power.limit")
     print(json.dumps(result))
+
+
+def device_ops(fn) -> dict:
+    """The device operations (kernels, memsets) of one call of ``fn``, by
+    name, from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key != "Activity Buffer Request"}
+
+
+def hist_fdb_times(label, seed, ops, ref, gen, check):
+    """K13 and K12 at the shapes of the module docstring, each held against
+    its plain version, then timed (least of three ``cuda_ms``)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+
+    dev = "cuda"
+    best = lambda fn: min(cs.cuda_ms(fn, 20) for _ in range(3))  # noqa: E731
+    rng = np.random.default_rng(seed)
+    col_a = torch.from_numpy(cs.timestamps(rng, cs.COLUMN_BYTES // 8)).to(dev)
+    a_stream = ops.byteshuffle(ops.delta_encode(col_a).view(torch.uint8).view(-1, 8)).reshape(-1)
+    w32 = rng.normal(0.0, 0.02, cs.COLUMN_BYTES // 2).astype(np.float32)
+    bf16 = torch.from_numpy(w32).to(torch.bfloat16).view(torch.int16).to(dev)
+    shapes = {
+        "64 KiB trial of A": a_stream[: cs.TRIAL_BYTES],
+        "A uint8[2^26]": a_stream,
+        "uniform uint8[2^26]": torch.randint(0, 256, (1 << 26,), dtype=torch.uint8, device=dev,
+                                             generator=gen),
+        "C exponent uint8[2^25]": ops.float_split(bf16, 0)[1],
+        "one value uint8[2^26]": torch.full((1 << 26,), 7, dtype=torch.uint8, device=dev),
+    }
+    del col_a, bf16
+    hist = {}
+    for key, x in shapes.items():
+        check(ops.histogram(x), ref.histogram_exact(x), f"histogram {key}")
+        hist[key] = {"ms": best(lambda x=x: ops.histogram(x)),
+                     "bound_ms": (x.numel() + 256 * 8) / cs.HBM_BYTES_PER_S * 1e3}
+        print(f"{label} histogram {key}: {json.dumps(hist[key])}")
+    trial = shapes["64 KiB trial of A"]
+    hist["64 KiB trial of A"]["device_ops"] = device_ops(lambda: ops.histogram(trial))
+    print(f"{label} histogram trial device ops: {hist['64 KiB trial of A']['device_ops']}")
+    del shapes, trial, a_stream
+
+    offsets = torch.cumsum(torch.randint(0, 256, (1 << 24,), dtype=torch.int64, device=dev,
+                                         generator=gen), 0).to(torch.int32)
+    f_words = ops.fused_delta_bitpack(offsets, 8)
+    shifted = torch.cat([f_words[:1], f_words])[1:]
+    n = offsets.numel()
+    cases = {"F: 8 bits -> uint32[2^24]": (f_words, 8, 4),
+             "F: 8 bits -> uint32[2^24], words +1 word": (shifted, 8, 4)}
+    for bits in ref.PACK_BITS:
+        words = torch.randint(-(1 << 31), 1 << 31, (n * bits // 32,), dtype=torch.int64,
+                              device=dev, generator=gen).to(torch.int32)
+        for width in (4, 1):
+            cases[f"{bits} bits -> {'uint32' if width == 4 else 'uint8'}[2^24]"] = (
+                words, bits, width)
+    fdb = {}
+    for key, (words, bits, width) in cases.items():
+        check(ops.fused_delta_bitpack_decode(words, bits, n, width),
+              ref.fused_delta_bitpack_decode(words, bits, n, width),
+              f"fused_delta_bitpack_decode {key}")
+        args = (words, bits, n, width)
+        fdb[key] = {"ms": best(lambda a=args: ops.fused_delta_bitpack_decode(*a)),
+                    "bound_ms": (words.numel() * 4 + n * width) / cs.HBM_BYTES_PER_S * 1e3}
+        print(f"{label} fused_delta_bitpack_decode {key}: {json.dumps(fdb[key])}")
+    fdb["F: 8 bits -> uint32[2^24]"]["device_ops"] = device_ops(
+        lambda: ops.fused_delta_bitpack_decode(f_words, 8, n, 4))
+    print(f"{label} fused_delta_bitpack_decode F device ops:"
+          f" {fdb['F: 8 bits -> uint32[2^24]']['device_ops']}")
+    return {"histogram": hist, "fused_delta_bitpack_decode": fdb}
 
 
 def fse_encode_times(label, ops, ref, gen, check):

@@ -32,22 +32,25 @@ __device__ __forceinline__ uint32_t pack_word(const T* __restrict__ x, long long
   return acc;
 }
 
-// Calls F<T, BITS>(args) for the stream width (1, 2, 4 bytes) and BITS in
-// {1, 2, 4, 8, 16, 32}; any other pair returns cudaErrorInvalidValue.
-#define REPRO_BITS_SWITCH(F, T, bits, ...)        \
-  switch (bits) {                                 \
-    case 1: return F<T, 1>(__VA_ARGS__);          \
-    case 2: return F<T, 2>(__VA_ARGS__);          \
-    case 4: return F<T, 4>(__VA_ARGS__);          \
-    case 8: return F<T, 8>(__VA_ARGS__);          \
-    case 16: return F<T, 16>(__VA_ARGS__);        \
-    case 32: return F<T, 32>(__VA_ARGS__);        \
-    default: return (int)cudaErrorInvalidValue;   \
+// Returns F<T, BITS>(args) for the stream width (1, 2, 4 bytes) and BITS in
+// {1, 2, 4, 8, 16, 32}; any other pair returns BAD (the _TO forms) or
+// cudaErrorInvalidValue.
+#define REPRO_BITS_SWITCH_TO(F, BAD, T, bits, ...) \
+  switch (bits) {                                  \
+    case 1: return F<T, 1>(__VA_ARGS__);           \
+    case 2: return F<T, 2>(__VA_ARGS__);           \
+    case 4: return F<T, 4>(__VA_ARGS__);           \
+    case 8: return F<T, 8>(__VA_ARGS__);           \
+    case 16: return F<T, 16>(__VA_ARGS__);         \
+    case 32: return F<T, 32>(__VA_ARGS__);         \
+    default: return BAD;                           \
   }
-#define REPRO_WIDTH_BITS_SWITCH(F, width, bits, ...)              \
-  switch (width) {                                               \
-    case 1: REPRO_BITS_SWITCH(F, uint8_t, bits, __VA_ARGS__)     \
-    case 2: REPRO_BITS_SWITCH(F, uint16_t, bits, __VA_ARGS__)    \
-    case 4: REPRO_BITS_SWITCH(F, uint32_t, bits, __VA_ARGS__)    \
-    default: return (int)cudaErrorInvalidValue;                  \
+#define REPRO_WIDTH_BITS_SWITCH_TO(F, BAD, width, bits, ...)              \
+  switch (width) {                                                       \
+    case 1: REPRO_BITS_SWITCH_TO(F, BAD, uint8_t, bits, __VA_ARGS__)     \
+    case 2: REPRO_BITS_SWITCH_TO(F, BAD, uint16_t, bits, __VA_ARGS__)    \
+    case 4: REPRO_BITS_SWITCH_TO(F, BAD, uint32_t, bits, __VA_ARGS__)    \
+    default: return BAD;                                                 \
   }
+#define REPRO_WIDTH_BITS_SWITCH(F, width, bits, ...) \
+  REPRO_WIDTH_BITS_SWITCH_TO(F, (int)cudaErrorInvalidValue, width, bits, __VA_ARGS__)

@@ -173,8 +173,7 @@ __device__ __forceinline__ void load_run(const uint8_t* p, const uint8_t* end, b
 
 // Exclusive prefix of v over the block (blockDim a multiple of 32, at most
 // 1024); *total receives the block's sum.  Every thread must call it.  The
-// single-pass scan of K2 (delta.cu) and the carry design of K12
-// (fused_delta_bitpack.cu) share it.
+// single-pass scan of K2 (delta.cu) scans its thread totals with it.
 template <typename A>
 __device__ __forceinline__ A block_exclusive_scan(A v, A* total) {
   __shared__ A warp_sums[32];

@@ -11,7 +11,7 @@
 // moves each byte once from device memory.  Templated on the element type so
 // widths 1, 2, 4 and 8 (an int64 timestamp column) all run here, and the
 // unsigned arithmetic wraps exactly as the wire codec's numpy subtraction.
-#include "common.cuh"
+#include "scan.cuh"
 
 template <typename T>
 __global__ void delta_encode_kernel(const T* __restrict__ x, T* __restrict__ out,
@@ -52,28 +52,18 @@ REPRO_API int repro_delta_encode(const void* x, void* out, long long n, int widt
 // _scan_carry_kernel), whose carry relied on the grid running in order.
 //
 // Bound: bytes.  The function reads n*w bytes and writes n*w bytes with one
-// addition per element.  Design: one launch, a single-pass scan with
-// decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan
-// with Decoupled Look-back", NVIDIA NVR-2016-002), so each byte is read once
-// and written once.  A block takes one tile of DTILE_BYTES: each thread owns
-// a contiguous run of DRUN bytes (16 uint8, 8 uint16, 4 uint32 or 2 uint64
+// addition per element.  Design: one launch, the single-pass scan with
+// decoupled look-back of scan.cuh, so each byte is read once and written
+// once.  A block takes one tile of DTILE_BYTES: each thread owns a
+// contiguous run of DRUN bytes (16 uint8, 8 uint16, 4 uint32 or 2 uint64
 // per 16-byte vector), which its warp loads as streaming vectors (load_run
 // in common.cuh, shifted where d is a view off the vector alignment) and
 // hands over through shared memory.  The thread sums its run in registers,
 // and the block scans the thread totals (block_exclusive_scan).  Warp 0
-// then publishes the tile's aggregate, finds the sum of all earlier tiles by
-// looking back over its predecessors' statuses 32 at a time, and publishes
-// the tile's inclusive prefix; each thread scans its run again from its
-// base, and its warp stores the runs as streaming vectors.  The run and
-// block sizes were the fastest on an H100 among runs of 32-128 bytes and
-// blocks of 128-512 threads.
-//
-// Blocks start in no order, and a block that waits on a tile no block holds
-// yet would wait forever.  So a block takes its tile index from a ticket
-// (atomicAdd on a counter in the scratch), not from blockIdx: when it waits
-// on tile j < i, tile j's block is already running and itself waits only on
-// tiles below j.  The call zeroes the counter and the statuses with a
-// memset on its stream before the launch, so no call reads another's.
+// then looks back for the sum of all earlier tiles (tiles_before); each
+// thread scans its run again from its base, and its warp stores the runs
+// as streaming vectors.  The run and block sizes were the fastest on an
+// H100 among runs of 32-128 bytes and blocks of 128-512 threads.
 //
 // All sums are unsigned (32 bits for widths 1, 2 and 4, 64 bits for width 8)
 // and are cut to the element's width only at the store: 2^(8w) divides the
@@ -85,106 +75,14 @@ REPRO_API int repro_delta_encode(const void* x, void* out, long long n, int widt
 #define DTHREADS 128
 #define DRUN (DTILE_BYTES / DTHREADS)  // input bytes a thread owns: 128, eight vectors
 static_assert(DRUN % 16 == 0 && DRUN * DTHREADS == DTILE_BYTES, "a run is whole vectors");
-#define DCOUNTER_BYTES 16              // the ticket counter, ahead of the statuses
-
-enum : unsigned { TILE_INVALID = 0, TILE_AGGREGATE = 1, TILE_PREFIX = 2 };
 
 template <typename T> struct Acc { typedef uint32_t type; };
 template <> struct Acc<unsigned long long> { typedef unsigned long long type; };
 
-// A tile's status: K = sizeof(A) / 4 64-bit words (one for 32-bit sums, two
-// for 64-bit ones), word k holding the flag in its high half and bits
-// 32k..32k+31 of the value in its low half.  Each word is written at most
-// twice per call (the aggregate, then the prefix), after the memset's zero.
-// An aligned 64-bit access is single-copy atomic, so a word read shows the
-// zero (TILE_INVALID) or a whole (flag, piece) pair; the two words of a
-// 64-bit status may be read torn, which shows as unequal flags, and the
-// reader polls again.  A reader uses only what the status words carry, so
-// the stores and loads need no ordering against other memory: volatile
-// (relaxed) accesses suffice, where release stores and acquire loads, which
-// also order the rest of memory, made the kernel slower on an H100.
-template <typename A>
-struct Status {
-  static constexpr int K = (int)sizeof(A) / 4;
-  unsigned long long* word;
-  __device__ explicit Status(unsigned char* scratch)
-      : word(reinterpret_cast<unsigned long long*>(scratch + DCOUNTER_BYTES)) {}
-  __device__ void publish(long long tile, unsigned flag, A value) const {
-    const unsigned long long f = (unsigned long long)flag << 32;
-    const unsigned long long lo = f | (uint32_t)value;
-    const unsigned long long hi = f | (uint32_t)((unsigned long long)value >> 32);
-    unsigned long long* p = word + K * tile;
-    if constexpr (K == 1)
-      asm volatile("st.volatile.global.u64 [%0], %1;" ::"l"(p), "l"(lo) : "memory");
-    else
-      asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(lo), "l"(hi)
-                   : "memory");
-  }
-  __device__ unsigned poll(long long tile, A* value) const {
-    const unsigned long long* p = word + K * tile;
-    unsigned long long lo, hi = 0;
-    if constexpr (K == 1)
-      asm volatile("ld.volatile.global.u64 %0, [%1];" : "=l"(lo) : "l"(p) : "memory");
-    else
-      asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];" : "=l"(lo), "=l"(hi) : "l"(p)
-                   : "memory");
-    const unsigned flag = (unsigned)(lo >> 32);
-    if constexpr (K == 2) {
-      if ((unsigned)(hi >> 32) != flag) return TILE_INVALID;  // torn: poll again
-      *value = (uint32_t)lo | ((A)(uint32_t)hi << 32);
-    } else {
-      *value = (uint32_t)lo;
-    }
-    return flag;
-  }
-};
-
-// The scratch bytes of a call over `tiles` tiles of `width`-byte elements:
-// the counter, then the statuses, all zeroed by the call.
+// The scratch bytes of a call over `tiles` tiles of `width`-byte elements.
 static long long scratch_bytes(long long tiles, int width) {
-  return DCOUNTER_BYTES + 8 * (width == 8 ? 2 : 1) * tiles;
-}
-
-template <typename A>
-__device__ __forceinline__ A warp_sum(A x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Run by warp 0 of the block that holds `tile`, whose sum is `total`:
-// publishes the tile's aggregate, returns (in every lane) the sum of all
-// earlier tiles, and publishes the tile's inclusive prefix.  Lane l inspects
-// predecessor `end - l`; the warp waits until every predecessor nearer than
-// the nearest inclusive prefix in the window has at least its aggregate,
-// then adds those aggregates and that prefix, or, with no prefix in the
-// window, all 32 aggregates, and moves the window back by 32.
-template <typename A>
-__device__ __forceinline__ A look_back(const Status<A>& st, long long tile, A total) {
-  const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) st.publish(0, TILE_PREFIX, total);
-    return 0;
-  }
-  if (lane == 0) st.publish(tile, TILE_AGGREGATE, total);
-  A before = 0;
-  for (long long end = tile - 1;; end -= 32) {
-    const long long p = end - lane;
-    A value = 0;
-    unsigned flag = p >= 0 ? TILE_INVALID : TILE_PREFIX;  // before tile 0: a prefix of 0
-    unsigned prefix, nearer;
-    for (;;) {
-      if (flag == TILE_INVALID) flag = st.poll(p, &value);
-      prefix = __ballot_sync(0xffffffffu, flag == TILE_PREFIX);
-      nearer = prefix ? (prefix & (0u - prefix)) - 1 : 0xffffffffu;
-      if (!(__ballot_sync(0xffffffffu, flag == TILE_INVALID) & nearer)) break;
-    }
-    const unsigned used = prefix ? nearer | (prefix & (0u - prefix)) : 0xffffffffu;
-    before += warp_sum<A>((used >> lane) & 1 ? value : (A)0);
-    if (prefix) break;
-  }
-  if (lane == 0) st.publish(tile, TILE_PREFIX, before + total);
-  return before;
+  return width == 8 ? scan_scratch_bytes<unsigned long long>(tiles)
+                    : scan_scratch_bytes<uint32_t>(tiles);
 }
 
 // Element j of a run held as its DRUN / 4 words, zero-extended to A.
@@ -242,12 +140,8 @@ delta_decode_kernel(const T* __restrict__ d, T* __restrict__ out, long long n,
   constexpr int ITEMS = DRUN / W;
   constexpr int V = DRUN / 16;  // vectors per run
   constexpr long long TILE = DTILE_BYTES / W;
-  __shared__ unsigned int ticket;
-  __shared__ A tile_before;
   __shared__ uint4 stage[DTHREADS / 32][32 * V];
-  if (threadIdx.x == 0) ticket = atomicAdd(reinterpret_cast<unsigned int*>(scratch), 1u);
-  __syncthreads();
-  const long long tile = ticket;
+  const long long tile = take_tile(scratch);
   const int lane = threadIdx.x & 31;
   const long long g = tile * TILE + (long long)threadIdx.x * ITEMS;
   const long long gw = g - (long long)lane * ITEMS;  // the warp's first element
@@ -285,12 +179,7 @@ delta_decode_kernel(const T* __restrict__ d, T* __restrict__ out, long long n,
   for (int j = 0; j < ITEMS; ++j) total += item<T, A>(b, j);
   A tile_total;
   const A before = block_exclusive_scan<A>(total, &tile_total);
-  if (threadIdx.x < 32) {
-    const A tiles_before = look_back<A>(Status<A>(scratch), tile, tile_total);
-    if (threadIdx.x == 0) tile_before = tiles_before;
-  }
-  __syncthreads();
-  scan_words<T, A>(b, tile_before + before);
+  scan_words<T, A>(b, tiles_before<A>(scratch, tile, tile_total) + before);
   if (warp_full) {
 #pragma unroll
     for (int v = 0; v < V; ++v)

@@ -47,6 +47,7 @@ _I32 = ctypes.c_int
 RESTYPES = {
     "repro_delta_decode_scratch": _I64,
     "repro_fused_delta_bitpack_decode_scratch": _I64,
+    "repro_fused_delta_bitpack_decode_tile": _I64,
 }
 SIGNATURES = {
     "repro_delta_encode": [_P, _P, _I64, _I32, _P],
@@ -65,7 +66,8 @@ SIGNATURES = {
     "repro_bitpack": [_P, _P, _I64, _I32, _I32, _P],
     "repro_bitunpack": [_P, _P, _I64, _I32, _I32, _P],
     "repro_fused_delta_bitpack": [_P, _P, _I64, _I32, _I32, _P],
-    "repro_fused_delta_bitpack_decode_scratch": [_I64, _I32],
+    "repro_fused_delta_bitpack_decode_scratch": [_I64, _I32, _I32],
+    "repro_fused_delta_bitpack_decode_tile": [_I32, _I32],
     "repro_fused_delta_bitpack_decode": [_P, _P, _P, _I64, _I64, _I32, _I32, _P],
 }
 

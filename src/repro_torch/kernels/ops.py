@@ -534,13 +534,14 @@ def histogram(x: torch.Tensor) -> torch.Tensor:
     if _on_cpu(x):
         return ref.histogram_exact(x)
     _need(x, torch.uint8, "histogram symbols")
-    out = torch.zeros(256, dtype=torch.int64, device=x.device)
-    if x.numel():
-        _launched(
-            _lib().repro_histogram(x.data_ptr(), x.numel(), out.data_ptr(), _stream(x)),
-            "histogram",
-        )
-        histogram.launches += 1
+    if not x.numel():
+        return torch.zeros(256, dtype=torch.int64, device=x.device)
+    out = torch.empty(256, dtype=torch.int64, device=x.device)
+    _launched(
+        _lib().repro_histogram(x.data_ptr(), x.numel(), out.data_ptr(), _stream(x)),
+        "histogram",
+    )
+    histogram.launches += 1
     return out
 
 
@@ -645,13 +646,13 @@ def fused_delta_bitpack_decode(
     out = torch.empty(n, dtype=CARRIER[width], device=w.device)
     if n:
         lib = _lib()
-        sums = torch.empty(
-            lib.repro_fused_delta_bitpack_decode_scratch(n, bits),
-            dtype=torch.int32, device=w.device,
+        scratch = torch.empty(
+            lib.repro_fused_delta_bitpack_decode_scratch(n, width, bits),
+            dtype=torch.uint8, device=w.device,
         )
         _launched(
             lib.repro_fused_delta_bitpack_decode(
-                w.data_ptr(), out.data_ptr(), sums.data_ptr(), sums.numel(), n, width,
+                w.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, width,
                 bits, _stream(w),
             ),
             "fused_delta_bitpack_decode",
@@ -661,3 +662,11 @@ def fused_delta_bitpack_decode(
 
 
 fused_delta_bitpack_decode.launches = 0
+
+
+def fused_delta_bitpack_decode_tile(width: int, bits: int) -> int:
+    """Values of one tile of the card's K12 at ``bits`` to ``width`` bytes."""
+    tile = _lib().repro_fused_delta_bitpack_decode_tile(width, bits)
+    if tile < 1:
+        raise ValueError(f"fused_delta_bitpack_decode_tile: no tile at width {width}, bits {bits}")
+    return tile
