@@ -26,7 +26,11 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              equal bytes and a 64 KiB trial's sample (one launch a call),
              beside ``torch.bincount``, and at every size up to 64 bytes,
              64 KiB and past it from byte offsets 0-15 of a view, and on
-             2^32 + 17 equal bytes), the decode
+             2^32 + 17 equal bytes); the encode kernels that a container's
+             chunk views reach (delta, byte shuffle, Huffman map, float
+             split, bitpack and fused delta + bitpack) also on views at
+             every byte offset 0-15 their element width allows, on ragged
+             sizes (``encode_offset_sweep``); the decode
              kernels (delta decode on A's and B's deltas, in turns with
              ``torch.cumsum`` (``dtype=torch.int32`` on B's carrier), then
              at widths 1, 2, 4 and 8 on ragged sizes and around its tile,
@@ -90,7 +94,26 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              the delta decode, byte unshuffle, Huffman decode, tANS decode,
              float merge, bitunpack and fused decode counters rose during
              this phase.
-5. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
+5. container — the reference CLI's default path, chunked compression
+             into ``OZLC`` containers, at level 5: A as NUMERIC through
+             ``generic_profile()`` at 4 MiB chunks (16), A's bytes as
+             STRUCT(8) records through it at 4 MiB + 8 (``interpret_numeric``
+             then ``numeric_auto``; odd chunks start 8 bytes off a 16-byte
+             boundary), G as a SERIAL byte stream (a raw file) through it at
+             4 MiB + 3 (chunks start at every residue mod 16), and F through
+             ``delta+bitpack`` at 4 MiB + 4; each ``compress(...,
+             device="cuda", chunk_bytes=N)`` then ``decompress(...,
+             device="cuda")``, with the launch counts reset before and read
+             after each half.  Each container starts with ``OZLC`` and holds
+             the expected chunk count, decodes on the card to the column
+             (compared on the card), and on a 4 MiB prefix at 1 MiB plus the
+             same remainder equals the CPU's container byte for byte with
+             as many fresh per-chunk re-resolves; the kernels the first
+             chunk's codecs name launched.  A is also compressed unchunked in
+             the same run.  A container whose third chunk has one payload
+             byte flipped raises ``FrameError`` on the card before any
+             kernel launches.
+6. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -100,11 +123,12 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-6. profile — one more compress and one decompress per plan and column under
+7. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
-             goes" record, then each kernel's device ms summed over them.
-7. identity — the card's name and power limit.
+             goes" record, then each kernel's device ms summed over them;
+             then the container phase's calls and A's unchunked one.
+8. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name/power line, and as the last line
@@ -149,6 +173,7 @@ PLANS = {
     "delta+bitpack": lambda rt: rt.pipeline("delta", "bitpack"),
     "bitpack": lambda rt: rt.pipeline("bitpack"),
     "transpose+bz2_backend": lambda rt: rt.pipeline("transpose", "bz2_backend"),
+    "generic_profile": lambda rt: rt.generic_profile(),
 }
 NUMERIC_PLANS = ("numeric_profile", "delta+transpose+huffman", "delta+transpose+fse")
 COLUMN_PLANS = {
@@ -215,7 +240,8 @@ PORT_KERNEL = re.compile(
 HIST_CONFIGS = {"<HConfig<1, 8> >": "histogram_kernel (one block, <= 64 KiB)",
                 "<HConfig<2, 16> >": "histogram_kernel (grid, > 64 KiB)"}
 HOST_STAGES = ("choose_best", "_lz77_enc", "_lz77_dec", "_zlib_enc", "_zlib_dec",
-               "_lzma_enc", "_lzma_dec", "_bz2_enc", "_bz2_dec", "write_frame", "read_frame")
+               "_lzma_enc", "_lzma_dec", "_bz2_enc", "_bz2_dec", "write_frame", "read_frame",
+               "write_container", "read_container", "_pack_bits", "_unpack_bits")
 COLUMN_BYTES = 64 << 20
 PREFIX_BYTES = 4 << 20
 # the level-7 phase: the float profiles, whose entropy_auto and bytes_auto
@@ -236,6 +262,31 @@ LEVEL_ENCODE_KERNELS = ("float_split", "histogram", "byteshuffle")
 LEVEL_DECODE_KERNELS = ("float_merge", "byteunshuffle")
 WIDE_TABLE_LOG = 27  # above 26 the tANS decode step entries are 64-bit
 WIDE_BYTES = 64 << 10
+# the container phase: (label, column, stream kind, plan, chunk bytes past 4
+# MiB), chunked at CHUNK_BYTES + the remainder and, on a 4 MiB prefix against
+# the CPU, at PREFIX_CHUNK_BYTES + the remainder, so that the prefix's chunks
+# start at the same offsets mod 16
+CHUNK_BYTES = 4 << 20
+PREFIX_CHUNK_BYTES = 1 << 20
+CONTAINER_CALLS = (("A", "A_timestamps_i64", "numeric", "generic_profile", 0),
+                   ("A_struct8", "A_timestamps_i64", "struct8", "generic_profile", 8),
+                   ("G_serial", "G_int4_codes_u8", "serial", "generic_profile", 3),
+                   ("F", "F_string_offsets_u32", "numeric", "delta+bitpack", 4))
+# the kernels a codec's encoder and decoder launch on the card, whatever its
+# data (bitpack is left out: at bits that do not divide 32 it takes the bit
+# writer, not K5)
+ENCODE_KERNELS_OF = {"delta": ("delta_encode",), "transpose": ("byteshuffle",),
+                     "huffman": ("histogram", "huffman_map"),
+                     "fse": ("histogram", "byteshuffle", "fse_encode"),
+                     "fused_delta_bitpack": ("delta_encode", "fused_delta_bitpack"),
+                     "float_split": ("float_split",)}
+DECODE_KERNELS_OF = {"delta": ("delta_decode",), "transpose": ("byteunshuffle",),
+                     "huffman": ("huffman_decode", "byteunshuffle"),
+                     "fse": ("fse_decode", "byteunshuffle"),
+                     "fused_delta_bitpack": ("fused_delta_bitpack_decode",),
+                     "float_split": ("float_merge",)}
+# encode_offset_sweep's sizes: ragged, past one vector and past a block's
+OFFSET_SIZES = (1, 37, 4097)
 
 
 def fail(msg: str) -> None:
@@ -337,8 +388,10 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     col_a = torch.from_numpy(cols["A_timestamps_i64"]).to(dev)
     col_b = torch.from_numpy(cols["B_zipf_ids_u32"].view(np.int32)).to(dev)
     rows = []
+    swept = encode_offset_sweep(ops, ref, seed)
 
     def row(name, source, replaces, err, ms, plain_ms, nbytes, nops, library_ms, **extra):
+        err = max(err, swept.get(name, 0.0))
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops = nops / CUDA_CORE_OPS_PER_S * 1e3
         rows.append({
@@ -652,7 +705,9 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
         runs_inside=[],
         cursors_2_24_ms=cuda_ms(lambda: ops.lane_refill(buf, many), 20),
         cursors_2_24_plain_ms=cuda_ms(lambda: ref.lane_refill(buf, many), 2),
-        cursors_2_24_bound_ms=many.numel() * (8 + 5 + 4) / HBM_BYTES_PER_S * 1e3)
+        cursors_2_24_bound_ms=many.numel() * (8 + 5 + 4) / HBM_BYTES_PER_S * 1e3,
+        # a cursor's 5-byte window at a random offset moves a 32-byte sector
+        cursors_2_24_sector_bound_ms=many.numel() * (8 + 32 + 4) / HBM_BYTES_PER_S * 1e3)
     del many
 
     bitpack_rows(cols, ops, ref, seed, row)
@@ -685,6 +740,59 @@ def shuffle_sweep(ops, ref, seed) -> float:
     print(f"check byteshuffle: w {UNSHUFFLE_WIDTHS} x n {SHUFFLE_SIZES}, and w (1, 2, 4, 8)"
           f" x n {SHUFFLE_LARGE}, x record offsets (0, 1, 16): max_abs_err={err}")
     return err
+
+
+def encode_offset_sweep(ops, ref, seed) -> dict:
+    """The encode kernels that a container's chunk views reach, on views that
+    start at every byte offset below 16 that the element width allows (every
+    one for bytes), at ``OFFSET_SIZES``: K1 at widths 1/2/4/8, K5 and K11 at
+    every bits and width 1/2/4, K7 in each float format, K14, and K3 at
+    widths 1, 2, 3, 4, 8 and 16; each against its plain version.  A chunk
+    of a NUMERIC column starts at any multiple of its element, and one of a
+    SERIAL stream at any byte."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    carriers = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    errs = {k: 0.0 for k in ("delta_encode", "bitpack", "fused_delta_bitpack", "float_split",
+                             "huffman_map", "byteshuffle")}
+
+    def views(width, n):
+        """n-element views of a random buffer at byte offsets 0, w, .. < 16."""
+        buf = torch.randint(0, 256, (width * n + 16,), dtype=torch.uint8, device="cuda",
+                            generator=gen)
+        return [buf[off: off + width * n].view(carriers[width]) for off in range(0, 16, width)]
+
+    def check(name, got, want):
+        errs[name] = max(errs[name], max_abs_err(got, want))
+
+    for n in OFFSET_SIZES:
+        for width in carriers:
+            for x in views(width, n):
+                check("delta_encode", [ops.delta_encode(x)], [ref.delta_encode(x)])
+        for width in (1, 2, 4):
+            for bits in ref.PACK_BITS:
+                for x in views(width, n):
+                    if bits < 8 * width:  # values below 2^bits, masked in place (a view)
+                        x.bitwise_and_((1 << bits) - 1)
+                    check("bitpack", [ops.bitpack(x, bits)], [ref.bitpack(x, bits)])
+                    check("fused_delta_bitpack", [ops.fused_delta_bitpack(x, bits)],
+                          [ref.fused_delta_bitpack(x, bits)])
+        for fmt, (width, *_rest) in ref.FLOAT_FORMATS.items():
+            for x in views(width, n):
+                check("float_split", [*ops.float_split(x, fmt)], [*ref.float_split(x, fmt)])
+        codes = torch.randint(0, 1 << 15, (256,), dtype=torch.int32, device="cuda", generator=gen)
+        lens = torch.randint(1, 16, (256,), dtype=torch.int32, device="cuda", generator=gen)
+        for x in views(1, n):
+            check("huffman_map", [*ops.huffman_map(x, codes, lens)],
+                  [*ref.huffman_map(x, codes, lens)])
+            for w in (1, 2, 3, 4, 8, 16):
+                recs = x[: n // w * w].view(-1, w)
+                check("byteshuffle", [ops.byteshuffle(recs)], [ref.byteshuffle(recs)])
+    print(f"check encode kernels on views at byte offsets 0-15 (steps of the element width),"
+          f" n {OFFSET_SIZES}: {json.dumps(errs)}")
+    return errs
 
 
 def fse_encode_check(ops, ref, entropy, planes, counts, seed):
@@ -1236,6 +1344,147 @@ def decode_phase(cols, frames, rt, ops):
     return launches
 
 
+def container_stream(rt, kind: str, col: np.ndarray):
+    """The column as the container phase hands it over: a NUMERIC column, its
+    bytes as STRUCT(8) records, or its bytes as a SERIAL stream (a raw file)."""
+    if kind == "numeric":
+        return rt.numeric(col)
+    if kind == "struct8":
+        return rt.struct(col.view(np.uint8), 8)
+    return rt.serial(col.view(np.uint8))
+
+
+def chunk_offset(frame: bytes, index: int) -> int:
+    """The byte offset of chunk ``index``'s frame inside a container."""
+    from repro_torch.core import wire
+
+    _n_chunks, pos = wire.read_varint(frame, 5)
+    for _ in range(index):
+        flen, pos = wire.read_varint(frame, pos)
+        pos += flen
+    return wire.read_varint(frame, pos)[1]
+
+
+def container_phase(cols, rt, ops):
+    """Chunked compression into ``OZLC`` containers on the card, as the
+    reference CLI's ``compress`` does by default (``CONTAINER_CALLS``): each
+    call through ``compress(..., chunk_bytes=N)`` and back through
+    ``decompress``, with the launch counts reset just before and read just
+    after each half.  Returns the calls (for the profile phase) and each
+    kernel's launches summed over them."""
+    import torch
+    from repro_torch.core import engine, wire
+
+    calls, totals = [], {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+    for label, cname, kind, pname, rem in CONTAINER_CALLS:
+        col = cols[cname]
+        plan = PLANS[pname](rt)
+        stream = container_stream(rt, kind, col)
+        # the 4 MiB prefix at 1 MiB + rem (chunks at the same offsets mod 16):
+        # the card's container is the CPU's, with as many fresh re-resolves;
+        # this also warms the kernels and the allocator outside the counts
+        prefix = container_stream(rt, kind, col[: PREFIX_BYTES // col.itemsize])
+        small = {}
+        for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+            before = engine.fresh_resolves
+            frame = rt.compress(plan, prefix, device=dev, chunk_bytes=PREFIX_CHUNK_BYTES + rem)
+            small[where] = frame, engine.fresh_resolves - before
+        if small["card"][0] != small["cpu"][0]:
+            fail(f"container {label}: the card's 4 MiB container differs from the CPU's")
+        if small["card"][1] != small["cpu"][1]:
+            fail(f"container {label}: {small['card'][1]} fresh re-resolves on the card's"
+                 f" prefix, {small['cpu'][1]} on the CPU's")
+
+        chunk_bytes = CHUNK_BYTES + rem
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        before = engine.fresh_resolves
+        t0 = time.perf_counter()
+        frame = rt.compress(plan, stream, device="cuda", chunk_bytes=chunk_bytes)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        encode = ops.launch_counts()
+        reresolves = engine.fresh_resolves - before
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        (out,) = rt.decompress(frame, device="cuda")
+        torch.cuda.synchronize()
+        ddt = time.perf_counter() - t0
+        decode = ops.launch_counts()
+        for k in totals:
+            totals[k] += encode[k] + decode[k]
+
+        elt = {"numeric": col.itemsize, "struct8": 8, "serial": 1}[kind]
+        per = chunk_bytes // elt  # elements a chunk
+        want_chunks = -(-(col.nbytes // elt) // per)
+        if bytes(frame[:4]) != wire.CONTAINER_MAGIC:
+            fail(f"container {label}: the frame starts with {bytes(frame[:4])}, not OZLC")
+        _version, chunks = wire.read_container(frame)
+        if len(chunks) != want_chunks:
+            fail(f"container {label}: {len(chunks)} chunks, not {want_chunks}")
+        want = stream.data.to("cuda")
+        if (out.data.device.type != "cuda" or (out.stype, out.width) != (stream.stype, stream.width)
+                or not torch.equal(out.data, want)):
+            fail(f"container {label}: decompress on the card did not return the column")
+        codecs = frame_codecs(rt, chunks[0])
+        named = codecs.split("+")
+        missing = ([k for c in named for k in ENCODE_KERNELS_OF.get(c, ()) if encode[k] == 0]
+                   + [k for c in named for k in DECODE_KERNELS_OF.get(c, ()) if decode[k] == 0])
+        if missing:
+            fail(f"container {label} [{codecs}]: never launched {missing}")
+        starts = sorted({i * per * elt % 16 for i in range(want_chunks)})
+        print(f"container {label} {pname} chunk_bytes={chunk_bytes} [{codecs}]:"
+              f" chunks={len(chunks)} chunk_starts_mod_16={starts}"
+              f" fresh_resolves={reresolves} ratio={col.nbytes / len(frame)}"
+              f" compress_MBps={col.nbytes / dt / 1e6} seconds={dt}"
+              f" decompress_MBps={col.nbytes / ddt / 1e6} decompress_seconds={ddt}"
+              f" prefix_fresh_resolves={small['card'][1]}")
+        print(f"container {label} launches: compress {json.dumps(encode)}"
+              f" decompress {json.dumps(decode)}")
+        print(f"check container {label}: OZLC, {len(chunks)} chunks, roundtrip on the card ok,"
+              f" 4 MiB card container == cpu container ({len(small['card'][0])} bytes),"
+              f" first chunk's kernels launched")
+        calls.append((label, pname, plan, stream, chunk_bytes, frame, codecs))
+
+        if label == "A":  # the same column unchunked, in the same run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            whole = rt.compress(plan, stream, device="cuda")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            (back,) = rt.decompress(whole, device="cuda")
+            torch.cuda.synchronize()
+            ddt = time.perf_counter() - t0
+            if not torch.equal(back.data, want):
+                fail("container A unchunked: decompress on the card did not return the column")
+            print(f"container A {pname} unchunked [{frame_codecs(rt, whole)}]:"
+                  f" ratio={col.nbytes / len(whole)}"
+                  f" compress_MBps={col.nbytes / dt / 1e6} seconds={dt}"
+                  f" decompress_MBps={col.nbytes / ddt / 1e6} decompress_seconds={ddt}")
+            calls.append(("A_unchunked", pname, plan, stream, None, whole,
+                          frame_codecs(rt, whole)))
+
+            # one payload byte of the third chunk flipped: the container's
+            # CRC fails before any chunk decodes, so no kernel launches
+            bad = bytearray(frame)
+            bad[chunk_offset(frame, 2) + len(chunks[2]) // 2] ^= 0x01
+            ops.reset_launches()
+            try:
+                rt.decompress(bytes(bad), device="cuda")
+            except wire.FrameError as err:
+                launched = {k: v for k, v in ops.launch_counts().items() if v}
+                if launched:
+                    fail(f"container A corrupted: launched {launched} before failing")
+                print(f"check container A, third chunk's payload byte flipped: FrameError"
+                      f" ({err}) on the card, no kernel launched, no stream")
+            else:
+                fail("container A corrupted: decompress on the card returned a stream")
+    print(f"container phase seconds={time.perf_counter() - t_phase}")
+    return calls, totals
+
+
 def level_phase(cols, rt, ops) -> None:
     """The level-7 path on the card: each of ``LEVEL_COLUMNS`` through
     ``compress`` and back through ``decompress``, with the launch counts reset
@@ -1314,10 +1563,11 @@ def frame_codecs(rt, frame: bytes) -> str:
     return "+".join(get_codec_by_id(node.codec_id).name for node in read_frame(frame)[2])
 
 
-def profile_phase(cols, frames, rt) -> None:
+def profile_phase(cols, frames, rt, container_calls) -> None:
     """Where one compress and one decompress call's time goes: the card's busy
     time from ``torch.profiler`` (its kernels, by name) and the host's time
-    from ``cProfile`` (its functions, by cumulative time)."""
+    from ``cProfile`` (its functions, by cumulative time); the main and
+    decode phases' calls, summed per kernel, then the container phase's."""
     plans = {name: make(rt) for name, make in PLANS.items()}
     sums = {"compress": {}, "decompress": {}}
     for cname, pname in column_plans(cols):
@@ -1335,6 +1585,11 @@ def profile_phase(cols, frames, rt) -> None:
     print(f"profile sums, device ms per kernel over the {len(frames)} compress and"
           f" {len(frames)} decompress calls: {json.dumps(dict(sorted(total.items())))}"
           f" compress: {json.dumps(sums['compress'])} decompress: {json.dumps(sums['decompress'])}")
+    for label, pname, plan, stream, chunk_bytes, frame, codecs in container_calls:
+        tag = f"container {label} {pname} chunk_bytes={chunk_bytes} [{codecs}]"
+        profile_call(tag, lambda: rt.compress(plan, stream, device="cuda",
+                                              chunk_bytes=chunk_bytes))
+        profile_call(f"decompress {tag}", lambda: rt.decompress(frame, device="cuda"))
 
 
 def profile_call(label: str, fn) -> dict:
@@ -1435,10 +1690,12 @@ def main() -> None:
     launches, frames = main_path(cols, rt, ops)
     launches.update({k: v for k, v in decode_phase(cols, frames, rt, ops).items()
                      if k not in ENCODE_KERNELS})
+    container_calls, container_launches = container_phase(cols, rt, ops)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["container_launches"] = container_launches[r["name"]]
     level_phase(cols, rt, ops)
-    profile_phase(cols, frames, rt)
+    profile_phase(cols, frames, rt, container_calls)
     identity = nvidia_smi("name,power.limit")
     print(json.dumps({"kernels": rows}))
     print(identity)

@@ -14,6 +14,8 @@ Entry points::
     frame = compress(bfloat16_profile(), numeric(weights))  # a bf16 tensor on the card
     frame = compress(pipeline("delta", "bitpack"), numeric(offsets))  # fuses to K11
     frame = compress(pipeline(("bitpack", {"bits": 4})), numeric(int4_codes))
+    frame = compress(generic_profile(), serial(blob), chunk_bytes=4 << 20)
+    (out,) = decompress(frame)                   # a container, joined on the card
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
@@ -22,12 +24,18 @@ a TPU kernel in the reference launches a hand-written CUDA kernel
 the kernels' plain PyTorch versions.  ``execute`` fuses an adjacent
 ``delta`` -> ``bitpack`` pair into ``fused_delta_bitpack``, as the
 reference's device backend does, and lowers it back where the data refuses.
+With ``chunk_bytes`` the input is split into views of its tensor on the
+device, the plan is resolved once on the first chunk and executed on every
+chunk, and the chunk frames go into one ``OZLC`` container, byte for byte
+the reference's.
 """
 from .codecs.profiles import (  # noqa: F401
     bfloat16_profile,
     float32_profile,
     float64_profile,
+    generic_profile,
     numeric_profile,
+    text_profile,
 )
 from .core import (  # noqa: F401
     CompressionCtx,

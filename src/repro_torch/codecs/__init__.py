@@ -6,12 +6,14 @@ on.
 Codec ids ported so far:
    1 store   3 delta   4 zigzag   5 transpose   6 bitpack   9 tokenize
   13 range_pack   14 huffman   15 fse   16 lz77   17 zlib_backend
-  18 float_split   24 lzma_backend   25 bz2_backend   26 fused_delta_bitpack
+  18 float_split   23 interpret_numeric   24 lzma_backend   25 bz2_backend
+  26 fused_delta_bitpack
 """
 from . import basic  # noqa: F401
 from . import numeric  # noqa: F401
 from . import entropy  # noqa: F401
 from . import lz  # noqa: F401
 from . import floats  # noqa: F401
+from . import convert  # noqa: F401
 from . import selectors  # noqa: F401
 from . import profiles  # noqa: F401

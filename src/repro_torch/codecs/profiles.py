@@ -1,9 +1,21 @@
-"""Prebuilt compression graphs: the numeric profile (one ``numeric_auto``
-selector over a numeric column) and the float checkpoint profiles of the
-paper's §VIII (``float32``, ``bfloat16``, ``float64``)."""
+"""Prebuilt compression graphs: the generic profile (one ``generic_auto``
+selector over any stream: the reference CLI's default), the numeric profile
+(one ``numeric_auto`` selector over a numeric column), the text profile
+(``zlib_backend``) and the float checkpoint profiles of the paper's §VIII
+(``float32``, ``bfloat16``, ``float64``)."""
 from __future__ import annotations
 
-from ..core.graph import GraphBuilder, Plan
+from ..core.graph import GraphBuilder, Plan, pipeline
+
+
+def generic_profile() -> Plan:
+    g = GraphBuilder(1)
+    g.select("generic_auto", g.input(0))
+    return g.build("generic")
+
+
+def text_profile(level: int = 6) -> Plan:
+    return pipeline(("zlib_backend", {"level": level}), name="text")
 
 
 def numeric_profile() -> Plan:

@@ -7,8 +7,8 @@ the same frame.  Trials run on the sample's device, through the same
 kernels as the real compression.
 
 Only a codec's own refusal (a ``ValueError``) marks a candidate as
-inapplicable; any other error — a CUDA fault, a failed kernel build —
-propagates.
+inapplicable; any other error — a CUDA fault, a failed kernel build, a
+kernel wrapper's precondition (``ops.KernelError``) — propagates.
 """
 from __future__ import annotations
 
@@ -111,6 +111,35 @@ def _bytes_auto(streams, params, ctx):
     return choose_best(bytes_candidates(ctx.level), streams, ctx)
 
 
+def _generic_auto(streams, params, ctx):
+    """Dispatch on stream type — the "just compress it" entry point."""
+    s = streams[0]
+    if s.stype == SType.NUMERIC:
+        return _numeric_auto(streams, params, ctx)
+    if s.stype == SType.STRING:
+        # not a ValueError, which a trial would take for a codec's refusal
+        raise NotImplementedError("string streams are not yet ported to repro_torch")
+    if s.stype == SType.STRUCT and s.width > 1:
+        if s.width in (2, 4, 8):
+            # numeric reinterpretation usually dominates; let the numeric
+            # menu (which includes transpose chains) pick the backend
+            g = GraphBuilder(1)
+            num = g.add("interpret_numeric", g.input(0), width=s.width)
+            g.select("numeric_auto", num)
+            return g.build("struct_numeric")
+        return choose_best(
+            [
+                ("transpose+huffman", pipeline("transpose", "huffman")),
+                ("transpose+fse", pipeline("transpose", "fse")),
+                ("huffman", pipeline("transpose", "huffman")),
+            ],
+            streams,
+            ctx,
+        )
+    return _bytes_auto(streams, params, ctx)
+
+
 register_selector(SelectorSpec("entropy_auto", _entropy_auto, doc="store/huffman/fse/zlib by trial"))
 register_selector(SelectorSpec("numeric_auto", _numeric_auto, doc="numeric backend by trial"))
 register_selector(SelectorSpec("bytes_auto", _bytes_auto, doc="entropy menu + lz77 graph by trial"))
+register_selector(SelectorSpec("generic_auto", _generic_auto, doc="type-dispatching default backend"))

@@ -23,24 +23,37 @@ frames are that backend's.  Where the fused codec refuses the data (its
 lossless precondition fails), the executor lowers the step back to
 ``delta`` + ``bitpack``.
 
-Not in this slice: chunked compression into multi-chunk containers
-(``chunk_bytes`` raises), and the reference's ``trace`` and ``fuse=``
-arguments of ``execute``.
+``compress(..., chunk_bytes=N)`` splits one input into element-aligned
+chunks (views of its tensor on the device, no copy), resolves the plan once
+on the first chunk and executes that resolution on every chunk, one after
+another; a chunk whose codec refuses it (a ``ValueError``) is resolved
+afresh, as the reference does.  The chunk frames go into one ``OZLC``
+container.  ``decompress`` decodes each chunk onto the device and joins them
+with one ``torch.cat`` there.
+
+Not yet ported: the reference's sessions (worker pools, a resolve cache,
+file streaming) and its ``trace`` and ``fuse=`` arguments of ``execute``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import _device
 from . import wire
 from .codec import get_codec, get_codec_by_id
 from .graph import KIND_CODEC, Plan, _thaw
-from .message import PACK_BITS, Stream, serial
+from .message import PACK_BITS, Stream, SType, serial
 from .selector import get_selector
-from .versioning import CURRENT_FORMAT_VERSION, check_compress_version, check_decode_version
+from .versioning import (
+    CONTAINER_MIN_VERSION,
+    CURRENT_FORMAT_VERSION,
+    check_compress_version,
+    check_decode_version,
+)
 
 __all__ = [
     "CompressionCtx",
@@ -384,6 +397,88 @@ def execute(
     return _Executor(fuse_resolved(resolved), streams).run()
 
 
+# ------------------------------------------------------------------ chunking
+# chunks of the chunked path whose codecs refused the first chunk's
+# resolution, so that they were resolved afresh; counted over the process,
+# as the kernels' launches are (``kernels.ops``)
+fresh_resolves = 0
+
+
+def _split_chunks(s: Stream, chunk_bytes: int) -> List[Stream]:
+    """Element-aligned split; every chunk holds at least one element.
+
+    Each chunk is a view of ``s``'s tensor on its device.  STRING streams
+    pack greedily: a chunk takes whole strings while its byte total stays
+    <= ``chunk_bytes`` (the first string is always taken, however large).
+    """
+    if chunk_bytes < 1:
+        raise ValueError("chunk_bytes must be >= 1")
+    if s.stype == SType.STRING:
+        lens = s.lengths if s.lengths is not None else np.zeros(0, np.uint32)
+        if lens.size == 0:
+            return [s]
+        pre = np.zeros(lens.size + 1, np.int64)  # exclusive byte offsets
+        np.cumsum(lens, dtype=np.int64, out=pre[1:])
+        out: List[Stream] = []
+        i = 0
+        while i < lens.size:
+            j = int(np.searchsorted(pre, pre[i] + chunk_bytes, side="right")) - 1
+            j = max(j, i + 1)
+            out.append(
+                Stream(s.data[int(pre[i]) : int(pre[j])], SType.STRING, 1, lens[i:j])
+            )
+            i = j
+        return out
+    elt_bytes = s.width if s.stype in (SType.NUMERIC, SType.STRUCT) else 1
+    per = max(1, chunk_bytes // elt_bytes)
+    n = s.n_elts
+    if n <= per:
+        return [s]
+    datum_per_elt = s.width if s.stype == SType.STRUCT else 1
+    return [
+        Stream(s.data[i * datum_per_elt : (i + per) * datum_per_elt], s.stype, s.width)
+        for i in range(0, n, per)
+    ]
+
+
+def _concat_decoded(parts: List[Stream]) -> Stream:
+    """Join a container's decoded chunks with one ``torch.cat`` on their device.
+
+    A NUMERIC result has its width's carrier dtype; its bytes are the
+    reference's unsigned join's.
+    """
+    s0 = parts[0]
+    if any(p.stype != s0.stype or p.width != s0.width for p in parts):
+        raise wire.FrameError("container chunks disagree on stream type")
+    data = torch.cat([p.data for p in parts])
+    if s0.stype == SType.STRING:
+        lengths = np.concatenate(
+            [p.lengths if p.lengths is not None else np.zeros(0, np.uint32) for p in parts]
+        ).astype(np.uint32)
+        return Stream(data, SType.STRING, 1, lengths).validate()
+    return Stream(data, s0.stype, s0.width).validate()
+
+
+def _compress_chunks(plan: Plan, chunks: List[Stream], ctx: CompressionCtx) -> bytes:
+    """Resolve once on the first chunk, execute that on every chunk -> container.
+
+    A chunk whose codec refuses the shared resolution with a ``ValueError``
+    gets a fresh resolve of its own; a failure then is a genuine error.  A
+    kernel's precondition or launch error is not a ``ValueError``
+    (``ops.KernelError``, ``RuntimeError``) and propagates.
+    """
+    global fresh_resolves
+    resolved = resolve(plan, chunks[:1], ctx)
+    frames = []
+    for ch in chunks:
+        try:
+            frames.append(execute(resolved, [ch]))
+        except ValueError:
+            fresh_resolves += 1
+            frames.append(execute(resolve(plan, [ch], ctx), [ch]))
+    return wire.write_container(ctx.format_version, frames)
+
+
 # ------------------------------------------------------------------ frontend
 def compress(
     plan: Plan,
@@ -397,13 +492,26 @@ def compress(
 
     The streams are moved to ``device`` (the card unless the caller names the
     CPU) and every codec runs there.  Without a card, the default raises.
+
+    ``chunk_bytes=N`` splits the (single) input into chunks of about N bytes,
+    compressed independently into a multi-chunk container frame (format
+    v4+); a split into one chunk writes a plain frame.  ``chunk_bytes=0`` or
+    ``None`` disables chunking.
     """
-    if chunk_bytes:
-        raise NotImplementedError(
-            "chunk_bytes (multi-chunk containers) is not yet ported to repro_torch"
-        )
     dev = _device.resolve_device(device)
+    ctx = ctx or CompressionCtx()
     streams = [s.validate().to(dev) for s in _as_streams(inputs)]
+    if chunk_bytes:
+        if len(streams) != 1:
+            raise ValueError("chunked compression supports exactly one input")
+        if ctx.format_version < CONTAINER_MIN_VERSION:
+            raise ValueError(
+                f"chunk_bytes requires format version >= {CONTAINER_MIN_VERSION}"
+                f" (compressing at {ctx.format_version})"
+            )
+        chunks = _split_chunks(streams[0], chunk_bytes)
+        if len(chunks) > 1:
+            return _compress_chunks(plan, chunks, ctx)
     resolved = resolve(plan, streams, ctx)
     return execute(resolved, streams)
 
@@ -411,16 +519,27 @@ def compress(
 def decompress(
     frame: bytes, device: Union[str, torch.device, None] = "cuda"
 ) -> List[Stream]:
-    """The universal decoder: frame -> regenerated inputs on ``device``.
+    """The universal decoder: frame or container -> regenerated inputs on
+    ``device``.
 
     The card unless the caller names the CPU; without a card, the default
-    raises.  The returned streams' tensors lie on that device.
+    raises.  The returned streams' tensors lie on that device.  A container's
+    chunks each decode onto the device and join there into one stream.
     """
     dev = _device.resolve_device(device)
-    if bytes(frame[:4]) == b"OZLC":
-        raise wire.FrameError(
-            "multi-chunk container frames are not yet ported to repro_torch"
-        )
+    if not wire.is_container(frame):
+        return _decompress_single(frame, dev)
+    version, sub_frames = wire.read_container(frame)
+    check_decode_version(version)
+    if not sub_frames:
+        raise wire.FrameError("empty container")
+    parts = [_decompress_single(sub, dev) for sub in sub_frames]
+    if any(len(p) != 1 for p in parts):
+        raise wire.FrameError("container chunks must be single-input frames")
+    return [_concat_decoded([p[0] for p in parts])]
+
+
+def _decompress_single(frame: bytes, dev: torch.device) -> List[Stream]:
     version, n_inputs, nodes, stored = wire.read_frame(frame, dev)
     check_decode_version(version)
 

@@ -13,6 +13,10 @@ MIN_FORMAT_VERSION = 1
 # v4: multi-chunk container frames + fused_delta_bitpack
 CURRENT_FORMAT_VERSION = 4
 
+# First format version whose decoders understand the multi-chunk container
+# record; compress(chunk_bytes=...) refuses to emit one at older versions.
+CONTAINER_MIN_VERSION = 4
+
 
 class VersionError(ValueError):
     pass

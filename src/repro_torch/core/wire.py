@@ -20,17 +20,31 @@ Frame layout (all varints LEB128, little-endian payloads):
         varint payload byte length, payload
     u32     crc32 of everything above
 
-Frames are byte-identical to the reference's.  This is where a stream's
-payload crosses between host and device: ``write_frame`` copies each stored
-stream to the host once, and ``read_frame`` parses a frame on the host and
-copies each stored payload to the decode device once.  Multi-chunk
-containers (``OZLC``) are not part of this slice.
+Multi-chunk container record (format version >= 4), written by
+``compress(..., chunk_bytes=N)`` around independently compressed chunks of
+one input:
+
+    magic   b"OZLC"
+    u8      format_version
+    varint  n_chunks
+    per chunk: varint frame_len, one ``OZLJ`` frame
+    u32     crc32 of everything above
+
+Frames and containers are byte-identical to the reference's.  This is where
+a stream's payload crosses between host and device: ``write_frame`` copies
+each stored stream to the host once, and ``read_frame`` parses a frame on
+the host and copies each stored payload to the decode device once.
+
+Not yet ported: the container writer's unknown-count mode (a backpatched
+count, for file streaming) and the salvage scanner; both raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import io
 import struct as _struct
 import zlib
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,8 +52,23 @@ import torch
 from .message import Stream, SType, from_wire
 
 MAGIC = b"OZLJ"
+CONTAINER_MAGIC = b"OZLC"
+MAX_CHUNKS = 1_000_000
 
-__all__ = ["MAGIC", "FrameError", "write_varint", "read_varint", "write_frame", "read_frame"]
+__all__ = [
+    "MAGIC",
+    "CONTAINER_MAGIC",
+    "FrameError",
+    "write_varint",
+    "read_varint",
+    "write_frame",
+    "read_frame",
+    "is_container",
+    "ContainerWriter",
+    "write_container",
+    "iter_container_frames",
+    "read_container",
+]
 
 
 class FrameError(ValueError):
@@ -71,6 +100,24 @@ def read_varint(buf: bytes, pos: int) -> Tuple[int, int]:
         result |= (b & 0x7F) << shift
         if not (b & 0x80):
             return result, pos
+        shift += 7
+        if shift > 63:
+            raise FrameError("varint overflow")
+
+
+def read_stream_varint(reader) -> Tuple[int, bytes]:
+    """Read one varint from a file-like object -> (value, raw bytes consumed)."""
+    result = 0
+    shift = 0
+    raw = bytearray()
+    while True:
+        b = reader.read(1)
+        if not b:
+            raise FrameError("truncated varint")
+        raw += b
+        result |= (b[0] & 0x7F) << shift
+        if not (b[0] & 0x80):
+            return result, bytes(raw)
         shift += 7
         if shift > 63:
             raise FrameError("varint overflow")
@@ -146,7 +193,7 @@ def read_frame(frame: bytes, device: Union[str, torch.device] = "cpu"):
         hlen, pos = read_varint(frame, pos)
         if pos + hlen > len(body):
             raise FrameError("truncated node header")
-        header = frame[pos : pos + hlen]
+        header = bytes(frame[pos : pos + hlen])
         pos += hlen
         nodes.append(ResolvedNode(codec_id, tuple(ins), n_out, header))
     n_stored, pos = read_varint(frame, pos)
@@ -177,3 +224,183 @@ def read_frame(frame: bytes, device: Union[str, torch.device] = "cpu"):
     if pos != len(body):
         raise FrameError("trailing garbage in frame")
     return version, n_inputs, nodes, stored
+
+
+# --------------------------------------------------------------- containers
+def is_container(blob: bytes) -> bool:
+    return bytes(blob[:4]) == CONTAINER_MAGIC
+
+
+class ContainerWriter:
+    """Incremental container emitter: header, then one chunk frame at a time.
+
+    A running CRC replaces the full-container buffer, so peak memory is one
+    chunk frame.  The chunk count is given up front, and the output is byte
+    for byte ``write_container``'s over the same chunks.  (The reference's
+    unknown-count mode, which backpatches the count in a seekable sink, is
+    not yet ported.)  Use as a context manager, or call :meth:`close`, which
+    checks the promised count and appends the CRC trailer.
+    """
+
+    def __init__(self, out, version: int, n_chunks: Optional[int] = None):
+        from .versioning import CONTAINER_MIN_VERSION
+
+        if version < CONTAINER_MIN_VERSION:
+            raise ValueError(
+                f"multi-chunk container requires format version"
+                f" >= {CONTAINER_MIN_VERSION}, got {version}"
+            )
+        if n_chunks is None:
+            raise NotImplementedError(
+                "ContainerWriter with an unknown chunk count is not yet ported"
+                " to repro_torch; pass n_chunks"
+            )
+        if n_chunks < 1:
+            raise ValueError("container needs at least one chunk")
+        self._out = out
+        self._expect = n_chunks
+        self._written = 0
+        self._closed = False
+        header = bytearray(CONTAINER_MAGIC)
+        header.append(version & 0xFF)
+        write_varint(header, n_chunks)
+        self._crc = zlib.crc32(header)
+        out.write(bytes(header))
+        self.bytes_written = len(header)
+
+    def write_chunk(self, frame: bytes) -> None:
+        if self._closed:
+            raise ValueError("ContainerWriter already closed")
+        if bytes(frame[:4]) != MAGIC:
+            raise ValueError("container chunks must be single frames (no nesting)")
+        if self._written >= self._expect:
+            raise ValueError(f"more than the promised {self._expect} chunks")
+        head = bytearray()
+        write_varint(head, len(frame))
+        self._crc = zlib.crc32(frame, zlib.crc32(head, self._crc))
+        self._out.write(bytes(head))
+        self._out.write(frame)
+        self.bytes_written += len(head) + len(frame)
+        self._written += 1
+
+    def close(self) -> int:
+        """Finish the record (count check + CRC trailer) -> total bytes."""
+        if self._closed:
+            return self.bytes_written
+        self._closed = True
+        if self._written != self._expect:
+            raise ValueError(f"promised {self._expect} chunks, wrote {self._written}")
+        self._out.write(_struct.pack("<I", self._crc & 0xFFFFFFFF))
+        self.bytes_written += 4
+        return self.bytes_written
+
+    def __enter__(self) -> "ContainerWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.close()
+        else:  # don't mask the original error with count-mismatch noise
+            self._closed = True
+
+
+def write_container(version: int, chunk_frames: Sequence[bytes]) -> bytes:
+    """Wrap independently compressed chunk frames into one container record."""
+    buf = io.BytesIO()
+    with ContainerWriter(buf, version, n_chunks=len(chunk_frames)) as w:
+        for frame in chunk_frames:
+            w.write_chunk(frame)
+    return buf.getvalue()
+
+
+def iter_container_frames(
+    reader, *, allow_empty: bool = False, salvage: bool = False
+) -> Iterator[bytes]:
+    """Yield chunk frames from a file-like container, one chunk in memory.
+
+    Fails closed with :class:`FrameError` on bad magic, a version below the
+    container minimum, bad or truncated varints, an implausible or zero
+    chunk count (``allow_empty`` accepts zero), mid-chunk EOF, nested
+    containers, a chunk that is not a frame, a CRC mismatch and trailing
+    garbage.  The trailing CRC is checked after the last chunk is yielded;
+    each chunk frame carries its own CRC, and the iterator raises before it
+    completes, so a consumer that drains it never takes a corrupt container
+    for a whole one.  (``salvage`` is not yet ported.)
+    """
+    from .versioning import CONTAINER_MIN_VERSION
+
+    if salvage:
+        raise NotImplementedError("container salvage is not yet ported to repro_torch")
+    head = reader.read(5)
+    if len(head) < 5 or head[:4] != CONTAINER_MAGIC:
+        raise FrameError("bad container magic")
+    crc = zlib.crc32(head)
+    version = head[4]
+    if version < CONTAINER_MIN_VERSION:
+        raise FrameError(f"container frame predates format v{CONTAINER_MIN_VERSION}")
+    n_chunks, raw = read_stream_varint(reader)
+    crc = zlib.crc32(raw, crc)
+    if n_chunks > MAX_CHUNKS:
+        raise FrameError("implausible chunk count")
+    if n_chunks == 0 and not allow_empty:
+        raise FrameError("empty container")
+    for _ in range(n_chunks):
+        flen, raw = read_stream_varint(reader)
+        crc = zlib.crc32(raw, crc)
+        if flen > (1 << 48):
+            raise FrameError("implausible chunk length")
+        chunk = reader.read(flen)
+        if len(chunk) != flen:
+            raise FrameError("truncated container chunk")
+        crc = zlib.crc32(chunk, crc)
+        if chunk[:4] == CONTAINER_MAGIC:
+            raise FrameError("nested container rejected")
+        if chunk[:4] != MAGIC:
+            raise FrameError("container chunk is not a frame")
+        yield bytes(chunk)
+    trailer = reader.read(4)
+    if len(trailer) != 4:
+        raise FrameError("truncated container trailer")
+    (crc_expect,) = _struct.unpack("<I", trailer)
+    if (crc & 0xFFFFFFFF) != crc_expect:
+        raise FrameError("container checksum mismatch")
+    if reader.read(1):
+        raise FrameError("trailing garbage in container")
+
+
+def read_container(blob: bytes) -> Tuple[int, List[bytes]]:
+    """Parse a container -> (version, [chunk frame bytes]).
+
+    Fails closed as the reference does: bad magic, CRC mismatch, a version
+    below the container minimum, an implausible chunk count, a truncated
+    chunk, a nested container and trailing garbage raise
+    :class:`FrameError`.  Each chunk is a memoryview into ``blob``.
+    """
+    from .versioning import CONTAINER_MIN_VERSION
+
+    view = memoryview(blob)
+    if len(view) < 10 or bytes(view[:4]) != CONTAINER_MAGIC:
+        raise FrameError("bad container magic")
+    end = len(view) - 4
+    (crc_expect,) = _struct.unpack("<I", view[end:])
+    if (zlib.crc32(view[:end]) & 0xFFFFFFFF) != crc_expect:
+        raise FrameError("container checksum mismatch")
+    version = view[4]
+    if version < CONTAINER_MIN_VERSION:
+        raise FrameError(f"container frame predates format v{CONTAINER_MIN_VERSION}")
+    n_chunks, pos = read_varint(view, 5)
+    if n_chunks > MAX_CHUNKS:
+        raise FrameError("implausible chunk count")
+    frames: List[bytes] = []
+    for _ in range(n_chunks):
+        flen, pos = read_varint(view, pos)
+        if pos + flen > end:
+            raise FrameError("truncated container chunk")
+        chunk = view[pos : pos + flen]
+        pos += flen
+        if bytes(chunk[:4]) == CONTAINER_MAGIC:
+            raise FrameError("nested container rejected")
+        frames.append(chunk)
+    if pos != end:
+        raise FrameError("trailing garbage in container")
+    return version, frames

@@ -58,16 +58,26 @@ def _lib():
     return library()
 
 
+class KernelError(RuntimeError):
+    """A wrapper's precondition on where or how its tensors lie (their
+    device, contiguity or alignment) failed.
+
+    A fault of the caller, never a codec's refusal of its data: it is not a
+    ``ValueError``, so neither a selector trial nor the chunked path's
+    fresh resolve, which catch only a codec's ``ValueError``, can hide it.
+    """
+
+
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     """True for CPU tensors; raise for any device but CPU or CUDA."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+        raise KernelError(f"tensors on several devices: {sorted(map(str, devs))}")
     (dev,) = devs
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
-        raise ValueError(f"repro_torch kernels run on cuda or cpu tensors, not {dev}")
+        raise KernelError(f"repro_torch kernels run on cuda or cpu tensors, not {dev}")
     return False
 
 
@@ -75,7 +85,7 @@ def _need(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"{what}: tensor must be contiguous")
+        raise KernelError(f"{what}: tensor must be contiguous")
 
 
 def _launched(rc: int, name: str) -> None:
@@ -328,7 +338,7 @@ def huffman_decode(
     _need(pos, torch.int64, "huffman_decode cursors")
     _need(lut, torch.int16, "huffman_decode LUT")
     if lut.data_ptr() % 16:
-        raise ValueError("huffman_decode: the LUT must be 16-byte aligned")
+        raise KernelError("huffman_decode: the LUT must be 16-byte aligned")
     n_lanes = pos.numel()
     out = torch.empty((max_rem, n_lanes), dtype=torch.uint8, device=buf.device)
     if n_lanes and max_rem:

@@ -20,7 +20,7 @@ from repro_torch.core.message import SType, from_numpy  # noqa: E402
 PORTED = (
     "store", "delta", "zigzag", "transpose", "range_pack",
     "tokenize", "huffman", "fse", "zlib_backend", "lz77", "float_split",
-    "bitpack", "fused_delta_bitpack", "lzma_backend", "bz2_backend",
+    "bitpack", "fused_delta_bitpack", "lzma_backend", "bz2_backend", "interpret_numeric",
 )
 DEVICE_TWINS = (
     "delta", "transpose", "huffman", "fse", "float_split", "bitpack", "fused_delta_bitpack",

@@ -395,7 +395,7 @@ def test_decode_wrappers_refuse_bad_shapes_and_devices():
             torch.zeros(100, dtype=torch.uint8), torch.zeros(100, dtype=torch.int32), 4,
         )
     meta = torch.zeros(8, dtype=torch.int64, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
+    with pytest.raises(ops.KernelError, match="cuda or cpu"):
         ops.delta_decode(meta)
 
 

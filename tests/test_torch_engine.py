@@ -85,10 +85,3 @@ def test_empty_and_tiny_columns_roundtrip():
         (out,) = repro_torch.decompress(frame, device="cpu")
         assert out.content_bytes() == col.tobytes()
 
-
-def test_chunked_compression_is_not_in_this_slice():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        repro_torch.compress(
-            repro_torch.numeric_profile(), repro_torch.numeric(np.arange(10)), device="cpu",
-            chunk_bytes=4,
-        )

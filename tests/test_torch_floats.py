@@ -307,5 +307,5 @@ def test_float_wrappers_refuse_bad_shapes_formats_and_devices():
     with pytest.raises(ValueError):
         ops.histogram(torch.zeros((2, 2), dtype=torch.uint8))
     meta = torch.zeros(8, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
+    with pytest.raises(ops.KernelError, match="cuda or cpu"):
         ops.float_split(meta, 2)

@@ -1,7 +1,8 @@
 """The port against the frozen golden corpus (``tests/golden/``).
 
 Every vector whose codecs and selectors all lie in the port's slice is
-re-encoded by the port on the CPU and must reproduce the frozen frame byte
+re-encoded by the port on the CPU (at the manifest's ``chunk_bytes``, so the
+container vectors write containers) and must reproduce the frozen frame byte
 for byte; the port's decoder must read every such frame back to its input.
 The plans reach the port the way a deployed compressor would: the
 reference's serialized plan, as a plain dict, through ``plan_from_dict``.
@@ -23,6 +24,10 @@ IN_SLICE = (
     "profile_float32", "profile_bfloat16", "profile_float64",
     "codec_bitpack", "codec_fused_delta_bitpack",
     "codec_lzma_backend", "codec_bz2_backend",
+    "container_numeric", "container_text", "profile_text",
+    "profile_generic_numeric", "profile_generic_text",
+    "version_v1_generic", "version_v2_generic", "version_v3_generic", "version_v4_generic",
+    "codec_interpret_numeric", "trained_era5_flux",
 )
 MANIFEST = load_manifest()
 ALL_PLANS = sorted(p.stem for p in GOLDEN_DIR.glob("*.ozp"))
@@ -49,6 +54,7 @@ def test_port_reproduces_frozen_frame(name):
         [from_numpy(s.data, SType(int(s.stype)), s.width)],
         CompressionCtx(entry["format_version"], LEVEL),
         device="cpu",
+        chunk_bytes=entry["chunk_bytes"] or None,
     )
     assert frame == (GOLDEN_DIR / f"{name}.ozl").read_bytes()
 

@@ -47,6 +47,13 @@ def test_port_file_imports_nothing_forbidden(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_the_scan_covers_the_container_slices_modules():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("codecs/convert.py", "codecs/selectors.py", "codecs/profiles.py",
+                "core/wire.py", "core/engine.py"):
+        assert port / rel in PORT_FILES
+
+
 def test_importing_the_port_loads_nothing_forbidden_and_no_cuda():
     code = (
         "import sys, torch, repro_torch, repro_torch.codecs, repro_torch.kernels.ops,"
@@ -75,5 +82,5 @@ def test_entry_point_without_a_card_raises(monkeypatch):
 
 def test_kernel_wrappers_refuse_other_devices():
     meta = torch.zeros(8, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
+    with pytest.raises(ops.KernelError, match="cuda or cpu"):
         ops.delta_encode(meta)
