@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              that its narrow, wide and byte-wise paths all run with their
              unaligned plane stores, then timed in turns with
              ``t().contiguous()`` at column A's and B's records, the tANS
-             lane layout (65,536, 1024) and a 64 KiB trial's (8192, 8);
+             lane layout (65,536, 1024), a 64 KiB trial's (8192, 8) and the
+             SAO catalogue's (258,997, 8);
              Huffman map; tANS encode at 65,536 lanes and at a 64 KiB
              trial's 64, each at table_log 11, 15 and 16, with full lanes
              and with lanes of length 1 and 2 and a short last lane, timed
@@ -48,7 +49,8 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              planes, and
              byte unshuffle on A's and B's planes and both decoders' lanes,
              and at a ragged size of each regime, (8, 2^23 - 8) and
-             (4096, 16383), each timed in turns with ``t().contiguous()``
+             (4096, 16383), and the SAO catalogue's (8, 258,997), each
+             timed in turns with ``t().contiguous()``
              (``turns_ms``), then at widths 1 to
              1024 on ragged sizes and multiples of 16, from planes at offsets
              0, 1 and 16 bytes, so that its narrow, wide and byte-wise paths
@@ -113,7 +115,35 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              the same run.  A container whose third chunk has one payload
              byte flipped raises ``FrameError`` on the card before any
              kernel launches.
-6. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
+6. records — the structural codecs, STRING streams and the record
+             profiles at level 5, made from ``--seed``: S, the SAO star
+             catalogue of the paper's §IV at the published size of
+             Silesia's ``sao`` (258,997 records of 28 bytes behind a 28-byte
+             header, 7,251,944 bytes; ``make_sao``) through
+             ``sao_profile()``; R, 2,396,745 such records headerless (64
+             MiB) through ``struct_profile([8, 8, 2, 2, 4, 4])``
+             (``field_split``, then ``generic_auto`` a field); T, a STRING
+             column of 2^22 strings (one Arrow/Parquet row group's worth:
+             words of a 2^16-word lowercase vocabulary, zipf(1.1) over
+             their ranks, each min(zipf(1.6), 255) bytes, 1/16 of the rows
+             empty) through ``generic_profile()`` unchunked and at 4 MiB
+             chunks, and through its dictionary plan (``tokenize``, then
+             ``generic_auto`` on the alphabet and ``numeric_auto`` on the
+             indices).  Each call through ``compress(..., device="cuda")``
+             and back through ``decompress``, with the launch counts reset
+             before and read after each half: decoded on the card and equal
+             to its input there; the card's frame (or container, at 1 MiB)
+             on a prefix (S whole; 4 MiB of R and T) equal to the CPU's;
+             S's compress launches delta, byte shuffle, histogram, Huffman
+             map and tANS encode, its decompress delta decode and byte
+             unshuffle.  Then each structural codec alone (``dup``,
+             ``constant``, ``split_n``, ``concat``, ``field_split``,
+             ``string_split``, ``rle``, ``transpose_split``, STRING
+             ``tokenize``) on a prefix, card frame equal to the CPU's and
+             decoded on the card; and T through ``store``, its lengths'
+             varints written and read one Python call a string against the
+             vectorised wire, in one run.
+7. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -123,14 +153,17 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-7. profile — one more compress and one decompress per plan and column under
+8. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
-             then the container phase's calls and A's unchunked one.
-8. identity — the card's name and power limit.
+             then the container phase's calls and A's unchunked one, and
+             the records phase's calls.
+9. identity — the card's name and power limit.
 
-Output: a line per phase; then the ``{"kernels": [...]}`` JSON line, the
+Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
+kernel's ``launches`` in the main and decode phases, ``container_launches``
+and ``records_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -241,7 +274,9 @@ HIST_CONFIGS = {"<HConfig<1, 8> >": "histogram_kernel (one block, <= 64 KiB)",
                 "<HConfig<2, 16> >": "histogram_kernel (grid, > 64 KiB)"}
 HOST_STAGES = ("choose_best", "_lz77_enc", "_lz77_dec", "_zlib_enc", "_zlib_dec",
                "_lzma_enc", "_lzma_dec", "_bz2_enc", "_bz2_dec", "write_frame", "read_frame",
-               "write_container", "read_container", "_pack_bits", "_unpack_bits")
+               "write_container", "read_container", "_pack_bits", "_unpack_bits",
+               "_tokenize_strings", "_untokenize_strings", "write_varints",
+               "read_string_lengths")
 COLUMN_BYTES = 64 << 20
 PREFIX_BYTES = 4 << 20
 # the level-7 phase: the float profiles, whose entropy_auto and bytes_auto
@@ -276,15 +311,36 @@ CONTAINER_CALLS = (("A", "A_timestamps_i64", "numeric", "generic_profile", 0),
 # data (bitpack is left out: at bits that do not divide 32 it takes the bit
 # writer, not K5)
 ENCODE_KERNELS_OF = {"delta": ("delta_encode",), "transpose": ("byteshuffle",),
+                     "transpose_split": ("byteshuffle",),
                      "huffman": ("histogram", "huffman_map"),
                      "fse": ("histogram", "byteshuffle", "fse_encode"),
                      "fused_delta_bitpack": ("delta_encode", "fused_delta_bitpack"),
                      "float_split": ("float_split",)}
 DECODE_KERNELS_OF = {"delta": ("delta_decode",), "transpose": ("byteunshuffle",),
+                     "transpose_split": ("byteunshuffle",),
                      "huffman": ("huffman_decode", "byteunshuffle"),
                      "fse": ("fse_decode", "byteunshuffle"),
                      "fused_delta_bitpack": ("fused_delta_bitpack_decode",),
                      "float_split": ("float_merge",)}
+# the records phase: the SAO catalogue at the published size of Silesia's
+# ``sao`` (258,997 records of 28 bytes behind a 28-byte header: 7,251,944
+# bytes), the same records headerless at 64 MiB, and a STRING column
+SAO_HEADER_BYTES = 28
+SAO_RECORDS = 258_997
+SAO_WIDTHS = (8, 8, 2, 2, 4, 4)
+R_RECORDS = COLUMN_BYTES // 28  # 2,396,745 records, 67,108,860 bytes
+PREFIX_RECORDS = PREFIX_BYTES // 28
+T_STRINGS = 1 << 22
+T_VOCAB = 1 << 16
+# the records phase's calls: (label, source, plan, chunk bytes); S's compress
+# must launch SAO_ENCODE_KERNELS and its decompress SAO_DECODE_KERNELS
+RECORD_CALLS = (("S", "S", "sao_profile", None),
+                ("R", "R", "struct_profile", None),
+                ("T", "T", "generic_profile", None),
+                ("T_chunked", "T", "generic_profile", CHUNK_BYTES),
+                ("T_dict", "T", "string_dict", None))
+SAO_ENCODE_KERNELS = ("delta_encode", "byteshuffle", "histogram", "huffman_map", "fse_encode")
+SAO_DECODE_KERNELS = ("delta_decode", "byteunshuffle")
 # encode_offset_sweep's sizes: ragged, past one vector and past a block's
 OFFSET_SIZES = (1, 37, 4097)
 
@@ -324,6 +380,48 @@ def timestamps(rng, n: int) -> np.ndarray:
     """Column A: n int64 nanosecond timestamps, ~1 ms ticks jittered by ±25 %."""
     gaps = 1_000_000 + rng.integers(-250_000, 250_000, n)
     return (1_700_000_000_000_000_000 + np.cumsum(gaps)).astype(np.int64)
+
+
+def make_sao(n_records: int, seed: int) -> bytes:
+    """The SAO star catalogue of the paper's §IV: a 28-byte header, then
+    28-byte records of sorted right-ascension f64, bounded declination f64,
+    low-cardinality spectral/magnitude/motion fields (the recipe of
+    ``benchmarks/datasets.py``'s ``make_sao``, copied: that module imports
+    the JAX package)."""
+    rng = np.random.default_rng(seed)
+    rec = np.zeros(
+        n_records,
+        dtype=[("sra", "<f8"), ("sdec", "<f8"), ("is", "<u2"), ("mag", "<i2"),
+               ("xrpm", "<f4"), ("xdpm", "<f4")],
+    )
+    rec["sra"] = np.sort(rng.uniform(0, 2 * np.pi, n_records))
+    rec["sdec"] = rng.uniform(-np.pi / 2, np.pi / 2, n_records)
+    p = np.arange(1, 65, dtype=np.float64) ** -1.3
+    rec["is"] = rng.choice(64, n_records, p=p / p.sum())
+    rec["mag"] = rng.choice(np.arange(-149, 1450, 10, dtype=np.int16), n_records)
+    rec["xrpm"] = rng.choice(np.round(np.linspace(-0.5, 0.5, 997), 5).astype(np.float32),
+                             n_records)
+    rec["xdpm"] = rng.choice(np.round(np.linspace(-0.5, 0.5, 1009), 5).astype(np.float32),
+                             n_records)
+    return b"\x00" * SAO_HEADER_BYTES + rec.tobytes()
+
+
+def string_column(seed: int, n: int):
+    """T: n strings, one Arrow/Parquet row group's string column: words of a
+    vocabulary of 2^16 lowercase words, word r drawn with probability
+    proportional to r^-1.1, each word min(zipf(1.6), 255) bytes long, and
+    1/16 of the rows empty -> (content bytes, uint32 lengths)."""
+    rng = np.random.default_rng(seed)
+    word_lens = np.minimum(rng.zipf(1.6, T_VOCAB), 255).astype(np.int64)
+    vocab = rng.integers(ord("a"), ord("z") + 1, int(word_lens.sum()), dtype=np.uint8)
+    word_off = np.cumsum(word_lens) - word_lens
+    p = np.arange(1, T_VOCAB + 1, dtype=np.float64) ** -1.1
+    rank = rng.choice(T_VOCAB, n, p=p / p.sum())
+    lengths = np.where(rng.random(n) < 1 / 16, 0, word_lens[rank])
+    total = int(lengths.sum())
+    row_off = np.cumsum(lengths) - lengths
+    pos = np.arange(total, dtype=np.int64) + np.repeat(word_off[rank] - row_off, lengths)
+    return vocab[pos], lengths.astype(np.uint32)
 
 
 def stream_of(rt, cname: str, col: np.ndarray):
@@ -425,11 +523,13 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     # K3 byte shuffle: every width, n % 16 and input offset of the sweep,
     # then the main path's shapes, each timed in turns with t().contiguous():
     # column A's 8-byte and B's 4-byte records, the tANS lane layout (65,536
-    # lanes of 1024 symbols) and a 64 KiB selector trial's records
+    # lanes of 1024 symbols), a 64 KiB selector trial's records and the SAO
+    # catalogue's 8-byte fields (the records phase's transpose_split)
     recs = col_a.view(torch.uint8).view(-1, 8)
     lanes = col_b.view(torch.uint8).view(-1, 1024)
     shuffle_shapes = {"(2^23, 8)": recs, "(2^24, 4)": col_b.view(torch.uint8).view(-1, 4),
-                      "(65536, 1024)": lanes, "(8192, 8)": recs[:8192]}
+                      "(65536, 1024)": lanes, "(8192, 8)": recs[:8192],
+                      f"({SAO_RECORDS}, 8)": recs[:SAO_RECORDS]}
     err = max_abs_err([ops.byteshuffle(x) for x in shuffle_shapes.values()],
                       [ref.byteshuffle(x) for x in shuffle_shapes.values()])
     err = max(err, shuffle_sweep(ops, ref, seed))
@@ -639,12 +739,14 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
           f" huffman_decode_ms={max_rem * STEP_CYCLES / sm_hz * 1e3}"
           f" fse_decode_ms={f_rem * STEP_CYCLES / sm_hz * 1e3}")
 
-    # K4 byte unshuffle: column A's and B's planes, and both decoders' lanes
+    # K4 byte unshuffle: column A's and B's planes, both decoders' lanes and
+    # the SAO catalogue's 8-byte planes (the records phase's transpose_split)
     shapes = {
         "(8, 2^23)": ops.byteshuffle(recs),
         "(4, 2^24)": ops.byteshuffle(col_b.view(torch.uint8).view(-1, 4)),
         f"{tuple(h_planes.shape)}": h_planes,
         f"{tuple(f_planes.shape)}": f_planes,
+        f"(8, {SAO_RECORDS})": ops.byteshuffle(recs[:SAO_RECORDS]),
     }
     err = max_abs_err([ops.byteunshuffle(p) for p in shapes.values()],
                       [ref.byteunshuffle(p) for p in shapes.values()])
@@ -1485,6 +1587,241 @@ def container_phase(cols, rt, ops):
     return calls, totals
 
 
+def record_plan(rt, pname: str):
+    """The records phase's plans: the paper's §IV SAO graph, the generic record
+    path over the SAO fields, the generic profile, and T's dictionary plan
+    (``tokenize``, then ``generic_auto`` on the alphabet and ``numeric_auto``
+    on the u32 indices)."""
+    if pname == "sao_profile":
+        return rt.sao_profile()
+    if pname == "struct_profile":
+        return rt.struct_profile(list(SAO_WIDTHS))
+    if pname == "generic_profile":
+        return rt.generic_profile()
+    g = rt.GraphBuilder(1)
+    alpha, idx = g.add("tokenize", g.input(0))
+    g.select("generic_auto", alpha)
+    g.select("numeric_auto", idx)
+    return g.build("string_dict")
+
+
+def string_stream(rt, content: np.ndarray, lengths: np.ndarray):
+    import torch
+
+    return rt.Stream(torch.from_numpy(content), rt.SType.STRING, 1, lengths).validate()
+
+
+def string_prefix(rt, content: np.ndarray, lengths: np.ndarray, nbytes: int):
+    """T's first strings whose bytes total at most ``nbytes``."""
+    keep = int(np.searchsorted(np.cumsum(lengths, dtype=np.int64), nbytes, side="right"))
+    return string_stream(rt, content[: int(lengths[:keep].sum())], lengths[:keep])
+
+
+def same_stream(out, want) -> bool:
+    """``out`` lies on the card and equals ``want`` (compared on the card)."""
+    import torch
+
+    if out.data.device.type != "cuda" or (out.stype, out.width) != (want.stype, want.width):
+        return False
+    if want.lengths is not None and not np.array_equal(out.lengths, want.lengths):
+        return False
+    return torch.equal(out.data, want.data.to("cuda"))
+
+
+def first_codecs(rt, frame: bytes) -> str:
+    """The codecs a frame records, or a container's first chunk."""
+    from repro_torch.core import wire
+
+    return frame_codecs(rt, wire.read_container(frame)[1][0] if wire.is_container(frame)
+                        else frame)
+
+
+def records_data(rt, seed: int):
+    """S, R and T (their streams on the host) and their prefixes."""
+    t0 = time.perf_counter()
+    sao = make_sao(SAO_RECORDS, seed)
+    recs = np.frombuffer(make_sao(R_RECORDS, seed + 1), np.uint8)[SAO_HEADER_BYTES:]
+    content, lengths = string_column(seed, T_STRINGS)
+    streams = {"S": rt.serial(sao), "R": rt.struct(recs, 28),
+               "T": string_stream(rt, content, lengths)}
+    prefixes = {"S": streams["S"], "R": rt.struct(recs[: PREFIX_RECORDS * 28], 28),
+                "T": string_prefix(rt, content, lengths, PREFIX_BYTES)}
+    print(f"records data: S {len(sao)} bytes ({SAO_RECORDS} records of 28 + a"
+          f" {SAO_HEADER_BYTES}-byte header), R {recs.size} bytes ({R_RECORDS} records),"
+          f" T {lengths.size} strings, {content.size} content bytes"
+          f" ({content.size / 2 ** 20} MiB), {int((lengths == 0).sum())} empty,"
+          f" {int(len(np.unique(lengths)))} distinct lengths;"
+          f" seconds={time.perf_counter() - t0}")
+    return streams, prefixes, (content, lengths)
+
+
+def records_phase(rt, ops, seed: int):
+    """The structural codecs, STRING streams and the record profiles on the
+    card (``RECORD_CALLS``): each call through ``compress(...,
+    device="cuda")`` and back through ``decompress``, with the launch counts
+    reset just before and read just after each half; the prefix's frame (or
+    container) equal to the CPU's; then the codec sweep and T's stored frame.
+    Returns the calls (for the profile phase) and each kernel's launches
+    summed over them."""
+    import torch
+    from repro_torch.core import wire
+
+    streams, prefixes, (_content, lengths) = records_data(rt, seed)
+    calls, totals = [], {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+    for label, src, pname, chunk_bytes in RECORD_CALLS:
+        plan, stream, prefix = record_plan(rt, pname), streams[src], prefixes[src]
+        # the prefix on the card and on the CPU (chunked at 1 MiB where the call
+        # is chunked); this also warms the kernels and the allocator
+        small = PREFIX_CHUNK_BYTES if chunk_bytes else None
+        on_card = rt.compress(plan, prefix, device="cuda", chunk_bytes=small)
+        if on_card != rt.compress(plan, prefix, device="cpu", chunk_bytes=small):
+            fail(f"records {label}: the card's prefix frame differs from the CPU's")
+        (back,) = rt.decompress(on_card, device="cuda")
+        if not same_stream(back, prefix):
+            fail(f"records {label}: the prefix frame did not decode on the card")
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        frame = rt.compress(plan, stream, device="cuda", chunk_bytes=chunk_bytes)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        encode = ops.launch_counts()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        (out,) = rt.decompress(frame, device="cuda")
+        torch.cuda.synchronize()
+        ddt = time.perf_counter() - t0
+        decode = ops.launch_counts()
+        for k in totals:
+            totals[k] += encode[k] + decode[k]
+        if not same_stream(out, stream):
+            fail(f"records {label}: decompress on the card did not return the input")
+        codecs = first_codecs(rt, frame)
+        named = codecs.split("+")
+        missing = ([k for c in named for k in ENCODE_KERNELS_OF.get(c, ()) if encode[k] == 0]
+                   + [k for c in named for k in DECODE_KERNELS_OF.get(c, ()) if decode[k] == 0])
+        if label == "S":
+            missing += ([k for k in SAO_ENCODE_KERNELS if encode[k] == 0]
+                        + [k for k in SAO_DECODE_KERNELS if decode[k] == 0])
+        if missing:
+            fail(f"records {label} [{codecs}]: never launched {sorted(set(missing))}")
+        nbytes = stream.nbytes  # T: its content and 4 bytes a length
+        chunks = f" chunks={len(wire.read_container(frame)[1])}" if chunk_bytes else ""
+        print(f"records {label} {pname} chunk_bytes={chunk_bytes} [{codecs}]:{chunks}"
+              f" bytes={nbytes} frame_bytes={len(frame)} ratio={nbytes / len(frame)}"
+              f" compress_MBps={nbytes / dt / 1e6} seconds={dt}"
+              f" decompress_MBps={nbytes / ddt / 1e6} decompress_seconds={ddt}")
+        print(f"records {label} launches: compress {json.dumps(encode)}"
+              f" decompress {json.dumps(decode)}")
+        print(f"check records {label}: decoded on the card (output on {out.data.device}),"
+              f" equal to the input; prefix card frame == cpu frame ({len(on_card)} bytes,"
+              f" {prefix.nbytes} input bytes); the kernels of its codecs launched")
+        calls.append((label, pname, plan, stream, chunk_bytes, frame, codecs))
+    print(f"records launches {json.dumps(totals)}")
+    codec_sweep(rt, streams, prefixes)
+    store_strings(rt, streams["T"], lengths)
+    print(f"records phase seconds={time.perf_counter() - t_phase}")
+    return calls, totals
+
+
+def codec_sweep(rt, streams, prefixes) -> None:
+    """Each structural codec alone (its outputs stored) on the card, on a
+    prefix of S, R or T: the frame equals the CPU's and decodes on the card."""
+    import torch
+
+    r_raw = prefixes["R"].data.numpy()
+    n = PREFIX_RECORDS
+    is_field = r_raw.reshape(n, 28)[:, 16:18].copy().view(np.uint16).reshape(-1)
+    inputs = {
+        "S": streams["S"], "R": prefixes["R"], "T": prefixes["T"],
+        # R's first record, repeated: an all-equal column
+        "R_constant": rt.struct(np.tile(r_raw[:28], n), 28),
+        # R's IS field sorted: 64 runs
+        "R_IS_sorted": rt.numeric(np.sort(is_field, kind="stable")),
+        "R_SRA0": rt.numeric(r_raw.reshape(n, 28)[:, :8].copy().view(np.uint64).reshape(-1)),
+    }
+    sweep = (("dup", "S", {}), ("constant", "R_constant", {}),
+             ("split_n", "S", {"sizes": [SAO_HEADER_BYTES, -1]}), ("concat", "R", None),
+             ("field_split", "R", {"widths": list(SAO_WIDTHS)}), ("string_split", "T", {}),
+             ("rle", "R_IS_sorted", {}), ("transpose_split", "R_SRA0", {}),
+             ("tokenize", "T", {}))
+    for codec, src, params in sweep:
+        g = rt.GraphBuilder(1)
+        if params is None:  # concat: the halves of a split, joined again
+            a, b = g.add("split_n", g.input(0), n_out=2, sizes=[n // 2, -1])
+            g.add("concat", a, b)
+        else:
+            n_out = {"split_n": 2, "field_split": len(SAO_WIDTHS), "transpose_split": 8}.get(codec)
+            g.add(codec, g.input(0), n_out=n_out, **params)
+        plan, stream = g.build(f"sweep_{codec}"), inputs[src]
+        rt.compress(plan, stream, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = rt.compress(plan, stream, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (out,) = rt.decompress(frame, device="cuda")
+        torch.cuda.synchronize()
+        ddt = time.perf_counter() - t0
+        if not same_stream(out, stream):
+            fail(f"sweep {codec}: decompress on the card did not return {src}")
+        if frame != rt.compress(plan, stream, device="cpu"):
+            fail(f"sweep {codec}: the card's frame differs from the CPU's")
+        print(f"sweep {codec} on {src} [{frame_codecs(rt, frame)}]: bytes={stream.nbytes}"
+              f" frame_bytes={len(frame)} compress_MBps={stream.nbytes / dt / 1e6}"
+              f" decompress_MBps={stream.nbytes / ddt / 1e6}; card frame == cpu frame,"
+              f" decoded on {out.data.device}")
+
+
+def store_strings(rt, stream, lengths: np.ndarray) -> None:
+    """T through ``store``: the STRING lengths' trip through the wire, one
+    Python varint call a string (as ``write_frame`` and ``read_frame`` did
+    before) against the vectorised ``write_varints`` and
+    ``read_string_lengths``, in one run."""
+    import torch
+    from repro_torch.core import wire
+
+    t0 = time.perf_counter()
+    loop = bytearray()
+    for ln in lengths.tolist():
+        wire.write_varint(loop, int(ln))
+    loop_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pos, back = 0, np.empty(lengths.size, np.uint32)
+    for i in range(lengths.size):
+        back[i], pos = wire.read_varint(loop, pos)
+    loop_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vec = wire.write_varints(lengths)
+    vec_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vec_back, _pos = wire.read_string_lengths(vec, 0, len(vec), lengths.size)
+    vec_read = time.perf_counter() - t0
+    if vec != bytes(loop) or not (np.array_equal(back, lengths)
+                                  and np.array_equal(vec_back, lengths)):
+        fail("store T: the vectorised varints differ from the loop's")
+    plan = rt.pipeline("store")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = rt.compress(plan, stream, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (out,) = rt.decompress(frame, device="cuda")
+    torch.cuda.synchronize()
+    ddt = time.perf_counter() - t0
+    if not same_stream(out, stream):
+        fail("store T: decompress on the card did not return T")
+    print(f"store T: {lengths.size} lengths, {len(vec)} varint bytes;"
+          f" before (a Python call a string) write_seconds={loop_write}"
+          f" read_seconds={loop_read}; after (numpy) write_seconds={vec_write}"
+          f" read_seconds={vec_read}; store compress_seconds={dt}"
+          f" decompress_seconds={ddt} frame_bytes={len(frame)}")
+
+
 def level_phase(cols, rt, ops) -> None:
     """The level-7 path on the card: each of ``LEVEL_COLUMNS`` through
     ``compress`` and back through ``decompress``, with the launch counts reset
@@ -1563,11 +1900,12 @@ def frame_codecs(rt, frame: bytes) -> str:
     return "+".join(get_codec_by_id(node.codec_id).name for node in read_frame(frame)[2])
 
 
-def profile_phase(cols, frames, rt, container_calls) -> None:
+def profile_phase(cols, frames, rt, container_calls, record_calls) -> None:
     """Where one compress and one decompress call's time goes: the card's busy
     time from ``torch.profiler`` (its kernels, by name) and the host's time
     from ``cProfile`` (its functions, by cumulative time); the main and
-    decode phases' calls, summed per kernel, then the container phase's."""
+    decode phases' calls, summed per kernel, then the container phase's and
+    the records phase's."""
     plans = {name: make(rt) for name, make in PLANS.items()}
     sums = {"compress": {}, "decompress": {}}
     for cname, pname in column_plans(cols):
@@ -1585,8 +1923,10 @@ def profile_phase(cols, frames, rt, container_calls) -> None:
     print(f"profile sums, device ms per kernel over the {len(frames)} compress and"
           f" {len(frames)} decompress calls: {json.dumps(dict(sorted(total.items())))}"
           f" compress: {json.dumps(sums['compress'])} decompress: {json.dumps(sums['decompress'])}")
-    for label, pname, plan, stream, chunk_bytes, frame, codecs in container_calls:
-        tag = f"container {label} {pname} chunk_bytes={chunk_bytes} [{codecs}]"
+    tagged = ([("container", c) for c in container_calls]
+              + [("records", c) for c in record_calls])
+    for phase, (label, pname, plan, stream, chunk_bytes, frame, codecs) in tagged:
+        tag = f"{phase} {label} {pname} chunk_bytes={chunk_bytes} [{codecs}]"
         profile_call(tag, lambda: rt.compress(plan, stream, device="cuda",
                                               chunk_bytes=chunk_bytes))
         profile_call(f"decompress {tag}", lambda: rt.decompress(frame, device="cuda"))
@@ -1691,11 +2031,13 @@ def main() -> None:
     launches.update({k: v for k, v in decode_phase(cols, frames, rt, ops).items()
                      if k not in ENCODE_KERNELS})
     container_calls, container_launches = container_phase(cols, rt, ops)
+    record_calls, records_launches = records_phase(rt, ops, args.seed)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
+        r["records_launches"] = records_launches[r["name"]]
     level_phase(cols, rt, ops)
-    profile_phase(cols, frames, rt, container_calls)
+    profile_phase(cols, frames, rt, container_calls, record_calls)
     identity = nvidia_smi("name,power.limit")
     print(json.dumps({"kernels": rows}))
     print(identity)

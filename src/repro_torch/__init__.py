@@ -16,6 +16,9 @@ Entry points::
     frame = compress(pipeline(("bitpack", {"bits": 4})), numeric(int4_codes))
     frame = compress(generic_profile(), serial(blob), chunk_bytes=4 << 20)
     (out,) = decompress(frame)                   # a container, joined on the card
+    frame = compress(generic_profile(), strings([b"ab", b"", b"ab"]))  # a STRING column
+    frame = compress(sao_profile(), serial(sao_file))     # the paper's §IV example
+    frame = compress(struct_profile([8, 8, 2, 2, 4, 4]), struct(records, 28))
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
@@ -30,11 +33,15 @@ chunk, and the chunk frames go into one ``OZLC`` container, byte for byte
 the reference's.
 """
 from .codecs.profiles import (  # noqa: F401
+    SAO_FIELDS,
+    SAO_HEADER_BYTES,
     bfloat16_profile,
     float32_profile,
     float64_profile,
     generic_profile,
     numeric_profile,
+    sao_profile,
+    struct_profile,
     text_profile,
 )
 from .core import (  # noqa: F401
@@ -49,5 +56,6 @@ from .core import (  # noqa: F401
     pipeline,
     plan_from_dict,
     serial,
+    strings,
     struct,
 )

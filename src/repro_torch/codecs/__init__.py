@@ -4,10 +4,11 @@ selectors.  Each codec encodes and decodes on the device its streams lie
 on.
 
 Codec ids ported so far:
-   1 store   3 delta   4 zigzag   5 transpose   6 bitpack   9 tokenize
+   1 store   2 dup   3 delta   4 zigzag   5 transpose   6 bitpack   7 rle
+   8 constant   9 tokenize   10 field_split   11 split_n   12 concat
   13 range_pack   14 huffman   15 fse   16 lz77   17 zlib_backend
-  18 float_split   23 interpret_numeric   24 lzma_backend   25 bz2_backend
-  26 fused_delta_bitpack
+  18 float_split   21 string_split   22 transpose_split   23 interpret_numeric
+  24 lzma_backend   25 bz2_backend   26 fused_delta_bitpack
 """
 from . import basic  # noqa: F401
 from . import numeric  # noqa: F401
@@ -17,3 +18,9 @@ from . import floats  # noqa: F401
 from . import convert  # noqa: F401
 from . import selectors  # noqa: F401
 from . import profiles  # noqa: F401
+from .profiles import (  # noqa: F401
+    SAO_FIELDS,
+    SAO_HEADER_BYTES,
+    sao_profile,
+    struct_profile,
+)

@@ -1,17 +1,21 @@
-"""Numeric transforms: delta, zigzag, transpose, range_pack, bitpack,
-fused_delta_bitpack, tokenize.
+"""Numeric transforms: delta, zigzag, transpose, transpose_split, range_pack,
+bitpack, fused_delta_bitpack, rle, tokenize.
 
 The port's copy of the slice's codecs from ``repro.codecs.numeric``: same
 codec ids, same headers, same output streams.  Encoders are PyTorch on the
-device the stream lives on — ``delta``, ``transpose``, ``bitpack`` and
-``fused_delta_bitpack`` through their kernels (``kernels/ops.py``), the
-others as plain tensor ops, since the reference ran them on the host and
-they had no TPU kernel.  Decoders run the same way on the device their input
-lies on: ``delta`` through K2, ``transpose`` through K4, ``bitpack`` through
-K6 and ``fused_delta_bitpack`` through K12, ``zigzag``, ``range_pack`` and
+device the stream lives on — ``delta``, ``transpose``, ``transpose_split``,
+``bitpack`` and ``fused_delta_bitpack`` through their kernels
+(``kernels/ops.py``), the others as plain tensor ops, since the reference ran
+them on the host and they had no TPU kernel.  Decoders run the same way on
+the device their input lies on: ``delta`` through K2, ``transpose`` and
+``transpose_split`` through K4, ``bitpack`` through K6 and
+``fused_delta_bitpack`` through K12, ``zigzag``, ``range_pack``, ``rle`` and
 ``tokenize`` as tensor ops (the unsigned helpers, a byte gather with shifts,
-a row gather).  ``bitpack`` at bits that do not divide 32, or on a 64-bit
-column, takes the codecs' bit writer and reader, as ``range_pack`` does.
+``repeat_interleave``, a row gather).  ``bitpack`` at bits that do not
+divide 32, or on a 64-bit column, takes the codecs' bit writer and reader,
+as ``range_pack`` does.  ``tokenize`` on a STRING stream builds its
+dictionary on the host (``_tokenize_strings``), as the reference does, and
+gathers the strings back on the device.
 
 Unsigned semantics on signed carriers: values are widened to int64 (widths
 1, 2, 4) or handled as 64-bit patterns in 32-bit halves (width 8), so no
@@ -19,6 +23,7 @@ result relies on signed overflow.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.codec import CodecSpec, register_codec
@@ -27,6 +32,7 @@ from ..core.message import (
     SType,
     join_u32,
     narrow_unsigned,
+    strings,
     sub_u64,
     widen_unsigned,
 )
@@ -153,6 +159,44 @@ register_codec(
         encode=_transpose_enc,
         decode=_transpose_dec,
         doc="byte-plane shuffle (Blosc-style) (kernels K3, K4)",
+    )
+)
+
+
+# ----------------------------------------------------------- transpose_split
+def _transpose_split_enc(streams, params):
+    s = streams[0]
+    if s.stype not in (SType.STRUCT, SType.NUMERIC):
+        raise ValueError("transpose_split wants struct/numeric input")
+    mat, w = fixed_records(s)
+    planes = ops.byteshuffle(mat)  # (w, n): each row is one output, no copy
+    h = HeaderWriter().u8(int(s.stype)).varint(w).done()
+    return [Stream(planes[j], SType.SERIAL, 1) for j in range(w)], h
+
+
+def _transpose_split_dec(outs, header):
+    r = HeaderReader(header)
+    stype = SType(r.u8())
+    w = r.varint()
+    r.expect_end()
+    if w < 1 or len(outs) != w:
+        raise ValueError(f"transpose_split: {len(outs)} planes for width {w}")
+    n = outs[0].data.numel()
+    if any(o.data.numel() != n for o in outs):
+        raise ValueError("transpose_split: planes of different lengths")
+    # the planes arrive as separate tensors: one stack, then K4
+    records = ops.byteunshuffle(torch.stack([o.raw() for o in outs]))
+    return [rebuild_like(stype, w, records)]
+
+
+register_codec(
+    CodecSpec(
+        "transpose_split",
+        codec_id=22,
+        encode=_transpose_split_enc,
+        decode=_transpose_split_dec,
+        n_outputs=-1,
+        doc="byte planes as separate outputs, each to its own backend (kernels K3, K4)",
     )
 )
 
@@ -422,11 +466,80 @@ register_codec(
 )
 
 
+# ----------------------------------------------------------------------- rle
+def _rle_enc(streams, params):
+    s = streams[0]
+    if s.stype == SType.STRING:
+        raise ValueError("rle: fixed-width streams only")
+    # runs of equal (n, w) byte records, whatever the stream type
+    mat, _w = fixed_records(s)
+    n = mat.shape[0]
+    dev = mat.device
+    if n == 0:
+        starts = torch.zeros(0, dtype=torch.int64, device=dev)
+    else:
+        change = (mat[1:] != mat[:-1]).any(1)
+        starts = torch.cat([
+            torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.nonzero(change).reshape(-1) + 1,
+        ])
+    runs = torch.diff(starts, append=torch.full((1,), n, dtype=torch.int64, device=dev))
+    values = rebuild_like(s.stype, s.width, mat[starts].reshape(-1))
+    h = HeaderWriter().u8(int(s.stype)).varint(s.width).done()
+    return [values, numeric_stream(narrow_unsigned(runs, 4))], h
+
+
+def _rle_dec(outs, header):
+    values, runs = outs
+    r = HeaderReader(header)
+    stype = SType(r.u8())
+    width = r.varint()
+    r.expect_end()
+    w = width if stype != SType.SERIAL else 1
+    raw = values.raw()
+    if w < 1 or raw.numel() % w:
+        raise ValueError(f"rle: {raw.numel()} value bytes for width {w}")
+    mat = raw.view(-1, w)
+    reps = widen_unsigned(_require_numeric(runs, "rle runs"))
+    if reps.numel() != mat.shape[0]:
+        raise ValueError(f"rle: {reps.numel()} runs for {mat.shape[0]} values")
+    total = int(reps.sum()) if reps.numel() else 0  # one scalar sync
+    rep = torch.repeat_interleave(mat, reps, dim=0, output_size=total)
+    return [rebuild_like(stype, width, rep)]
+
+
+register_codec(
+    CodecSpec(
+        "rle",
+        codec_id=7,
+        encode=_rle_enc,
+        decode=_rle_dec,
+        n_outputs=2,
+        doc="run-length: (values, u32 run lengths)",
+    )
+)
+
+
 # ------------------------------------------------------------------ tokenize
+def _tokenize_strings(s: Stream):
+    """The host dictionary of a STRING stream: its distinct strings in
+    first-occurrence order (equality on the whole byte string) and each
+    string's u32 index, both back on the stream's device."""
+    items = s.to_strings()  # one card-to-host copy of the content
+    seen: dict = {}
+    # a new string gets the dictionary's size before it joins: its rank
+    idx = np.fromiter((seen.setdefault(it, len(seen)) for it in items), np.int64, len(items))
+    alphabet = strings(seen).to(s.device)
+    # indices are ALWAYS u32 (see the fixed-width path)
+    indices = numeric_stream(torch.from_numpy(idx.astype(np.uint32).view(np.int32)).to(s.device))
+    return alphabet, indices
+
+
 def _tokenize_enc(streams, params):
     s = streams[0]
     if s.stype == SType.STRING:
-        raise ValueError("tokenize: string streams are not yet ported to repro_torch")
+        alphabet, indices = _tokenize_strings(s)
+        return [alphabet, indices], HeaderWriter().u8(1).u8(4).done()
     mat, w = fixed_records(s)
     n = mat.shape[0]
     dev = mat.device
@@ -462,13 +575,34 @@ def _tokenize_dec(outs, header):
     is_string = r.u8()
     _iw = r.u8()
     r.expect_end()
-    if is_string:
-        raise ValueError("tokenize: string alphabets are not yet ported to repro_torch")
     idx = widen_unsigned(_require_numeric(indices, "tokenize indices"))
+    if is_string:
+        return [_untokenize_strings(alphabet, idx)]
     mat, _w = fixed_records(alphabet)
     if idx.numel() and int(idx.max()) >= mat.shape[0]:  # one scalar sync, fail closed
         raise ValueError("tokenize: an index lies past the alphabet")
     return [rebuild_like(alphabet.stype, alphabet.width, mat[idx])]
+
+
+def _untokenize_strings(alphabet: Stream, idx: torch.Tensor) -> Stream:
+    """Gather each index's string from a STRING alphabet on its device; the
+    lengths come from ``alphabet.lengths[idx]`` on the host."""
+    if alphabet.stype != SType.STRING:
+        raise ValueError("tokenize: a string header over a fixed-width alphabet")
+    a_lens = alphabet.lengths
+    idx_host = idx.cpu().numpy()  # one card-to-host copy of the indices
+    if idx_host.size and int(idx_host.max()) >= a_lens.size:  # fail closed
+        raise ValueError("tokenize: an index lies past the alphabet")
+    lengths = a_lens[idx_host].astype(np.uint32)
+    dev = alphabet.data.device
+    a_off = torch.from_numpy(np.cumsum(a_lens, dtype=np.int64) - a_lens).to(dev)
+    out_lens = torch.from_numpy(lengths.astype(np.int64)).to(dev)
+    total = int(lengths.sum(dtype=np.int64))
+    # byte p of output string i comes from a_off[idx[i]] + (p - out_off[i])
+    shift = a_off[idx] - (torch.cumsum(out_lens, 0) - out_lens)
+    pos = torch.arange(total, dtype=torch.int64, device=dev) + torch.repeat_interleave(
+        shift, out_lens, output_size=total)
+    return Stream(alphabet.data[pos], SType.STRING, 1, lengths)
 
 
 register_codec(

@@ -1,9 +1,13 @@
 """Prebuilt compression graphs: the generic profile (one ``generic_auto``
 selector over any stream: the reference CLI's default), the numeric profile
 (one ``numeric_auto`` selector over a numeric column), the text profile
-(``zlib_backend``) and the float checkpoint profiles of the paper's §VIII
-(``float32``, ``bfloat16``, ``float64``)."""
+(``zlib_backend``), the float checkpoint profiles of the paper's §VIII
+(``float32``, ``bfloat16``, ``float64``), and the record profiles: the
+paper's §IV worked example (``sao``) and the generic record format
+(``struct``)."""
 from __future__ import annotations
+
+from typing import Sequence
 
 from ..core.graph import GraphBuilder, Plan, pipeline
 
@@ -49,3 +53,58 @@ def bfloat16_profile() -> Plan:
 
 def float64_profile() -> Plan:
     return _float_profile(3, "float64")
+
+
+# --------------------------------------------------------------- SAO (§IV)
+SAO_FIELDS = [  # (name, width-bytes) — 28-byte records, 6 fields
+    ("SRA0", 8),
+    ("SDEC0", 8),
+    ("IS", 2),
+    ("MAG", 2),
+    ("XRPM", 4),
+    ("XDPM", 4),
+]
+SAO_HEADER_BYTES = 28
+
+
+def sao_profile() -> Plan:
+    """The paper's worked example (§IV, Table I), as a graph:
+
+    header passthrough + field_split into the 6 star-record fields;
+    SRA0 (mostly sorted)  -> interpret u64 -> delta -> transpose_split -> entropy
+    SDEC0 (bounded)       -> interpret u64 -> transpose_split -> entropy/plane
+    IS/MAG/XRPM/XDPM (low cardinality) -> tokenize; alphabet and indices get
+    separate backends (sparse vs dense-bounded — paper §IV last bullet).
+    """
+    widths = [w for _, w in SAO_FIELDS]
+    g = GraphBuilder(1)
+    _header, body = g.add("split_n", g.input(0), n_out=2, sizes=[SAO_HEADER_BYTES, -1])
+    # header: tiny, stored raw
+    fields = g.add("field_split", body, n_out=len(widths), widths=widths)
+    sra0, sdec0, is_f, mag, xrpm, xdpm = fields
+
+    sra_num = g.add("interpret_numeric", sra0, width=8)
+    sra_d = g.add("delta", sra_num)
+    for p in g.add("transpose_split", sra_d, n_out=8):
+        g.select("entropy_auto", p)
+
+    sdec_num = g.add("interpret_numeric", sdec0, width=8)
+    for p in g.add("transpose_split", sdec_num, n_out=8):
+        g.select("entropy_auto", p)
+
+    for f in (is_f, mag, xrpm, xdpm):
+        alpha, idx = g.add("tokenize", f)
+        g.add("transpose", alpha)  # sparse dictionary: byte planes then store
+        g.select("numeric_auto", idx)  # dense bounded ints
+    return g.build("sao")
+
+
+def struct_profile(widths: Sequence[int]) -> Plan:
+    """Generic record format: field_split + per-field auto backend."""
+    g = GraphBuilder(1)
+    fields = g.add("field_split", g.input(0), n_out=len(widths), widths=list(widths))
+    if isinstance(fields, int):
+        fields = [fields]
+    for f in fields:
+        g.select("generic_auto", f)
+    return g.build("struct" + "_".join(map(str, widths)))

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import numpy as np
+
 from ..core.engine import CompressionCtx, compress
 from ..core.graph import GraphBuilder, Plan, pipeline
 from ..core.message import Stream, SType
@@ -24,7 +26,13 @@ SAMPLE_BYTES = 1 << 16  # trial compressions run on a bounded prefix
 
 def _sample(s: Stream) -> Stream:
     if s.stype == SType.STRING:
-        raise ValueError("string streams are not yet ported to repro_torch")
+        if s.data.numel() <= SAMPLE_BYTES:
+            return s
+        # whole strings up to the first that reaches SAMPLE_BYTES (host lengths)
+        keep = int(np.searchsorted(np.cumsum(s.lengths), SAMPLE_BYTES)) + 1
+        keep = min(keep, int(s.lengths.size))
+        nb = int(s.lengths[:keep].sum())
+        return Stream(s.data[:nb], SType.STRING, 1, s.lengths[:keep])
     n_elts = min(s.n_elts, max(SAMPLE_BYTES // max(s.width, 1), 1))
     if s.stype == SType.NUMERIC:
         return Stream(s.data[:n_elts], s.stype, s.width)
@@ -117,8 +125,11 @@ def _generic_auto(streams, params, ctx):
     if s.stype == SType.NUMERIC:
         return _numeric_auto(streams, params, ctx)
     if s.stype == SType.STRING:
-        # not a ValueError, which a trial would take for a codec's refusal
-        raise NotImplementedError("string streams are not yet ported to repro_torch")
+        g = GraphBuilder(1)
+        content, lens = g.add("string_split", g.input(0))
+        g.select("bytes_auto", content)
+        g.select("numeric_auto", lens)
+        return g.build("string_backend")
     if s.stype == SType.STRUCT and s.width > 1:
         if s.width in (2, 4, 8):
             # numeric reinterpretation usually dominates; let the numeric

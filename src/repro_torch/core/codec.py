@@ -12,13 +12,17 @@ Decoders follow the same rule: a decoder takes its streams on one device
 and returns the regenerated streams on that device, launching the decode
 kernels for CUDA tensors and taking their plain versions for CPU tensors.
 Only the ``zlib_backend`` leaf goes through the host, since zlib is a host
-library.
+library.  A decoder whose codec has no output streams (``constant``) has no
+tensor to learn the device from: its spec sets ``wants_device``, and
+``run_decode`` hands it the decode device as the ``device`` keyword.
 """
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
 
 from .message import Stream
 
@@ -38,6 +42,7 @@ class CodecSpec:
     n_outputs: int = 1  # -1 => variadic (actual count recorded per node on wire)
     min_version: int = 1  # first format version that understands this codec
     doc: str = ""
+    wants_device: bool = False  # decode(outs, header, device=...) is called
 
     def run_encode(self, streams: Sequence[Stream], params=None):
         params = dict(params or {})
@@ -54,8 +59,15 @@ class CodecSpec:
             raise AssertionError(f"codec {self.name}: header must be bytes")
         return [o.validate() for o in outs], bytes(header)
 
-    def run_decode(self, out_streams: Sequence[Stream], header: bytes):
-        ins = self.decode(list(out_streams), header)
+    def run_decode(self, out_streams: Sequence[Stream], header: bytes, device=None):
+        """Regenerate the inputs; ``device`` is where they are built, and is
+        required by a decoder that ``wants_device``."""
+        if self.wants_device:
+            if device is None:
+                raise TypeError(f"codec {self.name}: decode needs the decode device")
+            ins = self.decode(list(out_streams), header, device=torch.device(device))
+        else:
+            ins = self.decode(list(out_streams), header)
         return [s.validate() for s in ins]
 
 

@@ -568,7 +568,7 @@ def _decompress_single(frame: bytes, dev: torch.device) -> List[Stream]:
             outs = [edges.pop(e) for e in out_ids]
         except KeyError as err:
             raise ValueError(f"corrupt frame: missing edge {err}") from None
-        ins = spec.run_decode(outs, node.header)
+        ins = spec.run_decode(outs, node.header, dev)
         if len(ins) != len(node.inputs):
             raise ValueError(
                 f"codec {spec.name} regenerated {len(ins)} inputs,"

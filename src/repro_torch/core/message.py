@@ -17,7 +17,7 @@ from __future__ import annotations
 import enum
 import warnings
 from dataclasses import dataclass, replace
-from typing import Optional, Union
+from typing import Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ __all__ = [
     "serial",
     "numeric",
     "struct",
+    "strings",
     "from_wire",
     "from_numpy",
     "widen_unsigned",
@@ -146,6 +147,14 @@ class Stream:
             return arr.view(UNSIGNED_NP[self.width])
         return arr
 
+    def to_strings(self) -> List[bytes]:
+        """A STRING stream's items, as host bytes (one copy of the content)."""
+        if self.stype != SType.STRING:
+            raise ValueError("to_strings on non-string stream")
+        buf = self.content_bytes()
+        ends = np.cumsum(self.lengths, dtype=np.int64).tolist()
+        return [buf[a:b] for a, b in zip([0] + ends[:-1], ends)]
+
     def to(self, device: Union[str, torch.device]) -> "Stream":
         return replace(self, data=self.data.to(device))
 
@@ -213,6 +222,14 @@ def serial(data) -> Stream:
 
 def struct(data, width: int) -> Stream:
     return Stream(_as_u8_tensor(data), SType.STRUCT, width).validate()
+
+
+def strings(items: Iterable[bytes]) -> Stream:
+    """Build a STRING stream on the CPU: the items' bytes joined, with their
+    lengths as a host uint32 array."""
+    items = list(items)
+    lens = np.asarray([len(s) for s in items], dtype=np.uint32)
+    return Stream(_as_u8_tensor(b"".join(items)), SType.STRING, 1, lens).validate()
 
 
 def numeric(arr) -> Stream:

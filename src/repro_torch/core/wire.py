@@ -61,6 +61,8 @@ __all__ = [
     "FrameError",
     "write_varint",
     "read_varint",
+    "write_varints",
+    "read_string_lengths",
     "write_frame",
     "read_frame",
     "is_container",
@@ -123,6 +125,81 @@ def read_stream_varint(reader) -> Tuple[int, bytes]:
             raise FrameError("varint overflow")
 
 
+_VARINT_MAX_BYTES = 10  # read_varint refuses a continuation past 63 bits
+
+
+def write_varints(values: np.ndarray) -> bytes:
+    """The LEB128 varints of non-negative integers, back to back, as
+    ``write_varint`` writes them one at a time (vectorised with numpy: each
+    byte past the first is computed only for the varints that reach it)."""
+    v = np.asarray(values)
+    if v.size and v.dtype.kind == "i" and int(v.min()) < 0:
+        raise ValueError("varint must be non-negative")
+    v = v.astype(np.uint64)
+    nb = np.ones(v.size, np.int64)  # bytes per varint
+    longer = np.flatnonzero(v >> np.uint64(7))
+    for k in range(1, _VARINT_MAX_BYTES):
+        longer = longer[(v[longer] >> np.uint64(7 * k)) != 0]
+        nb[longer] += 1
+    starts = np.cumsum(nb) - nb
+    out = np.empty(int(nb.sum()), np.uint8)
+    out[starts] = (v & np.uint64(0x7F)) | (np.uint64(0x80) * (nb > 1))
+    idx = np.flatnonzero(nb > 1)
+    for k in range(1, _VARINT_MAX_BYTES):
+        if not idx.size:
+            break
+        byte = (v[idx] >> np.uint64(7 * k)) & np.uint64(0x7F)
+        out[starts[idx] + k] = byte | (np.uint64(0x80) * (nb[idx] > k + 1))
+        idx = idx[nb[idx] > k + 1]
+    return out.tobytes()
+
+
+def read_string_lengths(buf, pos: int, end: int, n: int) -> Tuple[np.ndarray, int]:
+    """Read ``n`` varint string lengths from ``buf[pos:end]`` -> (uint32
+    lengths, position after them), vectorised with numpy.
+
+    Fails closed with :class:`FrameError`: fewer than ``n`` varints before
+    ``end`` (truncated), one of more than ten bytes (overflow), or a length
+    past uint32.
+    """
+    rem = end - pos
+    if n > rem:  # every varint takes at least one byte
+        raise FrameError("truncated varint")
+    if n == 0:
+        return np.zeros(0, np.uint32), pos
+    window = np.frombuffer(buf, np.uint8, count=rem, offset=pos)
+    # the last byte of each varint has its top bit clear; grow the window
+    # until it holds n of them, by at most twice the shortfall a step
+    parts, got, lo, hi = [], 0, 0, n
+    while True:
+        seg = np.flatnonzero(window[lo:hi] < 0x80)
+        parts.append(seg + lo)
+        got += seg.size
+        if got >= n or hi == rem:
+            break
+        lo, hi = hi, min(rem, hi + 2 * (n - got) + 16)
+    if got < n:
+        raise FrameError("truncated varint")
+    ends = np.concatenate(parts)[:n] + 1
+    starts = np.empty(n, np.int64)
+    starts[0] = 0
+    starts[1:] = ends[:-1]
+    nb = ends - starts
+    if int(nb.max()) > _VARINT_MAX_BYTES:
+        raise FrameError("varint overflow")
+    val = np.zeros(n, np.uint64)
+    for k in range(int(nb.max())):
+        m = nb > k
+        b = window[starts[m] + k].astype(np.uint64) & np.uint64(0x7F)
+        if k < 5:
+            val[m] |= b << np.uint64(7 * k)
+        elif b.any():  # a payload bit at 2^35 or above
+            raise FrameError("string length past uint32")
+    if (val >> np.uint64(32)).any():
+        raise FrameError("string length past uint32")
+    return val.astype(np.uint32), pos + int(ends[-1])
+
+
 # ------------------------------------------------------------------- frames
 def write_frame(
     version: int,
@@ -151,8 +228,7 @@ def write_frame(
         if s.stype == SType.STRING:
             lens = s.lengths if s.lengths is not None else np.zeros(0, np.uint32)
             write_varint(out, int(lens.size))
-            for ln in lens.tolist():
-                write_varint(out, int(ln))
+            out += write_varints(lens)
         payload = s.content_bytes()
         write_varint(out, len(payload))
         out += payload
@@ -208,11 +284,7 @@ def read_frame(frame: bytes, device: Union[str, torch.device] = "cpu"):
         lengths = None
         if stype == SType.STRING:
             n_str, pos = read_varint(frame, pos)
-            lens = np.empty(n_str, dtype=np.uint32)
-            for i in range(n_str):
-                ln, pos = read_varint(frame, pos)
-                lens[i] = ln
-            lengths = lens
+            lengths, pos = read_string_lengths(frame, pos, len(body), n_str)
         plen, pos = read_varint(frame, pos)
         if pos + plen > len(body):
             raise FrameError("truncated stream payload")

@@ -22,6 +22,11 @@ PORTED = (
     "tokenize", "huffman", "fse", "zlib_backend", "lz77", "float_split",
     "bitpack", "fused_delta_bitpack", "lzma_backend", "bz2_backend", "interpret_numeric",
 )
+# the structural codecs, rle and transpose_split (tests/test_torch_structural.py)
+STRUCTURAL = (
+    "dup", "constant", "split_n", "concat", "field_split", "string_split", "rle",
+    "transpose_split",
+)
 DEVICE_TWINS = (
     "delta", "transpose", "huffman", "fse", "float_split", "bitpack", "fused_delta_bitpack",
 )
@@ -98,7 +103,7 @@ def _same(port_outs, ref_outs):
 
 def test_the_slice_registers_exactly_its_codecs():
     ported = all_codecs()
-    assert sorted(ported) == sorted(PORTED)
+    assert sorted(ported) == sorted(PORTED + STRUCTURAL)
     for name, spec in ported.items():
         ref = ref_get_codec(name)
         assert (spec.codec_id, spec.n_outputs, spec.min_version) == (

@@ -448,13 +448,6 @@ def test_interpret_numeric_refuses_where_the_reference_refuses(case):
         get_codec("interpret_numeric").run_encode([s], params)
 
 
-def test_generic_auto_on_a_string_stream_is_not_yet_ported():
-    lengths = np.array([3, 1], np.uint32)
-    _ref_s, s = _pair(np.arange(4, dtype=np.uint8), SType.STRING, 1, lengths)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        repro_torch.compress(repro_torch.generic_profile(), s, device="cpu")
-
-
 @pytest.mark.parametrize("level", (1, 5, 6))
 def test_text_profile_writes_the_reference_frame(level):
     data = b"the quick brown fox jumps over the lazy dog\n" * 200

@@ -15,7 +15,7 @@ from _golden import GOLDEN_DIR, LEVEL, load_manifest, stream_from_entry  # noqa:
 
 from repro.core.serialize import deserialize_plan, plan_to_dict  # noqa: E402
 from repro_torch import CompressionCtx, compress, decompress, plan_from_dict  # noqa: E402
-from repro_torch.core.message import SType, from_numpy  # noqa: E402
+from repro_torch.core.message import Stream, SType, from_numpy  # noqa: E402
 
 IN_SLICE = (
     "codec_store", "codec_delta", "codec_transpose", "codec_zigzag",
@@ -28,6 +28,9 @@ IN_SLICE = (
     "profile_generic_numeric", "profile_generic_text",
     "version_v1_generic", "version_v2_generic", "version_v3_generic", "version_v4_generic",
     "codec_interpret_numeric", "trained_era5_flux",
+    "codec_dup", "codec_constant", "codec_split_n", "codec_concat", "codec_field_split",
+    "codec_string_split", "codec_rle", "codec_transpose_split", "profile_sao",
+    "profile_struct44",
 )
 MANIFEST = load_manifest()
 ALL_PLANS = sorted(p.stem for p in GOLDEN_DIR.glob("*.ozp"))
@@ -49,9 +52,13 @@ def test_port_reproduces_frozen_frame(name):
     payload = (GOLDEN_DIR / f"{name}.in").read_bytes()
     s = stream_from_entry(entry, payload)
     plan, _meta = _port_plan(name)
+    if s.lengths is not None:  # a STRING stream: its bytes and host lengths
+        port_s = Stream(torch.from_numpy(s.data.copy()), SType.STRING, 1, s.lengths)
+    else:
+        port_s = from_numpy(s.data, SType(int(s.stype)), s.width)
     frame = compress(
         plan,
-        [from_numpy(s.data, SType(int(s.stype)), s.width)],
+        [port_s],
         CompressionCtx(entry["format_version"], LEVEL),
         device="cpu",
         chunk_bytes=entry["chunk_bytes"] or None,
