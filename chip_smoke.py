@@ -143,7 +143,25 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              decoded on the card; and T through ``store``, its lengths'
              varints written and read one Python call a string against the
              vectorised wire, in one run.
-7. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
+7. csv     — the CSV frontend of the paper's §VI-C at level 5, made from
+             ``--seed`` (+ 3 and + 4): C1, the census PPMF person file
+             (``make_ppmf_csv``, 3,400,000 rows, 8 columns, ~67 MB), and C2,
+             the ACS PUMS housing file (``make_psam_csv``, 2,000,000 rows, 7
+             columns, ~66 MB), each through ``csv_profile(n_cols)``
+             (``csv_split``, then ``parse_numeric`` a column and the auto
+             selectors on its bitmap, values and exceptions), unchunked:
+             compressed and decompressed on the card with the launch
+             counts reset before and read after each half, decoded on the
+             card and equal to the input there, the frame of a prefix cut
+             after the last newline at or before 4 MiB equal to the CPU's,
+             each column's codecs printed, and at least one encode and one
+             decode kernel launched over the phase.  Then the edge corpus
+             (``CSV_EDGES``: CRLF, a lone \\r, separators with a border,
+             a UTF-8 separator, empty fields, no trailing newline, every
+             int64 boundary string), each card frame equal to the CPU's and
+             decoded on the card; and ``csv_split`` and ``parse_numeric``
+             alone each way on C1 and C2 (MB/s, exceptions per column).
+8. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -153,17 +171,17 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-8. profile — one more compress and one decompress per plan and column under
+9. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
-             the records phase's calls.
-9. identity — the card's name and power limit.
+             the records phase's and the CSV phase's calls.
+10. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
-kernel's ``launches`` in the main and decode phases, ``container_launches``
-and ``records_launches``), the
+kernel's ``launches`` in the main and decode phases, ``container_launches``,
+``records_launches`` and ``csv_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -276,7 +294,8 @@ HOST_STAGES = ("choose_best", "_lz77_enc", "_lz77_dec", "_zlib_enc", "_zlib_dec"
                "_lzma_enc", "_lzma_dec", "_bz2_enc", "_bz2_dec", "write_frame", "read_frame",
                "write_container", "read_container", "_pack_bits", "_unpack_bits",
                "_tokenize_strings", "_untokenize_strings", "write_varints",
-               "read_string_lengths")
+               "read_string_lengths", "_csv_split_enc", "_csv_split_dec",
+               "_parse_numeric_enc", "_parse_numeric_dec")
 COLUMN_BYTES = 64 << 20
 PREFIX_BYTES = 4 << 20
 # the level-7 phase: the float profiles, whose entropy_auto and bytes_auto
@@ -341,6 +360,40 @@ RECORD_CALLS = (("S", "S", "sao_profile", None),
                 ("T_dict", "T", "string_dict", None))
 SAO_ENCODE_KERNELS = ("delta_encode", "byteshuffle", "histogram", "huffman_map", "fse_encode")
 SAO_DECODE_KERNELS = ("delta_decode", "byteunshuffle")
+# the CSV phase: the census files of the paper's §VI-C (the recipes of
+# ``benchmarks/datasets.py``, copied), each through ``csv_profile(n_cols)``
+# unchunked at level 5: (label, recipe, rows, columns, seed past --seed); C1
+# is the PPMF person file at 3,400,000 rows (~67 MB), C2 the ACS PUMS
+# housing file at 2,000,000 rows (~66 MB); seed 0 gives the recipes' seeds
+CSV_CALLS = (("C1", "ppmf", 3_400_000, 8, 3), ("C2", "psam", 2_000_000, 7, 4))
+POW10 = 10 ** np.arange(19, dtype=np.int64)
+# the edge corpus: (label, file, columns, separator); each through
+# ``csv_profile`` on the card, its frame equal to the CPU's.  The traps of a
+# byte-exact split and parse: CRLF lines, a lone \r in a field, a last line
+# without \r or without \n, one line, one field, separators with a border
+# over runs of their bytes, a multi-byte UTF-8 separator, empty fields, and
+# every int64 boundary and 19-, 20- and 21-byte digit string
+INT64_EDGES = (b"0", b"-0", b"00", b"01", b"-01", b"+1", b" 1", b"1 ", b"-", b"",
+               b"9223372036854775807", b"9223372036854775808", b"-9223372036854775808",
+               b"-9223372036854775809", b"1234567890123456789", b"-1234567890123456789",
+               b"12345678901234567890", b"99999999999999999999", b"-12345678901234567890",
+               b"123456789012345678901", b"9223372036000000000", b"9223372035999999999",
+               b"-9223372036999999999", b"1000000000", b"-999999999", b"\xd9\xa3")
+CSV_EDGES = (
+    ("crlf", b"1,a\r\n-2,b\r\n30,\r\n", 2, ","),
+    ("lone_cr", b"1,a\rb\r\n2,\rc\r\n", 2, ","),
+    ("cr_not_last", b"1,a\r\n2,b\r", 2, ","),
+    ("cr_unterminated", b"1,a\r\n2,b\n", 2, ","),
+    ("colons", b":::::\n1::2:::3\n::::\n::7::\n", 3, "::"),
+    ("aba", b"ababa\n1aba2\n-7aba\nabab\n", 2, "aba"),
+    ("section_sign", "1§2\n-3§x\n§\n".encode(), 2, "§"),
+    ("empty_fields", b",,\n1,,2\n,,\n,-0,\n", 3, ","),
+    ("no_trailing_newline", b"1,2\n3,4", 2, ","),
+    ("one_line", b"-1,2\n", 2, ","),
+    ("one_field", b"7", 1, ","),
+    ("blank_lines", b"\n\n", 1, ","),
+    ("int64", b"\n".join(INT64_EDGES) + b"\n", 1, ","),
+)
 # encode_offset_sweep's sizes: ragged, past one vector and past a block's
 OFFSET_SIZES = (1, 37, 4097)
 
@@ -422,6 +475,67 @@ def string_column(seed: int, n: int):
     row_off = np.cumsum(lengths) - lengths
     pos = np.arange(total, dtype=np.int64) + np.repeat(word_off[rank] - row_off, lengths)
     return vocab[pos], lengths.astype(np.uint32)
+
+
+def _zipf_p(n, a, rng):
+    p = np.arange(1, n + 1, dtype=np.float64) ** -a
+    return p / p.sum()
+
+
+def csv_rows(fields) -> bytes:
+    """Rows of non-negative ints as CSV text: each field ``b"%0*d" % (least,
+    v)``, or nothing where ``empty`` is set, joined by "," and each row ended
+    by "\\n", written digit by digit into one buffer (numpy, no loop over
+    rows).  ``fields``: (values, least digits, empty or None) per column."""
+    widths = []
+    for v, least, empty in fields:
+        n_digits = np.maximum(np.searchsorted(POW10[1:], v, side="right") + 1, least)
+        widths.append(n_digits if empty is None else np.where(empty, 0, n_digits))
+    row_len = sum(widths) + len(fields)
+    row_end = np.cumsum(row_len)
+    out = np.full(int(row_end[-1]), ord(","), np.uint8)
+    start = row_end - row_len
+    for (v, _least, _empty), n_digits in zip(fields, widths):
+        for k in range(int(n_digits.max())):  # each value's k-th digit from the right
+            has = np.flatnonzero(k < n_digits)
+            out[start[has] + n_digits[has] - 1 - k] = ord("0") + v[has] // POW10[k] % 10
+        start += n_digits + 1
+    out[row_end - 1] = ord("\n")
+    return out.tobytes()
+
+
+def make_ppmf_csv(n_rows: int = 120_000, seed: int = 3) -> bytes:
+    """Census microdata (the PPMF person file): categorical codes, bounded
+    ints, constant columns (the recipe of ``benchmarks/datasets.py``'s
+    ``make_ppmf_csv``, copied, its rows written by ``csv_rows``)."""
+    rng = np.random.default_rng(seed)
+    state = rng.choice(56, n_rows, p=_zipf_p(56, 0.8, rng))
+    county = rng.choice(999, n_rows, p=_zipf_p(999, 1.0, rng))
+    age = rng.integers(0, 116, n_rows)
+    sex = rng.choice([1, 2], n_rows)
+    race = rng.choice(63, n_rows, p=_zipf_p(63, 1.6, rng))
+    hisp = rng.choice([1, 2], n_rows, p=[0.81, 0.19])
+    rtype = np.full(n_rows, 3)
+    gqtype = rng.choice([0, 101, 201, 301, 401, 501], n_rows,
+                        p=[0.96, 0.01, 0.01, 0.005, 0.005, 0.01])
+    return csv_rows([(state, 1, None), (county, 3, None), (age, 1, None), (sex, 1, None),
+                     (race, 1, None), (hisp, 1, None), (rtype, 1, None), (gqtype, 1, None)])
+
+
+def make_psam_csv(n_rows: int = 80_000, seed: int = 4) -> bytes:
+    """ACS PUMS-ish housing file: 13-digit serials, codes, and two columns
+    with empty fields (the recipe of ``benchmarks/datasets.py``'s
+    ``make_psam_csv``, copied, its rows written by ``csv_rows``)."""
+    rng = np.random.default_rng(seed)
+    serialno = 2023000000000 + np.cumsum(rng.integers(1, 40, n_rows).astype(np.int64))
+    puma = rng.choice(2400, n_rows, p=_zipf_p(2400, 0.7, rng))
+    wgtp = rng.integers(1, 300, n_rows)
+    np_ = rng.choice(9, n_rows, p=_zipf_p(9, 1.4, rng))
+    bds = rng.choice(6, n_rows, p=_zipf_p(6, 1.1, rng))
+    rnt = np.where(rng.random(n_rows) < 0.6, rng.integers(100, 4000, n_rows), 0)
+    val = np.where(rng.random(n_rows) < 0.55, rng.integers(10, 999, n_rows) * 1000, 0)
+    return csv_rows([(serialno, 1, None), (puma, 1, None), (wgtp, 1, None), (np_, 1, None),
+                     (bds, 1, None), (rnt, 1, rnt == 0), (val, 1, val == 0)])
 
 
 def stream_of(rt, cname: str, col: np.ndarray):
@@ -1822,6 +1936,151 @@ def store_strings(rt, stream, lengths: np.ndarray) -> None:
           f" decompress_seconds={ddt} frame_bytes={len(frame)}")
 
 
+def csv_files(seed: int):
+    """C1 and C2 (``CSV_CALLS``) as bytes, made from ``seed``."""
+    t0 = time.perf_counter()
+    make = {"ppmf": make_ppmf_csv, "psam": make_psam_csv}
+    files = {label: make[recipe](n_rows, seed + shift)
+             for label, recipe, n_rows, _n_cols, shift in CSV_CALLS}
+    print("csv data: " + ", ".join(f"{label} {len(raw)} bytes ({n_rows} rows of {n_cols})"
+                                   for (label, _r, n_rows, n_cols, _s), raw
+                                   in zip(CSV_CALLS, files.values()))
+          + f"; seconds={time.perf_counter() - t0}")
+    return files
+
+
+def csv_column_codecs(rt, frame: bytes) -> dict:
+    """The codecs a ``csv_profile`` frame records for each column, in order:
+    each node belongs to the column of its first input, and ``csv_split``'s
+    k-th output starts column k."""
+    from repro_torch.core import wire
+    from repro_torch.core.codec import get_codec_by_id
+
+    _version, n_inputs, nodes, _stored = wire.read_frame(frame)
+    col_of, edge, cols = {}, n_inputs, {}
+    for node in nodes:
+        name = get_codec_by_id(node.codec_id).name
+        col = None if name == "csv_split" else col_of[node.inputs[0]]
+        if col is not None:
+            cols.setdefault(col, []).append(name)
+        for k in range(node.n_out):
+            col_of[edge + k] = k if col is None else col
+        edge += node.n_out
+    return {c: "+".join(names) for c, names in sorted(cols.items())}
+
+
+def csv_phase(rt, ops, seed: int):
+    """The CSV frontend on the card (``CSV_CALLS``): each file through
+    ``compress(..., device="cuda")`` and back through ``decompress``, with
+    the launch counts reset just before and read just after each half; the
+    frame of a prefix cut after the last newline at or before 4 MiB equal to
+    the CPU's; then the edge corpus and the codecs alone.  Returns the calls
+    (for the profile phase) and each kernel's launches summed over them."""
+    import torch
+
+    files = csv_files(seed)
+    calls, totals = [], {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+    for label, _recipe, _n_rows, n_cols, _shift in CSV_CALLS:
+        raw = files[label]
+        plan, stream = rt.csv_profile(n_cols), rt.serial(raw)
+        prefix = rt.serial(raw[: raw.rfind(b"\n", 0, PREFIX_BYTES) + 1])
+        on_card = rt.compress(plan, prefix, device="cuda")  # also warms the card
+        if on_card != rt.compress(plan, prefix, device="cpu"):
+            fail(f"csv {label}: the card's prefix frame differs from the CPU's")
+        (back,) = rt.decompress(on_card, device="cuda")
+        if not same_stream(back, prefix):
+            fail(f"csv {label}: the prefix frame did not decode on the card")
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        frame = rt.compress(plan, stream, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        encode = ops.launch_counts()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        (out,) = rt.decompress(frame, device="cuda")
+        torch.cuda.synchronize()
+        ddt = time.perf_counter() - t0
+        decode = ops.launch_counts()
+        for k in totals:
+            totals[k] += encode[k] + decode[k]
+        if not same_stream(out, stream):
+            fail(f"csv {label}: decompress on the card did not return the input")
+        codecs = frame_codecs(rt, frame)
+        named = codecs.split("+")
+        missing = ([k for c in named for k in ENCODE_KERNELS_OF.get(c, ()) if encode[k] == 0]
+                   + [k for c in named for k in DECODE_KERNELS_OF.get(c, ()) if decode[k] == 0])
+        if missing:
+            fail(f"csv {label}: never launched {sorted(set(missing))}")
+        print(f"csv {label} csv_profile({n_cols}): bytes={len(raw)} frame_bytes={len(frame)}"
+              f" ratio={len(raw) / len(frame)} compress_MBps={len(raw) / dt / 1e6}"
+              f" seconds={dt} decompress_MBps={len(raw) / ddt / 1e6} decompress_seconds={ddt}")
+        print(f"csv {label} column codecs: {json.dumps(csv_column_codecs(rt, frame))}")
+        print(f"csv {label} launches: compress {json.dumps(encode)}"
+              f" decompress {json.dumps(decode)}")
+        print(f"check csv {label}: decoded on the card (output on {out.data.device}), equal to"
+              f" the input; prefix card frame == cpu frame ({len(on_card)} bytes,"
+              f" {prefix.nbytes} input bytes); the kernels of its codecs launched")
+        calls.append((label, f"csv_profile({n_cols})", plan, stream, None, frame, codecs))
+    if not (sum(totals[k] for k in ENCODE_KERNELS) and sum(totals[k] for k in DECODE_KERNELS)):
+        fail(f"the csv phase launched no encode or no decode kernel: {totals}")
+    print(f"csv launches {json.dumps(totals)}")
+    csv_edges(rt)
+    csv_sweep(rt, files)
+    print(f"csv phase seconds={time.perf_counter() - t_phase}")
+    return calls, totals
+
+
+def csv_edges(rt) -> None:
+    """The edge corpus (``CSV_EDGES``) through ``csv_profile`` on the card:
+    each frame equals the CPU's and decodes on the card to its file."""
+    for label, raw, n_cols, sep in CSV_EDGES:
+        plan, stream = rt.csv_profile(n_cols, sep), rt.serial(raw)
+        frame = rt.compress(plan, stream, device="cuda")
+        if frame != rt.compress(plan, stream, device="cpu"):
+            fail(f"csv edge {label}: the card's frame differs from the CPU's")
+        (out,) = rt.decompress(frame, device="cuda")
+        if not same_stream(out, stream):
+            fail(f"csv edge {label}: decompress on the card did not return the file")
+    print(f"check csv edges: {len(CSV_EDGES)} files ({', '.join(e[0] for e in CSV_EDGES)}),"
+          f" each card frame == cpu frame and decoded on the card")
+
+
+def csv_sweep(rt, files) -> None:
+    """``csv_split`` and ``parse_numeric`` alone on the card, each way, on
+    C1 and C2 at full size (the "CSV frontend" layer): MB/s of the file's
+    bytes, and each column's exception count."""
+    import torch
+    from repro_torch.core.codec import get_codec
+
+    split, parse = get_codec("csv_split"), get_codec("parse_numeric")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for label, raw in files.items():
+        stream = rt.serial(raw).to("cuda")
+        (cols, header), t_split = timed(lambda: split.run_encode([stream], {}))
+        parsed, t_parse = timed(lambda: [parse.run_encode([c], {}) for c in cols])
+        back_cols, t_unparse = timed(lambda: [parse.run_decode(o, h, "cuda")[0]
+                                              for o, h in parsed])
+        (back,), t_join = timed(lambda: split.run_decode(back_cols, header, "cuda"))
+        if not same_stream(back, stream):
+            fail(f"csv sweep {label}: csv_split + parse_numeric did not return the file")
+        mb = len(raw) / 1e6
+        print(f"csv sweep {label}: csv_split encode_MBps={mb / t_split} decode_MBps={mb / t_join}"
+              f" parse_numeric encode_MBps={mb / t_parse} decode_MBps={mb / t_unparse}"
+              f" (seconds {t_split}, {t_join}, {t_parse}, {t_unparse}); exceptions per column"
+              f" {[o[2].n_elts for o, _h in parsed]} of {cols[0].n_elts} rows")
+
+
 def level_phase(cols, rt, ops) -> None:
     """The level-7 path on the card: each of ``LEVEL_COLUMNS`` through
     ``compress`` and back through ``decompress``, with the launch counts reset
@@ -1900,12 +2159,12 @@ def frame_codecs(rt, frame: bytes) -> str:
     return "+".join(get_codec_by_id(node.codec_id).name for node in read_frame(frame)[2])
 
 
-def profile_phase(cols, frames, rt, container_calls, record_calls) -> None:
+def profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls) -> None:
     """Where one compress and one decompress call's time goes: the card's busy
     time from ``torch.profiler`` (its kernels, by name) and the host's time
     from ``cProfile`` (its functions, by cumulative time); the main and
-    decode phases' calls, summed per kernel, then the container phase's and
-    the records phase's."""
+    decode phases' calls, summed per kernel, then the container phase's, the
+    records phase's and the CSV phase's."""
     plans = {name: make(rt) for name, make in PLANS.items()}
     sums = {"compress": {}, "decompress": {}}
     for cname, pname in column_plans(cols):
@@ -1924,7 +2183,7 @@ def profile_phase(cols, frames, rt, container_calls, record_calls) -> None:
           f" {len(frames)} decompress calls: {json.dumps(dict(sorted(total.items())))}"
           f" compress: {json.dumps(sums['compress'])} decompress: {json.dumps(sums['decompress'])}")
     tagged = ([("container", c) for c in container_calls]
-              + [("records", c) for c in record_calls])
+              + [("records", c) for c in record_calls] + [("csv", c) for c in csv_calls])
     for phase, (label, pname, plan, stream, chunk_bytes, frame, codecs) in tagged:
         tag = f"{phase} {label} {pname} chunk_bytes={chunk_bytes} [{codecs}]"
         profile_call(tag, lambda: rt.compress(plan, stream, device="cuda",
@@ -2032,12 +2291,14 @@ def main() -> None:
                      if k not in ENCODE_KERNELS})
     container_calls, container_launches = container_phase(cols, rt, ops)
     record_calls, records_launches = records_phase(rt, ops, args.seed)
+    csv_calls, csv_launches = csv_phase(rt, ops, args.seed)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
         r["records_launches"] = records_launches[r["name"]]
+        r["csv_launches"] = csv_launches[r["name"]]
     level_phase(cols, rt, ops)
-    profile_phase(cols, frames, rt, container_calls, record_calls)
+    profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls)
     identity = nvidia_smi("name,power.limit")
     print(json.dumps({"kernels": rows}))
     print(identity)

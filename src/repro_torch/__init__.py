@@ -19,6 +19,7 @@ Entry points::
     frame = compress(generic_profile(), strings([b"ab", b"", b"ab"]))  # a STRING column
     frame = compress(sao_profile(), serial(sao_file))     # the paper's §IV example
     frame = compress(struct_profile([8, 8, 2, 2, 4, 4]), struct(records, 28))
+    frame = compress(csv_profile(8), serial(csv_file))    # the paper's §VI-C CSVs
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
@@ -36,6 +37,7 @@ from .codecs.profiles import (  # noqa: F401
     SAO_FIELDS,
     SAO_HEADER_BYTES,
     bfloat16_profile,
+    csv_profile,
     float32_profile,
     float64_profile,
     generic_profile,

@@ -7,7 +7,7 @@ Codec ids ported so far:
    1 store   2 dup   3 delta   4 zigzag   5 transpose   6 bitpack   7 rle
    8 constant   9 tokenize   10 field_split   11 split_n   12 concat
   13 range_pack   14 huffman   15 fse   16 lz77   17 zlib_backend
-  18 float_split   21 string_split   22 transpose_split   23 interpret_numeric
+  18 float_split   19 parse_numeric   20 csv_split   21 string_split   22 transpose_split   23 interpret_numeric
   24 lzma_backend   25 bz2_backend   26 fused_delta_bitpack
 """
 from . import basic  # noqa: F401
@@ -16,11 +16,13 @@ from . import entropy  # noqa: F401
 from . import lz  # noqa: F401
 from . import floats  # noqa: F401
 from . import convert  # noqa: F401
+from . import parse  # noqa: F401
 from . import selectors  # noqa: F401
 from . import profiles  # noqa: F401
 from .profiles import (  # noqa: F401
     SAO_FIELDS,
     SAO_HEADER_BYTES,
+    csv_profile,
     sao_profile,
     struct_profile,
 )

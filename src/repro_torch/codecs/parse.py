@@ -1,0 +1,374 @@
+"""Parser frontends (paper §IV "Frontend", §VI-C): ``csv_split`` and
+``parse_numeric``.
+
+The port's copy of the two codecs of ``repro.codecs.parse``: the same codec
+ids, params, headers and output streams.
+
+``csv_split``     — lossless rectangular CSV -> per-column STRING streams.
+``parse_numeric`` — STRING of ASCII decimal ints -> (bitmap, i64 values,
+                    exception strings).  Canonical integers go numeric; any
+                    string that would not round-trip exactly stays an
+                    exception.
+
+Both are tensor programs on the device their input lies on, with no loop
+over lines or strings: lines and separators are found by compares over the
+byte tensor, fields and strings are cut out of it with one gather of byte
+indices (``_gather``), integers are parsed from a right-aligned 20-byte
+window of each string and formatted back from their digits.  The host sees
+the header's scalars, the STRING lengths arrays (one device-to-host copy
+for each codec's lengths) and the lengths of an input STRING stream (one
+host-to-device copy).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.codec import CodecSpec, register_codec
+from ..core.message import Stream, SType, narrow_unsigned
+from ._util import HeaderReader, HeaderWriter, numeric_stream
+
+_NL, _CR, _MINUS, _ZERO, _NINE = 10, 13, 45, 48, 57
+
+
+def _gather(src: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor, total: int):
+    """The pieces ``src[starts[i] : starts[i] + lens[i]]``, joined in order,
+    as one gather: output byte p of piece i comes from ``starts[i] + (p -
+    out_off[i])``.  ``total`` is ``lens.sum()``, known on the host."""
+    out_off = torch.cumsum(lens, 0) - lens
+    pos = torch.arange(total, dtype=torch.int64, device=src.device) + torch.repeat_interleave(
+        starts - out_off, lens, output_size=total)
+    return src[pos]
+
+
+def _lengths_to(lengths: np.ndarray, device) -> torch.Tensor:
+    """Host uint32 lengths as int64 on ``device``: one host-to-device copy,
+    4 bytes a length."""
+    u32 = np.ascontiguousarray(lengths, dtype=np.uint32)
+    return torch.from_numpy(u32.view(np.int32)).to(device).to(torch.int64) & 0xFFFFFFFF
+
+
+def _lengths_of(lens: torch.Tensor) -> np.ndarray:
+    """int64 lengths on the device as a host uint32 array: one
+    device-to-host copy, 4 bytes a length."""
+    return narrow_unsigned(lens.contiguous(), 4).cpu().numpy().view(np.uint32)
+
+
+# ----------------------------------------------------------------- csv_split
+# Header extension flag bits (appended after n_rows only when non-zero, so
+# single-byte-separator LF frames stay byte-identical to the frozen vectors):
+_CSV_EXT_CRLF = 1  # lines were CRLF-terminated; decode rejoins with \r\n
+_CSV_EXT_MB_SEP = 2  # separator is multi-byte; the tail follows as bytes_
+
+
+def _csv_sep_bytes(sep) -> bytes:
+    sep_b = (
+        bytes([sep])
+        if isinstance(sep, int)
+        else (sep.encode() if isinstance(sep, str) else bytes(sep))
+    )
+    if not sep_b:
+        raise ValueError("csv_split: separator must be non-empty")
+    if b"\n" in sep_b or b"\r" in sep_b:
+        raise ValueError("csv_split: separator cannot contain newlines")
+    return sep_b
+
+
+def _has_border(sep_b: bytes) -> bool:
+    """Whether a proper prefix of the separator is also its suffix: only
+    then can two of its matches overlap."""
+    return any(sep_b[:k] == sep_b[-k:] for k in range(1, len(sep_b)))
+
+
+def _separators(body: torch.Tensor, sep_b: bytes) -> torch.Tensor:
+    """The start positions of the matches ``bytes.split`` takes, in order.
+
+    Candidates come from shifted compares.  A separator holds no newline,
+    so no match straddles a line, and Python's left-to-right matching
+    across the whole body equals its matching line by line.  Where the
+    separator has a border, candidates may overlap: the taken ones are the
+    chain from the first candidate through ``next(c)``, the first
+    candidate at or past ``c + len(sep)``, marked by pointer jumping in
+    O(log n) rounds."""
+    size, nb = len(sep_b), body.numel()
+    if nb < size:
+        return torch.zeros(0, dtype=torch.int64, device=body.device)
+    hit = body[: nb - size + 1] == sep_b[0]
+    for k in range(1, size):
+        hit &= body[k : nb - size + 1 + k] == sep_b[k]
+    cand = torch.nonzero(hit).reshape(-1)
+    k = cand.numel()
+    if size == 1 or k < 2 or not _has_border(sep_b):
+        return cand
+    sentinel = torch.full((1,), k, dtype=torch.int64, device=body.device)
+    jump = torch.cat([torch.searchsorted(cand, cand + size), sentinel])  # k: none left
+    on = torch.zeros(k + 1, dtype=torch.int32, device=body.device)
+    on[0] = 1
+    for _ in range(k.bit_length()):  # after r rounds: the chain's first 2^r members
+        on = on.scatter_reduce(0, jump, on, reduce="amax")
+        jump = jump[jump]
+    return cand[on[:k].bool()]
+
+
+def _csv_split_enc(streams, params):
+    s = streams[0]
+    if s.stype != SType.SERIAL:
+        raise ValueError("csv_split wants serial bytes")
+    sep_b = _csv_sep_bytes(params.get("sep", ","))
+    data = s.data
+    trailing_nl = bool(data.numel()) and int(data[-1]) == _NL  # one scalar sync
+    body = data[:-1] if trailing_nl else data
+    nb, dev = body.numel(), body.device
+    if nb == 0:  # body.split(b"\n") if body else []
+        raise ValueError("csv_split: empty input")
+    nl = torch.nonzero(body == _NL).reshape(-1)
+    n_lines = nl.numel() + 1
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), nl + 1])
+    ends = torch.cat([nl, torch.full((1,), nb, dtype=torch.int64, device=dev)])
+    # CRLF mode: the input ends in \n and every line ends in \r; the \r then
+    # leaves the fields and decode rejoins with \r\n
+    crlf = trailing_nl and bool(
+        ((ends > starts) & (body[(ends - 1).clamp_min(0)] == _CR)).all())
+    if crlf:
+        ends = ends - 1
+    seps = _separators(body, sep_b)
+    per_line = torch.bincount(torch.searchsorted(nl, seps), minlength=n_lines)
+    least, most = (int(v) for v in torch.aminmax(per_line))
+    if least != most:
+        raise ValueError("csv_split: ragged rows (rectangular CSV only)")
+    n_cols = most + 1
+    sep_at = seps.view(n_lines, n_cols - 1)
+    f_start = torch.cat([starts[:, None], sep_at + len(sep_b)], 1).t()  # (n_cols, n_lines)
+    f_len = torch.cat([sep_at, ends[:, None]], 1).t() - f_start
+    lens = _lengths_of(f_len)  # one device-to-host copy of every column's lengths
+    col_bytes = lens.sum(1, dtype=np.int64)
+    content = _gather(body, f_start.reshape(-1), f_len.reshape(-1), int(col_bytes.sum()))
+    outs, off = [], 0
+    for c in range(n_cols):  # each column a view of the one gathered tensor
+        outs.append(Stream(content[off : off + int(col_bytes[c])], SType.STRING, 1, lens[c]))
+        off += int(col_bytes[c])
+    h = HeaderWriter().u8(sep_b[0]).u8(1 if trailing_nl else 0).varint(n_cols).varint(n_lines)
+    flags = (_CSV_EXT_CRLF if crlf else 0) | (_CSV_EXT_MB_SEP if len(sep_b) > 1 else 0)
+    if flags:
+        h.u8(flags)
+        if flags & _CSV_EXT_MB_SEP:
+            h.bytes_(sep_b[1:])
+    return outs, h.done()
+
+
+def _csv_split_dec(outs, header, device):
+    r = HeaderReader(header)
+    sep = bytes([r.u8()])
+    trailing_nl = r.u8()
+    n_cols = r.varint()
+    n_rows = r.varint()
+    eol = b"\n"
+    if r.pos < len(r.buf):  # extension byte (absent in pre-extension frames)
+        flags = r.u8()
+        if flags & _CSV_EXT_MB_SEP:
+            sep += r.bytes_()
+        if flags & _CSV_EXT_CRLF:
+            eol = b"\r\n"
+    r.expect_end()
+    if len(outs) != n_cols or any(
+        o.stype != SType.STRING or o.lengths.size != n_rows for o in outs
+    ):
+        raise ValueError("csv_split: corrupt columns")
+    tail = torch.tensor(list(sep + eol), dtype=torch.uint8, device=device)
+    n_eol = max(n_rows - 1, 0) + (1 if trailing_nl else 0)
+    if n_rows == 0:  # eol.join([]), then the trailing eol
+        return [Stream(tail[len(sep) :].repeat(n_eol), SType.SERIAL, 1)]
+    # the output as pieces, row by row: field 0, sep, field 1, ..., field
+    # n_cols - 1, eol; each piece a run of one source, joined by one gather
+    lens_h = np.zeros((n_cols, n_rows), dtype=np.uint32)
+    for c, o in enumerate(outs):
+        lens_h[c] = o.lengths
+    col_bytes = lens_h.sum(1, dtype=np.int64)
+    src = torch.cat([o.data.to(device) for o in outs] + [tail])
+    sep_at = int(col_bytes.sum())
+    lens = _lengths_to(lens_h, device)  # one host-to-card copy
+    col_base = torch.from_numpy(np.cumsum(col_bytes) - col_bytes).to(device)
+    f_src = torch.cumsum(lens, 1) - lens + col_base[:, None]
+    width = max(2 * n_cols, 1)
+    p_len = torch.empty((n_rows, width), dtype=torch.int64, device=device)
+    p_src = torch.empty_like(p_len)
+    p_len[:, 0 : width - 1 : 2], p_src[:, 0 : width - 1 : 2] = lens.t(), f_src.t()
+    p_len[:, 1 : width - 1 : 2], p_src[:, 1 : width - 1 : 2] = len(sep), sep_at
+    p_len[:, width - 1], p_src[:, width - 1] = len(eol), sep_at + len(sep)
+    if not trailing_nl:
+        p_len[n_rows - 1, width - 1] = 0
+    total = sep_at + n_rows * max(n_cols - 1, 0) * len(sep) + n_eol * len(eol)
+    raw = _gather(src, p_src.reshape(-1), p_len.reshape(-1), total)
+    return [Stream(raw, SType.SERIAL, 1)]
+
+
+register_codec(
+    CodecSpec(
+        "csv_split",
+        codec_id=20,
+        encode=_csv_split_enc,
+        decode=_csv_split_dec,
+        n_outputs=-1,
+        min_version=2,
+        wants_device=True,
+        doc="rectangular CSV -> per-column string streams (frontend, §IV)",
+    )
+)
+
+
+# ------------------------------------------------------------- parse_numeric
+# An int64 has at most 19 digits, so a canonical rendering has at most 20
+# bytes with its sign.  Its magnitude is read as hi * 10^9 + lo (lo the last
+# nine digits), which never overflows, and held against 2^63 - 1 (2^63 for
+# a negative) in the same halves.
+_WIDTH = 20
+_LO_DIGITS = 9
+_HI_MAX, _LO_MAX = divmod((1 << 63) - 1, 10**_LO_DIGITS)  # 9223372036, 854775807
+
+
+def _powers(n: int, device) -> torch.Tensor:
+    """10^(n-1), ..., 10, 1 as int64."""
+    return torch.tensor([10**k for k in range(n - 1, -1, -1)], dtype=torch.int64, device=device)
+
+
+def _canonical_ints(content: torch.Tensor, off: torch.Tensor, lens: torch.Tensor):
+    """For each string, whether it is a canonical decimal int64 rendering
+    (``repro.codecs.parse._canonical_int``), and its value where it is.
+
+    Each string's last 20 bytes are gathered right-aligned into an (n, 20)
+    matrix: byte p of the window is byte ``lens - 20 + p`` of the string,
+    padding where that is negative."""
+    dev = content.device
+    src = content if content.numel() else torch.zeros(1, dtype=torch.uint8, device=dev)
+    p = torch.arange(_WIDTH, dtype=torch.int64, device=dev)
+    first = _WIDTH - lens  # the window's column of the string's first byte
+    idx = (off + lens - _WIDTH)[:, None] + p
+    inside = p >= first[:, None]
+    b = torch.where(inside, src[idx.clamp(0, src.numel() - 1)], 0)
+    head = first.clamp(0, _WIDTH - 1)[:, None]
+    neg = b.gather(1, head).squeeze(1) == _MINUS
+    n_digits = lens - neg.to(torch.int64)
+    lead = first + neg.to(torch.int64)  # the column of the first digit
+    at_digit = p >= lead[:, None]
+    is_digit = (b >= _ZERO) & (b <= _NINE)
+    lead_byte = b.gather(1, lead.clamp(0, _WIDTH - 1)[:, None]).squeeze(1)
+    ok = (
+        (lens >= 1) & (lens <= _WIDTH) & (n_digits >= 1)
+        & (is_digit | ~at_digit).all(1)
+        # a leading zero does not round-trip, nor does "-0"
+        & ~((lead_byte == _ZERO) & ((n_digits > 1) | neg))
+    )
+    digit = torch.where(at_digit & is_digit, b.to(torch.int64) - _ZERO, 0)
+    lo = (digit[:, _WIDTH - _LO_DIGITS :] * _powers(_LO_DIGITS, dev)).sum(1)
+    hi = (digit[:, : _WIDTH - _LO_DIGITS] * _powers(_WIDTH - _LO_DIGITS, dev)).sum(1)
+    ok &= (hi < _HI_MAX) | ((hi == _HI_MAX) & (lo <= _LO_MAX + neg.to(torch.int64)))
+    big = torch.where(ok, hi, 0) * 10**_LO_DIGITS
+    lo = torch.where(ok, lo, 0)
+    # a negative is built as a negative sum: -2^63 comes out without overflow
+    return ok, torch.where(neg, -big - lo, big + lo)
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``np.packbits``: 8 flags a byte, the first in the top bit; no bytes
+    for no flags."""
+    pad = (-bits.numel()) % 8
+    b = torch.cat([bits.to(torch.int32), bits.new_zeros(pad, dtype=torch.int32)]).view(-1, 8)
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
+    return (b << shifts).sum(1).to(torch.uint8)
+
+
+def _unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """``np.unpackbits(packed)[:n]`` as bools."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=packed.device)
+    return ((packed.to(torch.int32)[:, None] >> shifts) & 1).reshape(-1)[:n].bool()
+
+
+def _parse_numeric_enc(streams, params):
+    s = streams[0]
+    if s.stype != SType.STRING:
+        raise ValueError("parse_numeric wants a string stream")
+    dev = s.data.device
+    lens = _lengths_to(s.lengths, dev)  # one host-to-card copy
+    off = torch.cumsum(lens, 0) - lens
+    is_num, value = _canonical_ints(s.data, off, lens)
+    exc = ~is_num
+    exc_lens = lens[exc]
+    exc_lens_h = _lengths_of(exc_lens)  # one card-to-host copy
+    exceptions = _gather(s.data, off[exc], exc_lens, int(exc_lens_h.sum(dtype=np.int64)))
+    h = HeaderWriter().varint(s.n_elts).done()
+    return [
+        Stream(_pack_bits(is_num), SType.SERIAL, 1),
+        numeric_stream(value[is_num]),
+        Stream(exceptions, SType.STRING, 1, exc_lens_h),
+    ], h
+
+
+def _digit_count(x: torch.Tensor, most: int) -> torch.Tensor:
+    """Decimal digits of x in [0, 10^most), with 0 counted as one digit."""
+    return 1 + (x[:, None] >= _powers(most, x.device)[:-1]).sum(1)
+
+
+def _format_ints(vals: torch.Tensor):
+    """Each int64's shortest decimal rendering, right-aligned in an (n, 20)
+    byte matrix, and its length.  The magnitude is split as hi * 10^9 + lo
+    by truncating division, so -2^63 needs no positive int64."""
+    dev = vals.device
+    neg = vals < 0
+    q = torch.div(vals, 10**_LO_DIGITS, rounding_mode="trunc")
+    hi, lo = q.abs(), (vals - q * 10**_LO_DIGITS).abs()
+    n_hi = _WIDTH - 1 - _LO_DIGITS  # hi has at most 10 digits
+    n_digits = torch.where(hi > 0, _LO_DIGITS + _digit_count(hi, n_hi),
+                           _digit_count(lo, _LO_DIGITS))
+    digits = torch.cat([hi[:, None] // _powers(n_hi, dev) % 10,
+                        lo[:, None] // _powers(_LO_DIGITS, dev) % 10], 1)
+    text = torch.cat([torch.zeros_like(vals)[:, None], digits], 1) + _ZERO
+    p = torch.arange(_WIDTH, dtype=torch.int64, device=dev)
+    sign_at = (p == (_WIDTH - 1 - n_digits)[:, None]) & neg[:, None]
+    text = torch.where(sign_at, _MINUS, text).to(torch.uint8)
+    return text, n_digits + neg.to(torch.int64)
+
+
+def _parse_numeric_dec(outs, header):
+    bitmap_s, vals_s, exc_s = outs
+    r = HeaderReader(header)
+    n = r.varint()
+    r.expect_end()
+    bitmap, raw = bitmap_s.raw(), vals_s.raw()
+    if bitmap.numel() * 8 < n or raw.numel() % 8 or exc_s.stype != SType.STRING:
+        raise ValueError("parse_numeric: corrupt streams")
+    dev = bitmap.device
+    is_num = _unpack_bits(bitmap, n)
+    vals = raw.view(torch.int64)
+    n_num = int(is_num.sum())  # one scalar sync
+    if n_num != vals.numel() or n - n_num != exc_s.lengths.size:
+        raise ValueError("parse_numeric: the bitmap does not match its values and exceptions")
+    text, num_lens = _format_ints(vals)
+    exc_lens = _lengths_to(exc_s.lengths, dev)  # one host-to-card copy
+    exc_off = torch.cumsum(exc_lens, 0) - exc_lens
+    # each item from its own kind: the k-th number or the k-th exception; the
+    # zero beside each keeps the lookup in range past the last of its kind
+    flags = is_num.to(torch.int64)
+    num_k = torch.cumsum(flags, 0) - flags
+    exc_k = torch.arange(n, dtype=torch.int64, device=dev) - num_k
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    num_len = torch.cat([num_lens, zero])[num_k]
+    item_len = torch.where(is_num, num_len, torch.cat([exc_lens, zero])[exc_k])
+    item_src = torch.where(is_num, num_k * _WIDTH + _WIDTH - num_len,
+                           n_num * _WIDTH + torch.cat([exc_off, zero])[exc_k])
+    lengths = _lengths_of(item_len)  # one card-to-host copy
+    src = torch.cat([text.reshape(-1), exc_s.data.to(dev)])
+    items = _gather(src, item_src, item_len, int(lengths.sum(dtype=np.int64)))
+    return [Stream(items, SType.STRING, 1, lengths)]
+
+
+register_codec(
+    CodecSpec(
+        "parse_numeric",
+        codec_id=19,
+        encode=_parse_numeric_enc,
+        decode=_parse_numeric_dec,
+        n_outputs=3,
+        min_version=2,
+        doc="ASCII ints -> (bitmap, i64 values, exceptions); lossless always",
+    )
+)

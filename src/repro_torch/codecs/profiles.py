@@ -4,7 +4,7 @@ selector over any stream: the reference CLI's default), the numeric profile
 (``zlib_backend``), the float checkpoint profiles of the paper's §VIII
 (``float32``, ``bfloat16``, ``float64``), and the record profiles: the
 paper's §IV worked example (``sao``) and the generic record format
-(``struct``)."""
+(``struct``), and the CSV frontend of the paper's §VI-C (``csv``)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -97,6 +97,28 @@ def sao_profile() -> Plan:
         g.add("transpose", alpha)  # sparse dictionary: byte planes then store
         g.select("numeric_auto", idx)  # dense bounded ints
     return g.build("sao")
+
+
+def csv_profile(n_cols: int, sep: str = ",") -> Plan:
+    """CSV frontend + per-column parse_numeric + auto backends (§VI-C)."""
+    if n_cols < 1:
+        raise ValueError(f"csv profile: column count must be >= 1, got {n_cols}")
+    if not sep:
+        raise ValueError("csv profile: separator must be non-empty")
+    if "\n" in sep or "\r" in sep:
+        raise ValueError("csv profile: separator cannot contain newlines")
+    g = GraphBuilder(1)
+    cols = g.add("csv_split", g.input(0), n_out=n_cols, sep=sep)
+    if isinstance(cols, int):
+        cols = [cols]
+    for c in cols:
+        bitmap, vals, exc = g.add("parse_numeric", c)
+        g.select("bytes_auto", bitmap)
+        g.select("numeric_auto", vals)
+        exc_content, exc_lens = g.add("string_split", exc)
+        g.select("bytes_auto", exc_content)
+        g.select("numeric_auto", exc_lens)
+    return g.build(f"csv{n_cols}")
 
 
 def struct_profile(widths: Sequence[int]) -> Plan:

@@ -27,6 +27,8 @@ STRUCTURAL = (
     "dup", "constant", "split_n", "concat", "field_split", "string_split", "rle",
     "transpose_split",
 )
+# the CSV frontend (tests/test_torch_csv.py)
+FRONTEND = ("csv_split", "parse_numeric")
 DEVICE_TWINS = (
     "delta", "transpose", "huffman", "fse", "float_split", "bitpack", "fused_delta_bitpack",
 )
@@ -103,7 +105,7 @@ def _same(port_outs, ref_outs):
 
 def test_the_slice_registers_exactly_its_codecs():
     ported = all_codecs()
-    assert sorted(ported) == sorted(PORTED + STRUCTURAL)
+    assert sorted(ported) == sorted(PORTED + STRUCTURAL + FRONTEND)
     for name, spec in ported.items():
         ref = ref_get_codec(name)
         assert (spec.codec_id, spec.n_outputs, spec.min_version) == (

@@ -31,6 +31,8 @@ IN_SLICE = (
     "codec_dup", "codec_constant", "codec_split_n", "codec_concat", "codec_field_split",
     "codec_string_split", "codec_rle", "codec_transpose_split", "profile_sao",
     "profile_struct44",
+    "codec_csv_split", "codec_csv_split_crlf", "codec_csv_split_multisep", "codec_parse_numeric",
+    "profile_csv3",
 )
 MANIFEST = load_manifest()
 ALL_PLANS = sorted(p.stem for p in GOLDEN_DIR.glob("*.ozp"))
