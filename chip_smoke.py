@@ -161,7 +161,27 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              int64 boundary string), each card frame equal to the CPU's and
              decoded on the card; and ``csv_split`` and ``parse_numeric``
              alone each way on C1 and C2 (MB/s, exceptions per column).
-8. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
+8. graph   — the graph frontend at level 5, unchunked: G1, a SNAP-style
+             text edge list of 64 MiB (``synth_edge_pairs``, the recipe of
+             ``benchmarks/engine_bench.py``'s ``synth_edges``, seed
+             ``--seed`` + 5: 6,319,532 edges at seed 0, the scale of SNAP's
+             web-Google),
+             through ``graph_profile()`` (``edge_list``, then
+             ``adjacency_auto``'s trials between raw columns, plain gaps and
+             ``adj_gap(window=8)``'s reference coding), and G2, its complete
+             lines' pairs as interleaved uint32, through
+             ``graph_bin_profile(4)``; each compressed and decompressed on
+             the card with the launch counts reset before and read after
+             each half (each side must launch a kernel), decoded on the card
+             and equal to the input there, a 4 MiB prefix's frame equal to
+             the CPU's.  Then the edge corpus (``GRAPH_EDGES``: CRLF,
+             comments, negative ids, 2^63 as text, ties between separators,
+             "::" and "\\r", unsorted and decreasing lists, a hub, a chain of
+             200 reference runs, binary ids at and above 2^(8w-1)), each
+             card frame equal to the CPU's; and ``edge_list``,
+             ``edge_list_bin`` and ``adj_gap`` at windows 0 and 8 alone each
+             way on G1 and G2, with the reference runs and decode levels.
+9. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -171,17 +191,17 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-9. profile — one more compress and one decompress per plan and column under
+10. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
-             the records phase's and the CSV phase's calls.
-10. identity — the card's name and power limit.
+             the records phase's, the CSV phase's and the graph phase's calls.
+11. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
-``records_launches`` and ``csv_launches``), the
+``records_launches``, ``csv_launches`` and ``graph_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -295,7 +315,8 @@ HOST_STAGES = ("choose_best", "_lz77_enc", "_lz77_dec", "_zlib_enc", "_zlib_dec"
                "write_container", "read_container", "_pack_bits", "_unpack_bits",
                "_tokenize_strings", "_untokenize_strings", "write_varints",
                "read_string_lengths", "_csv_split_enc", "_csv_split_dec",
-               "_parse_numeric_enc", "_parse_numeric_dec")
+               "_parse_numeric_enc", "_parse_numeric_dec", "_edge_list_enc", "_edge_list_dec",
+               "_adj_gap_enc", "_adj_gap_dec", "_adjacency_auto")
 COLUMN_BYTES = 64 << 20
 PREFIX_BYTES = 4 << 20
 # the level-7 phase: the float profiles, whose entropy_auto and bytes_auto
@@ -394,6 +415,58 @@ CSV_EDGES = (
     ("blank_lines", b"\n\n", 1, ","),
     ("int64", b"\n".join(INT64_EDGES) + b"\n", 1, ","),
 )
+# the graph phase: a SNAP-style text edge list at 64 MiB (the recipe of
+# ``benchmarks/engine_bench.py``'s ``synth_edges``, copied; seed --seed + 5),
+# 6,319,532 edges over 451,032 source nodes at seed 0, the scale of SNAP's
+# web-Google (875,713 nodes, 5,105,039 edges), through ``graph_profile()``; and its
+# complete lines' (u, v) pairs as interleaved uint32, through
+# ``graph_bin_profile(4)``; both unchunked at level 5
+GRAPH_BYTES = 64 << 20
+GRAPH_SEED_SHIFT = 5
+GRAPH_WINDOWS = (0, 8)  # adj_gap alone: plain gaps, and the profile's window
+# the graph edge corpus: (label, file, profile spec or ``graph_profile``
+# kwargs); each through its profile on the card, its frame equal to the
+# CPU's.  The traps of the text parse (CRLF, comments and blank lines, no
+# trailing newline, negative ids, -0, leading zeros, 2^63 as text, two
+# separators on a line, a tie between tab and space, the separators "::" and
+# "\r"), of adjacency lists (unsorted and duplicate edges, a decreasing
+# list, a hub that no list may take as a reference, a chain of 200 runs each
+# a copy of the one before), and binary ids at and above 2^(8w - 1)
+HUB = b"".join(b"1\t%d\n" % (v * 3) for v in range(100)) + b"".join(
+    b"2\t%d\n" % (v * 30) for v in range(10))
+CHAIN = b"".join(b"%d\t%d\n" % (u, (1 << 40) + 7 * v) for u in range(200) for v in range(12))
+
+
+def _bin_pairs(width: int) -> bytes:
+    top = 1 << (8 * width - 1)
+    ids = [0, 1, top - 1, top, top + 1, (top << 1) - 1]
+    pairs = [(u, v) for u in ids for v in ids] + [(ids[3], v) for v in range(40, 0, -3)]
+    dt = {2: np.uint16, 4: np.uint32, 8: np.uint64}[width]
+    return np.array(pairs, dtype=dt).tobytes()
+
+
+GRAPH_EDGES = (
+    ("empty", b"", "graph"),
+    ("newline", b"\n", "graph"),
+    ("no_trailing_newline", b"1\t2\n1\t5\n3\t4", "graph"),
+    ("comments_blank_lines", b"# FromNodeId\tToNodeId\n\n1\t2\n\n# x\n2\t3\n", "graph"),
+    ("crlf", b"1\t2\r\n1\t3\r\n4\t5\r\n", "graph"),
+    ("negative_ids", b"-1\t-2\n-1\t5\n-3\t-9223372036854775808\n", "graph"),
+    ("minus_zero_leading_zeros", b"-0\t1\n01\t2\n1\t002\n0\t0\n", "graph"),
+    ("two63_text", b"9223372036854775808\t1\n9223372036854775807\t18446744073709551615\n"
+     b"9223372036854775807\t9223372036854775807\n", "graph"),
+    ("two_separators", b"1\t2\t3\n1 2 3\n4\t5\n1\t\t2\n", "graph"),
+    ("tab_space_tie", b"1\t2\n3 4\n5\t6\n7 8\n", "graph"),
+    ("colons", b"1::2\n1:::3\n5::::6\n7::8\n::\n", "graph:::"),
+    ("cr_separator", b"1\r2\n1\r3\r\n5\r6\n", {"sep": "\r"}),
+    ("unsorted_duplicates", b"3\t1\n1\t3\n1\t3\n2\t9\n1\t3\n1\t2\n", "graph"),
+    ("decreasing", b"1\t9\n1\t7\n1\t5\n1\t3\n1\t1\n", "graph"),
+    ("hub", HUB, "graph"),
+    ("chain_200", CHAIN, "graph"),
+    ("bin2", _bin_pairs(2), "graph:bin:2"),
+    ("bin4", _bin_pairs(4), "graph:bin:4"),
+    ("bin8", _bin_pairs(8), "graph:bin:8"),
+)
 # encode_offset_sweep's sizes: ragged, past one vector and past a block's
 OFFSET_SIZES = (1, 37, 4097)
 
@@ -482,18 +555,19 @@ def _zipf_p(n, a, rng):
     return p / p.sum()
 
 
-def csv_rows(fields) -> bytes:
+def csv_rows(fields, sep: int = ord(",")) -> bytes:
     """Rows of non-negative ints as CSV text: each field ``b"%0*d" % (least,
-    v)``, or nothing where ``empty`` is set, joined by "," and each row ended
-    by "\\n", written digit by digit into one buffer (numpy, no loop over
-    rows).  ``fields``: (values, least digits, empty or None) per column."""
+    v)``, or nothing where ``empty`` is set, joined by ``sep`` (a byte) and
+    each row ended by "\\n", written digit by digit into one buffer (numpy,
+    no loop over rows).  ``fields``: (values, least digits, empty or None)
+    per column."""
     widths = []
     for v, least, empty in fields:
         n_digits = np.maximum(np.searchsorted(POW10[1:], v, side="right") + 1, least)
         widths.append(n_digits if empty is None else np.where(empty, 0, n_digits))
     row_len = sum(widths) + len(fields)
     row_end = np.cumsum(row_len)
-    out = np.full(int(row_end[-1]), ord(","), np.uint8)
+    out = np.full(int(row_end[-1]), sep, np.uint8)
     start = row_end - row_len
     for (v, _least, _empty), n_digits in zip(fields, widths):
         for k in range(int(n_digits.max())):  # each value's k-th digit from the right
@@ -536,6 +610,36 @@ def make_psam_csv(n_rows: int = 80_000, seed: int = 4) -> bytes:
     val = np.where(rng.random(n_rows) < 0.55, rng.integers(10, 999, n_rows) * 1000, 0)
     return csv_rows([(serialno, 1, None), (puma, 1, None), (wgtp, 1, None), (np_, 1, None),
                      (bds, 1, None), (rnt, 1, rnt == 0), (val, 1, val == 0)])
+
+
+def synth_edge_pairs(nbytes: int, seed: int = 0):
+    """SNAP-style text edge list: ``# comment`` header then sorted ``u\\tv``
+    lines, power-law target popularity (the recipe of
+    ``benchmarks/engine_bench.py``'s ``synth_edges``, copied: the same
+    ``rng`` calls and grow-until-covered loop, its lines written by
+    ``csv_rows``).  Returns the text and all the recipe's (u, v) pairs."""
+    rng = np.random.default_rng(seed)
+    n_edges = nbytes // 8 + 64
+    while True:  # dedup + short ids shrink the text: grow until it covers
+        n_nodes = max(n_edges // 16, 64)
+        w = 1.0 / np.arange(1, n_nodes + 1) ** 1.1
+        w /= w.sum()
+        dst = rng.choice(n_nodes, size=n_edges, p=w).astype(np.uint64)
+        src = np.sort(rng.integers(0, n_nodes, n_edges)).astype(np.uint64)
+        # np.unique(np.stack([src, dst], 1), axis=0), as one sort of
+        # int64 keys: the rows' order is the keys' order, as dst < n_nodes
+        keys = np.unique(src.astype(np.int64) * n_nodes + dst.astype(np.int64))
+        pairs = np.stack([keys // n_nodes, keys % n_nodes], axis=1).astype(np.uint64)
+        head = (
+            b"# SNAP-style synthetic graph  Nodes: %d  Edges: %d\n"
+            b"# FromNodeId\tToNodeId\n" % (n_nodes, len(pairs))
+        )
+        ids = pairs.astype(np.int64)
+        n_digits = np.searchsorted(POW10[1:], ids, side="right") + 1
+        if len(head) + int(n_digits.sum()) + 2 * len(pairs) >= nbytes:  # the text's size
+            body = csv_rows([(ids[:, 0], 1, None), (ids[:, 1], 1, None)], sep=ord("\t"))
+            return (head + body)[:nbytes], pairs
+        n_edges += n_edges // 2
 
 
 def stream_of(rt, cname: str, col: np.ndarray):
@@ -2081,6 +2185,155 @@ def csv_sweep(rt, files) -> None:
               f" {[o[2].n_elts for o, _h in parsed]} of {cols[0].n_elts} rows")
 
 
+def graph_files(seed: int):
+    """G1, the text edge list, and G2, its complete lines' pairs as
+    interleaved uint32 (``GRAPH_BYTES``), made from ``seed``."""
+    t0 = time.perf_counter()
+    raw, pairs = synth_edge_pairs(GRAPH_BYTES, seed + GRAPH_SEED_SHIFT)
+    n_lines = raw.count(b"\n") - 2  # the complete edge lines past the two comments
+    pairs = pairs[:n_lines]
+    pairs_bin = pairs.astype(np.uint32).tobytes()
+    print(f"graph data: G1 {len(raw)} bytes ({n_lines} complete edge lines,"
+          f" {len(np.unique(pairs[:, 0]))} source nodes); G2 {len(pairs_bin)} bytes;"
+          f" seconds={time.perf_counter() - t0}")
+    return {"G1": raw, "G2": pairs_bin}
+
+
+def graph_phase(rt, ops, seed: int):
+    """The graph frontend on the card: G1 through ``graph_profile()`` and G2
+    through ``graph_bin_profile(4)``, each through ``compress(...,
+    device="cuda")`` and back through ``decompress``, with the launch counts
+    reset just before and read just after each half; a 4 MiB prefix's frame
+    (G1 cut after a newline, G2 whole pairs) equal to the CPU's; then the
+    edge corpus and the codecs alone.  Returns the calls (for the profile
+    phase) and each kernel's launches summed over them."""
+    import torch
+
+    files = graph_files(seed)
+    plans = {"G1": ("graph_profile()", rt.graph_profile()),
+             "G2": ("graph_bin_profile(4)", rt.graph_bin_profile(4))}
+    calls, totals = [], {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+    for label, raw in files.items():
+        pname, plan = plans[label]
+        stream = rt.serial(raw)
+        cut = raw.rfind(b"\n", 0, PREFIX_BYTES) + 1 if label == "G1" else PREFIX_BYTES
+        prefix = rt.serial(raw[:cut])
+        t0 = time.perf_counter()
+        on_card = rt.compress(plan, prefix, device="cuda")  # also warms the card
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = rt.compress(plan, prefix, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        if on_card != on_cpu:
+            fail(f"graph {label}: the card's prefix frame differs from the CPU's")
+        (back,) = rt.decompress(on_card, device="cuda")
+        if not same_stream(back, prefix):
+            fail(f"graph {label}: the prefix frame did not decode on the card")
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        frame = rt.compress(plan, stream, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        encode = ops.launch_counts()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        (out,) = rt.decompress(frame, device="cuda")
+        torch.cuda.synchronize()
+        ddt = time.perf_counter() - t0
+        decode = ops.launch_counts()
+        for k in totals:
+            totals[k] += encode[k] + decode[k]
+        if not same_stream(out, stream):
+            fail(f"graph {label}: decompress on the card did not return the input")
+        if not (sum(encode.values()) and sum(decode.values())):
+            fail(f"graph {label}: a side launched no kernel: {encode} {decode}")
+        codecs = frame_codecs(rt, frame)
+        named = codecs.split("+")
+        missing = ([k for c in named for k in ENCODE_KERNELS_OF.get(c, ()) if encode[k] == 0]
+                   + [k for c in named for k in DECODE_KERNELS_OF.get(c, ()) if decode[k] == 0])
+        if missing:
+            fail(f"graph {label}: never launched {sorted(set(missing))}")
+        print(f"graph {label} {pname} [{codecs}]: bytes={len(raw)} frame_bytes={len(frame)}"
+              f" ratio={len(raw) / len(frame)} compress_MBps={len(raw) / dt / 1e6}"
+              f" seconds={dt} decompress_MBps={len(raw) / ddt / 1e6} decompress_seconds={ddt}")
+        print(f"graph {label} launches: compress {json.dumps(encode)}"
+              f" decompress {json.dumps(decode)}")
+        print(f"check graph {label}: decoded on the card (output on {out.data.device}), equal"
+              f" to the input; prefix card frame == cpu frame ({len(on_card)} bytes,"
+              f" {prefix.nbytes} input bytes; compress seconds card {t_card} cpu {t_cpu});"
+              f" the kernels of its codecs launched")
+        calls.append((label, pname, plan, stream, None, frame, codecs))
+    print(f"graph launches {json.dumps(totals)}")
+    graph_edges(rt)
+    graph_sweep(rt, files)
+    print(f"graph phase seconds={time.perf_counter() - t_phase}")
+    return calls, totals
+
+
+def graph_edges(rt) -> None:
+    """The graph edge corpus (``GRAPH_EDGES``) through its profiles on the
+    card: each frame equals the CPU's and decodes on the card to its file."""
+    for label, raw, how in GRAPH_EDGES:
+        # a profile spec through the catalogue, or graph_profile's keyword
+        # arguments (a separator that the spec refuses)
+        plan = rt.resolve_profile_spec(how) if isinstance(how, str) else rt.graph_profile(**how)
+        stream = rt.serial(raw)
+        frame = rt.compress(plan, stream, device="cuda")
+        if frame != rt.compress(plan, stream, device="cpu"):
+            fail(f"graph edge {label}: the card's frame differs from the CPU's")
+        (out,) = rt.decompress(frame, device="cuda")
+        if not same_stream(out, stream):
+            fail(f"graph edge {label}: decompress on the card did not return the file")
+    print(f"check graph edges: {len(GRAPH_EDGES)} files ({', '.join(e[0] for e in GRAPH_EDGES)}),"
+          f" each card frame == cpu frame and decoded on the card")
+
+
+def graph_sweep(rt, files) -> None:
+    """``edge_list`` and ``edge_list_bin``, then ``adj_gap`` at each of
+    ``GRAPH_WINDOWS``, alone on the card, each way, on G1 and G2 at full
+    size (the "graph frontend" layer): seconds, the reference runs that
+    ``adj_gap`` chose, and its decoder's dependency levels."""
+    import torch
+    from repro_torch.codecs.graph import reference_levels
+    from repro_torch.core.codec import get_codec
+
+    adj = get_codec("adj_gap")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for label, raw in files.items():
+        stream = rt.serial(raw).to("cuda")
+        front, params = ((get_codec("edge_list"), {}) if label == "G1"
+                         else (get_codec("edge_list_bin"), {"width": 4}))
+        (outs, header), t_enc = timed(lambda: front.run_encode([stream], params))
+        (back,), t_dec = timed(lambda: front.run_decode(outs, header))
+        if not same_stream(back, stream):
+            fail(f"graph sweep {label}: {front.name} did not return the file")
+        line = (f"graph sweep {label}: {front.name} encode_seconds={t_enc}"
+                f" decode_seconds={t_dec} edges={outs[0].n_elts}")
+        for window in GRAPH_WINDOWS:
+            (adj_outs, adj_header), a_enc = timed(
+                lambda: adj.run_encode(outs[:2], {"window": window}))
+            (src, dst), a_dec = timed(lambda: adj.run_decode(adj_outs, adj_header))
+            if not (same_stream(src, outs[0]) and same_stream(dst, outs[1])):
+                fail(f"graph sweep {label}: adj_gap(window={window}) did not return the columns")
+            refs = adj_outs[2].data
+            line += (f"; adj_gap window={window}: encode_seconds={a_enc}"
+                     f" decode_seconds={a_dec} runs={refs.numel()}"
+                     f" reference_runs={int((refs != 0).sum())}"
+                     f" copy_bits={adj_outs[3].n_elts * 8} gaps={adj_outs[4].n_elts}"
+                     f" decode_levels={reference_levels(refs)}")
+        print(line)
+
+
 def level_phase(cols, rt, ops) -> None:
     """The level-7 path on the card: each of ``LEVEL_COLUMNS`` through
     ``compress`` and back through ``decompress``, with the launch counts reset
@@ -2159,12 +2412,13 @@ def frame_codecs(rt, frame: bytes) -> str:
     return "+".join(get_codec_by_id(node.codec_id).name for node in read_frame(frame)[2])
 
 
-def profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls) -> None:
+def profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls,
+                  graph_calls) -> None:
     """Where one compress and one decompress call's time goes: the card's busy
     time from ``torch.profiler`` (its kernels, by name) and the host's time
     from ``cProfile`` (its functions, by cumulative time); the main and
     decode phases' calls, summed per kernel, then the container phase's, the
-    records phase's and the CSV phase's."""
+    records phase's, the CSV phase's and the graph phase's."""
     plans = {name: make(rt) for name, make in PLANS.items()}
     sums = {"compress": {}, "decompress": {}}
     for cname, pname in column_plans(cols):
@@ -2183,7 +2437,8 @@ def profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls) ->
           f" {len(frames)} decompress calls: {json.dumps(dict(sorted(total.items())))}"
           f" compress: {json.dumps(sums['compress'])} decompress: {json.dumps(sums['decompress'])}")
     tagged = ([("container", c) for c in container_calls]
-              + [("records", c) for c in record_calls] + [("csv", c) for c in csv_calls])
+              + [("records", c) for c in record_calls] + [("csv", c) for c in csv_calls]
+              + [("graph", c) for c in graph_calls])
     for phase, (label, pname, plan, stream, chunk_bytes, frame, codecs) in tagged:
         tag = f"{phase} {label} {pname} chunk_bytes={chunk_bytes} [{codecs}]"
         profile_call(tag, lambda: rt.compress(plan, stream, device="cuda",
@@ -2292,13 +2547,15 @@ def main() -> None:
     container_calls, container_launches = container_phase(cols, rt, ops)
     record_calls, records_launches = records_phase(rt, ops, args.seed)
     csv_calls, csv_launches = csv_phase(rt, ops, args.seed)
+    graph_calls, graph_launches = graph_phase(rt, ops, args.seed)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
         r["records_launches"] = records_launches[r["name"]]
         r["csv_launches"] = csv_launches[r["name"]]
+        r["graph_launches"] = graph_launches[r["name"]]
     level_phase(cols, rt, ops)
-    profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls)
+    profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
     identity = nvidia_smi("name,power.limit")
     print(json.dumps({"kernels": rows}))
     print(identity)

@@ -20,6 +20,8 @@ Entry points::
     frame = compress(sao_profile(), serial(sao_file))     # the paper's §IV example
     frame = compress(struct_profile([8, 8, 2, 2, 4, 4]), struct(records, 28))
     frame = compress(csv_profile(8), serial(csv_file))    # the paper's §VI-C CSVs
+    frame = compress(graph_profile(), serial(edge_file))  # SNAP-style u<TAB>v lines
+    frame = compress(resolve_profile_spec("graph:bin:4"), serial(pairs))  # as the CLI names it
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
@@ -41,7 +43,11 @@ from .codecs.profiles import (  # noqa: F401
     float32_profile,
     float64_profile,
     generic_profile,
+    graph_bin_profile,
+    graph_profile,
+    named_profiles,
     numeric_profile,
+    resolve_profile_spec,
     sao_profile,
     struct_profile,
     text_profile,

@@ -29,6 +29,8 @@ STRUCTURAL = (
 )
 # the CSV frontend (tests/test_torch_csv.py)
 FRONTEND = ("csv_split", "parse_numeric")
+# the graph frontend (tests/test_torch_graph.py)
+GRAPH = ("edge_list", "edge_list_bin", "adj_gap")
 DEVICE_TWINS = (
     "delta", "transpose", "huffman", "fse", "float_split", "bitpack", "fused_delta_bitpack",
 )
@@ -105,7 +107,7 @@ def _same(port_outs, ref_outs):
 
 def test_the_slice_registers_exactly_its_codecs():
     ported = all_codecs()
-    assert sorted(ported) == sorted(PORTED + STRUCTURAL + FRONTEND)
+    assert sorted(ported) == sorted(PORTED + STRUCTURAL + FRONTEND + GRAPH)
     for name, spec in ported.items():
         ref = ref_get_codec(name)
         assert (spec.codec_id, spec.n_outputs, spec.min_version) == (

@@ -33,6 +33,8 @@ IN_SLICE = (
     "profile_struct44",
     "codec_csv_split", "codec_csv_split_crlf", "codec_csv_split_multisep", "codec_parse_numeric",
     "profile_csv3",
+    "codec_edge_list", "codec_edge_list_bin", "codec_adj_gap", "profile_graph",
+    "profile_graph_bin",
 )
 MANIFEST = load_manifest()
 ALL_PLANS = sorted(p.stem for p in GOLDEN_DIR.glob("*.ozp"))
