@@ -181,7 +181,30 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              card frame equal to the CPU's; and ``edge_list``,
              ``edge_list_bin`` and ``adj_gap`` at windows 0 and 8 alone each
              way on G1 and G2, with the reference runs and decode levels.
-9. level7  — ``float32_profile()`` on a 4 MiB prefix of D and
+9. sessions — the engine's sessions on the card, after the graph phase, with
+             4 MiB chunks (``SESSION_CHUNK_BYTES``): A through
+             ``CompressorSession(generic_profile())`` with ``n_workers=1`` and
+             with the default pool (the containers byte-equal), back through
+             a pooled ``DecompressorSession``; A again from a side stream
+             (``torch.cuda.stream``), written there behind a device sleep,
+             through ``delta -> transpose -> zlib_backend`` (a worker that
+             launched on its own stream would read it before the copy
+             lands); C through a pooled ``CompressorSession(bfloat16_profile())``
+             (float split, histogram and tANS on the pool's threads, the
+             tables from the process-wide coder-table cache) against one
+             worker; G1 written to a temporary file and through
+             ``compress_file`` from its path (a known count; one worker and
+             the pool, byte-equal) and from an OS pipe (the count
+             backpatched; the same chunks), back through ``decompress_file``
+             (one worker and the pool) and
+             ``DecompressorSession.iter_frames``; ``compress_traced`` on
+             A's 4 MiB.  Each decode equals the input on the card, each
+             cell's 4 MiB prefix at 1 MiB chunks equals the CPU's container
+             with both caches emptied before each side, and each side of
+             each call launches a kernel; MB/s each way, the sessions'
+             stats, both caches' counters, the peak of allocated card
+             memory and ``profile sessions`` lines.
+10. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -191,17 +214,18 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-10. profile — one more compress and one decompress per plan and column under
+11. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
              the records phase's, the CSV phase's and the graph phase's calls.
-11. identity — the card's name and power limit.
+12. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
-``records_launches``, ``csv_launches`` and ``graph_launches``), the
+``records_launches``, ``csv_launches``, ``graph_launches`` and
+``sessions_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -422,6 +446,10 @@ CSV_EDGES = (
 # complete lines' (u, v) pairs as interleaved uint32, through
 # ``graph_bin_profile(4)``; both unchunked at level 5
 GRAPH_BYTES = 64 << 20
+# the sessions phase: chunks of the reference CLI's default size, and the
+# device sleep (~0.1 s at 1980 MHz) behind which a side stream writes A
+SESSION_CHUNK_BYTES = 4 << 20
+SIDE_SLEEP_CYCLES = 200_000_000
 GRAPH_SEED_SHIFT = 5
 GRAPH_WINDOWS = (0, 8)  # adj_gap alone: plain gaps, and the profile's window
 # the graph edge corpus: (label, file, profile spec or ``graph_profile``
@@ -909,8 +937,8 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     # table_log 16: K9 and K10 read tables of 2^16 entries from global memory
     wide = rt.pipeline("delta", "transpose", ("fse", {"table_log": 16}))
     prefix_a = col_a_np[: PREFIX_BYTES // 8]
-    wide_frame = rt.compress(wide, rt.numeric(prefix_a), device="cuda")
-    if wide_frame != rt.compress(wide, rt.numeric(prefix_a), device="cpu"):
+    wide_frame = card_frame(rt, wide, rt.numeric(prefix_a))
+    if wide_frame != cpu_frame(rt, wide, rt.numeric(prefix_a)):
         fail("table_log 16: the card's frame differs from the CPU's")
     w_args, _n, _stype = entropy.fse_lanes(*node_streams(wide_frame, "fse"))
     err = max(err, max_abs_err([ops.fse_decode(*w_args)], [ref.fse_decode_lanes(*w_args)]))
@@ -924,8 +952,10 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
     wide_bytes = np.random.default_rng(seed + WIDE_TABLE_LOG).integers(
         0, 256, WIDE_BYTES, dtype=np.uint8).tobytes()
     plan27 = rt.pipeline(("fse", {"table_log": WIDE_TABLE_LOG}))
-    frame27 = rt.compress(plan27, rt.serial(wide_bytes), device="cuda")
-    if frame27 != rt.compress(plan27, rt.serial(wide_bytes), device="cpu"):
+    # the host tables (~45 s to build) are built once, in the process-wide
+    # coder-table cache, which the calls below share
+    frame27 = card_frame(rt, plan27, rt.serial(wide_bytes))
+    if frame27 != cpu_frame(rt, plan27, rt.serial(wide_bytes)):
         fail(f"table_log {WIDE_TABLE_LOG}: the card's frame differs from the CPU's")
     args27, _n, _stype = entropy.fse_lanes(*node_streams(frame27, "fse"))
     sym27, nbb27 = args27[4], args27[5]
@@ -942,7 +972,7 @@ def kernel_phase(cols, rt, ops, ref, entropy, seed, sm_hz):
           f" decode tables {table27_bytes} bytes on the card;"
           f" seconds={time.perf_counter() - t0}")
     del args27, sym27, nbb27
-    entropy._TABLES.clear()  # drop the 2^27-state tables from the table cache
+    rt.coder_cache_clear()  # the 2^27-state tables leave the process-wide cache
     row("fse_decode", "src/repro_torch/csrc/fse.cu", "src/repro/kernels/fse.py:167",
         err, cuda_ms(lambda: ops.fse_decode(*f_args), 10),
         cuda_ms(lambda: ref.fse_decode_lanes(*f_args), 1),
@@ -1621,8 +1651,8 @@ def main_path(cols, rt, ops):
         if out.content_bytes() != col.tobytes():
             fail(f"{cname} {pname}: decompress did not return the column")
         prefix = col[: PREFIX_BYTES // col.itemsize]
-        on_card = rt.compress(plans[pname], stream_of(rt, cname, prefix), device="cuda")
-        on_cpu = rt.compress(plans[pname], stream_of(rt, cname, prefix), device="cpu")
+        on_card = card_frame(rt, plans[pname], stream_of(rt, cname, prefix))
+        on_cpu = cpu_frame(rt, plans[pname], stream_of(rt, cname, prefix))
         if on_card != on_cpu:
             fail(f"{cname} {pname}: the card's 4 MiB frame differs from the CPU's")
         print(f"check {cname} {pname}: roundtrip ok, 4 MiB card frame == cpu frame"
@@ -1707,6 +1737,7 @@ def container_phase(cols, rt, ops):
         prefix = container_stream(rt, kind, col[: PREFIX_BYTES // col.itemsize])
         small = {}
         for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+            rt.resolve_cache_clear()  # each side resolves (and runs its trials) afresh
             before = engine.fresh_resolves
             frame = rt.compress(plan, prefix, device=dev, chunk_bytes=PREFIX_CHUNK_BYTES + rem)
             small[where] = frame, engine.fresh_resolves - before
@@ -1892,8 +1923,8 @@ def records_phase(rt, ops, seed: int):
         # the prefix on the card and on the CPU (chunked at 1 MiB where the call
         # is chunked); this also warms the kernels and the allocator
         small = PREFIX_CHUNK_BYTES if chunk_bytes else None
-        on_card = rt.compress(plan, prefix, device="cuda", chunk_bytes=small)
-        if on_card != rt.compress(plan, prefix, device="cpu", chunk_bytes=small):
+        on_card = card_frame(rt, plan, prefix, chunk_bytes=small)
+        if on_card != cpu_frame(rt, plan, prefix, chunk_bytes=small):
             fail(f"records {label}: the card's prefix frame differs from the CPU's")
         (back,) = rt.decompress(on_card, device="cuda")
         if not same_stream(back, prefix):
@@ -1986,7 +2017,7 @@ def codec_sweep(rt, streams, prefixes) -> None:
         ddt = time.perf_counter() - t0
         if not same_stream(out, stream):
             fail(f"sweep {codec}: decompress on the card did not return {src}")
-        if frame != rt.compress(plan, stream, device="cpu"):
+        if frame != cpu_frame(rt, plan, stream):
             fail(f"sweep {codec}: the card's frame differs from the CPU's")
         print(f"sweep {codec} on {src} [{frame_codecs(rt, frame)}]: bytes={stream.nbytes}"
               f" frame_bytes={len(frame)} compress_MBps={stream.nbytes / dt / 1e6}"
@@ -2089,8 +2120,8 @@ def csv_phase(rt, ops, seed: int):
         raw = files[label]
         plan, stream = rt.csv_profile(n_cols), rt.serial(raw)
         prefix = rt.serial(raw[: raw.rfind(b"\n", 0, PREFIX_BYTES) + 1])
-        on_card = rt.compress(plan, prefix, device="cuda")  # also warms the card
-        if on_card != rt.compress(plan, prefix, device="cpu"):
+        on_card = card_frame(rt, plan, prefix)  # also warms the card
+        if on_card != cpu_frame(rt, plan, prefix):
             fail(f"csv {label}: the card's prefix frame differs from the CPU's")
         (back,) = rt.decompress(on_card, device="cuda")
         if not same_stream(back, prefix):
@@ -2143,8 +2174,8 @@ def csv_edges(rt) -> None:
     each frame equals the CPU's and decodes on the card to its file."""
     for label, raw, n_cols, sep in CSV_EDGES:
         plan, stream = rt.csv_profile(n_cols, sep), rt.serial(raw)
-        frame = rt.compress(plan, stream, device="cuda")
-        if frame != rt.compress(plan, stream, device="cpu"):
+        frame = card_frame(rt, plan, stream)
+        if frame != cpu_frame(rt, plan, stream):
             fail(f"csv edge {label}: the card's frame differs from the CPU's")
         (out,) = rt.decompress(frame, device="cuda")
         if not same_stream(out, stream):
@@ -2220,10 +2251,10 @@ def graph_phase(rt, ops, seed: int):
         cut = raw.rfind(b"\n", 0, PREFIX_BYTES) + 1 if label == "G1" else PREFIX_BYTES
         prefix = rt.serial(raw[:cut])
         t0 = time.perf_counter()
-        on_card = rt.compress(plan, prefix, device="cuda")  # also warms the card
+        on_card = card_frame(rt, plan, prefix)  # also warms the card
         t_card = time.perf_counter() - t0
         t0 = time.perf_counter()
-        on_cpu = rt.compress(plan, prefix, device="cpu")
+        on_cpu = cpu_frame(rt, plan, prefix)
         t_cpu = time.perf_counter() - t0
         if on_card != on_cpu:
             fail(f"graph {label}: the card's prefix frame differs from the CPU's")
@@ -2273,6 +2304,302 @@ def graph_phase(rt, ops, seed: int):
     return calls, totals
 
 
+def _pipe_reader(path: str):
+    """The file at ``path`` behind an OS pipe (read() only, not seekable),
+    written by a thread; returns the read end and the thread."""
+    import threading
+
+    r, w = os.pipe()
+
+    def feed():
+        with open(path, "rb") as f, os.fdopen(w, "wb") as out:
+            while True:
+                block = f.read(1 << 20)
+                if not block:
+                    break
+                out.write(block)
+
+    t = threading.Thread(target=feed, daemon=True)
+    t.start()
+    return os.fdopen(r, "rb"), t
+
+
+def sessions_phase(cols, graph_calls, rt, ops):
+    """Sessions on the card (``SESSION_CHUNK_BYTES`` chunks): A through
+    ``CompressorSession(generic_profile())`` with one worker and with the
+    default pool, then from a side stream; C through a pooled
+    ``CompressorSession(bfloat16_profile())``; G1 as a file through
+    ``compress_file`` from its path (one worker and the pool) and from a
+    pipe, back through ``decompress_file`` (one worker and the pool) and
+    ``DecompressorSession.iter_frames``; and
+    ``compress_traced`` on A's 4 MiB.  The launch counts are reset just
+    before and read just after each call.  Returns each kernel's launches
+    summed over the phase's calls."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import stream_io, wire
+
+    totals = {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def counted(label, way, fn):
+        """``fn()`` on the card with its launches counted; each side must launch."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = ops.launch_counts()
+        for k in totals:
+            totals[k] += got[k]
+        if not sum(got.values()):
+            fail(f"sessions {label}: the {way} launched no kernel")
+        return out, dt, got
+
+    def same_prefix(label, plan, prefix):
+        """The 4 MiB prefix through sessions at 1 MiB chunks: the card's
+        container equals the CPU's, both caches emptied before each side."""
+        frames = {}
+        for dev, n_workers in (("cuda", None), ("cpu", 1)):
+            rt.resolve_cache_clear()
+            rt.coder_cache_clear()
+            # one worker on the CPU: the plain versions take many small
+            # steps, which threads would only contend for
+            with rt.CompressorSession(plan, device=dev, chunk_bytes=PREFIX_CHUNK_BYTES,
+                                      n_workers=n_workers) as s:
+                frames[dev] = s.compress(prefix)
+        if frames["cuda"] != frames["cpu"]:
+            fail(f"sessions {label}: the card's 4 MiB container differs from the CPU's")
+        return len(frames["cuda"])
+
+    def missing_kernels(frame, encode, decode):
+        codecs = frame_codecs(rt, wire.read_container(frame)[1][0])
+        named = codecs.split("+")
+        return codecs, sorted(
+            {k for c in named for k in ENCODE_KERNELS_OF.get(c, ()) if encode[k] == 0}
+            | {k for c in named for k in DECODE_KERNELS_OF.get(c, ()) if decode[k] == 0})
+
+    def stats_of(session) -> str:
+        st = dict(session.stats)
+        st["workers"] = session.n_workers or len(os.sched_getaffinity(0))
+        return " ".join(f"{k}={st[k]}" for k in (
+            "workers", "chunks", "max_inflight", "prefetch_hits", "prefetch_misses",
+            "draw_wait_s", "encode_wait_s"))
+
+    # ---- A: one worker, the default pool, and a side stream
+    col_a = cols["A_timestamps_i64"]
+    a = torch.from_numpy(col_a).to("cuda")
+    plan = rt.generic_profile()
+    prefix_bytes = same_prefix("A", plan, rt.numeric(col_a[: PREFIX_BYTES // 8]))
+    print(f"sessions A prefix check seconds={time.perf_counter() - t_phase}")
+    with rt.CompressorSession(plan, chunk_bytes=SESSION_CHUNK_BYTES, n_workers=1) as one, \
+            rt.CompressorSession(plan, chunk_bytes=SESSION_CHUNK_BYTES) as pool, \
+            rt.DecompressorSession() as dec:
+        one.compress(rt.numeric(a[: PREFIX_BYTES // 8]))  # warm-up outside the counts
+        serial_frame, t_one, enc_one = counted("A", "compress", lambda: one.compress(rt.numeric(a)))
+        frame, t_pool, enc_pool = counted("A", "compress", lambda: pool.compress(rt.numeric(a)))
+        if frame != serial_frame:
+            fail("sessions A: the pooled container differs from the one-worker container")
+        (out,), t_dec, dec_pool = counted("A", "decompress", lambda: dec.decompress(frame))
+        if out.data.device.type != "cuda" or not torch.equal(out.data, a):
+            fail("sessions A: the DecompressorSession did not return the column on the card")
+        codecs, missing = missing_kernels(frame, enc_pool, dec_pool)
+        if missing:
+            fail(f"sessions A [{codecs}]: never launched {missing}")
+        nbytes = col_a.nbytes
+        print(f"sessions A generic_profile chunk_bytes={SESSION_CHUNK_BYTES} [{codecs}]:"
+              f" chunks={len(wire.read_container(frame)[1])} ratio={nbytes / len(frame)}"
+              f" one_worker_compress_MBps={nbytes / t_one / 1e6} seconds={t_one}"
+              f" pool_compress_MBps={nbytes / t_pool / 1e6} seconds={t_pool}"
+              f" pool_decompress_MBps={nbytes / t_dec / 1e6} decompress_seconds={t_dec}")
+        print(f"sessions A stats: one worker {stats_of(one)}; pool {stats_of(pool)};"
+              f" decode {stats_of(dec)}; coder tables (process-wide) {rt.coder_cache_info()}")
+        print(f"sessions A launches: one-worker compress {json.dumps(enc_one)} pooled compress"
+              f" {json.dumps(enc_pool)} decompress {json.dumps(dec_pool)}")
+        print(f"check sessions A: pooled container == one-worker container ({len(frame)} bytes);"
+              f" decoded on the card, equal; 4 MiB prefix card == cpu ({prefix_bytes} bytes)")
+        profile_call("sessions A CompressorSession (pool)", lambda: pool.compress(rt.numeric(a)))
+        profile_call("sessions A DecompressorSession (pool)", lambda: dec.decompress(frame))
+
+        # from a side stream: the column is written there behind a device
+        # sleep, so a worker that launched on its own (default) stream would
+        # read it before the copy lands; a plan without selectors, so that no
+        # trial's host copy waits for the side stream before the workers start
+        plain = rt.pipeline("delta", "transpose", "zlib_backend")
+        with rt.CompressorSession(plain, chunk_bytes=SESSION_CHUNK_BYTES) as side_sess:
+            want = side_sess.compress(rt.numeric(a))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
+                col = torch.zeros_like(a)
+                torch.cuda._sleep(SIDE_SLEEP_CYCLES)
+                col.copy_(a)
+                got = side_sess.compress(rt.numeric(col))
+                (back,) = dec.decompress(got)
+                same = torch.equal(back.data, col)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            side_launches = ops.launch_counts()
+            for k in totals:
+                totals[k] += side_launches[k]
+        if got != want or not same:
+            fail("sessions A from a side stream: the container or its decode differs")
+        if not (side_launches["delta_encode"] and side_launches["delta_decode"]):
+            fail(f"sessions A from a side stream: a side launched no kernel {side_launches}")
+        print(f"check sessions A from a side stream (the column written there behind a"
+              f" {SIDE_SLEEP_CYCLES}-cycle sleep, through delta+transpose+zlib_backend):"
+              f" container == the default stream's ({len(got)} bytes), decoded equal;"
+              f" seconds={dt}")
+
+        # compress_traced on A's first 4 MiB
+        head = rt.numeric(a[: PREFIX_BYTES // 8])
+        traced, trace_dt, trace_launches = counted(
+            "A traced", "compress", lambda: pool.compress_traced(head))
+        frame_t, trace, seconds = traced
+        if frame_t != pool.compress(head, chunk_bytes=0) or not trace:
+            fail("sessions compress_traced: its frame differs from compress's, or no trace")
+        print(f"sessions compress_traced A[:4 MiB] [{frame_codecs(rt, frame_t)}]:"
+              f" seconds={seconds} trace={json.dumps(trace)}")
+    del a, out, col, back
+
+    # ---- C: bf16 weights through a pooled session
+    col_c = cols["C_weights_bf16"]
+    c = stream_of(rt, "C_weights_bf16", col_c)
+    c_card = rt.numeric(c.data.to("cuda"))
+    plan_c = rt.bfloat16_profile()
+    t0 = time.perf_counter()
+    prefix_c = same_prefix("C", plan_c, stream_of(rt, "C_weights_bf16",
+                                                  col_c[: PREFIX_BYTES // 2]))
+    print(f"sessions C prefix check seconds={time.perf_counter() - t0}"
+          f" (phase {time.perf_counter() - t_phase})")
+    with rt.CompressorSession(plan_c, chunk_bytes=SESSION_CHUNK_BYTES) as pool, \
+            rt.CompressorSession(plan_c, chunk_bytes=SESSION_CHUNK_BYTES, n_workers=1) as one, \
+            rt.DecompressorSession() as dec:
+        pool.compress(rt.numeric(c_card.data[: PREFIX_BYTES // 2]))  # warm-up
+        frame_c, t_c, enc_c = counted("C", "compress", lambda: pool.compress(c_card))
+        if frame_c != one.compress(c_card):
+            fail("sessions C: the pooled container differs from the one-worker container")
+        (out_c,), td_c, dec_c = counted("C", "decompress", lambda: dec.decompress(frame_c))
+        if not torch.equal(out_c.data, c_card.data):
+            fail("sessions C: the DecompressorSession did not return the weights on the card")
+        codecs, missing = missing_kernels(frame_c, enc_c, dec_c)
+        if missing:
+            fail(f"sessions C [{codecs}]: never launched {missing}")
+        print(f"sessions C bfloat16_profile chunk_bytes={SESSION_CHUNK_BYTES} [{codecs}]:"
+              f" chunks={len(wire.read_container(frame_c)[1])} ratio={col_c.nbytes / len(frame_c)}"
+              f" pool_compress_MBps={col_c.nbytes / t_c / 1e6} seconds={t_c}"
+              f" pool_decompress_MBps={col_c.nbytes / td_c / 1e6} decompress_seconds={td_c}")
+        print(f"sessions C stats: pool {stats_of(pool)}; decode {stats_of(dec)};"
+              f" coder tables (process-wide) {rt.coder_cache_info()}")
+        print(f"sessions C launches: compress {json.dumps(enc_c)} decompress {json.dumps(dec_c)}")
+        print(f"check sessions C: pooled container == one-worker container ({len(frame_c)}"
+              f" bytes); decoded on the card, equal; 4 MiB prefix card == cpu ({prefix_c} bytes)")
+        profile_call("sessions C CompressorSession (pool)", lambda: pool.compress(c_card))
+        profile_call("sessions C DecompressorSession (pool)", lambda: dec.decompress(frame_c))
+    del c_card, out_c
+
+    # ---- G1: the edge list as a file, from its path and from a pipe
+    raw = next(call for call in graph_calls if call[0] == "G1")[3].content_bytes()
+    plan_g = rt.graph_profile()
+    cut = raw.rfind(b"\n", 0, PREFIX_BYTES) + 1
+    t0 = time.perf_counter()
+    prefix_g = same_prefix("G1", plan_g, rt.serial(raw[:cut]))
+    print(f"sessions G1 prefix check seconds={time.perf_counter() - t0}"
+          f" (phase {time.perf_counter() - t_phase})")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "g1.txt")
+        with open(src, "wb") as f:
+            f.write(raw)
+        known, piped = os.path.join(tmp, "known.ozl"), os.path.join(tmp, "piped.ozl")
+        back_path = os.path.join(tmp, "back.txt")
+        one_path, one_back = os.path.join(tmp, "one.ozl"), os.path.join(tmp, "one.txt")
+        with rt.CompressorSession(plan_g, chunk_bytes=SESSION_CHUNK_BYTES) as sess, \
+                rt.CompressorSession(plan_g, chunk_bytes=SESSION_CHUNK_BYTES,
+                                     n_workers=1) as one, \
+                rt.DecompressorSession() as dec, rt.DecompressorSession(n_workers=1) as dec_one:
+            # each from an empty resolve cache, so that neither skips a trial
+            # the other ran
+            rt.resolve_cache_clear()
+            _, t_k1, _ = counted("G1 file, one worker", "compress", lambda: (
+                stream_io.compress_file(src, one_path, plan_g,
+                                        chunk_bytes=SESSION_CHUNK_BYTES, session=one)))
+            rt.resolve_cache_clear()
+            stats_k, t_k, enc_k = counted("G1 file", "compress", lambda: stream_io.compress_file(
+                src, known, plan_g, chunk_bytes=SESSION_CHUNK_BYTES, session=sess))
+            pipe, feeder = _pipe_reader(src)
+            with pipe:
+                stats_p, t_p, enc_p = counted("G1 pipe", "compress", lambda: (
+                    stream_io.compress_file(pipe, piped, plan_g,
+                                            chunk_bytes=SESSION_CHUNK_BYTES, session=sess)))
+            feeder.join()
+            with open(known, "rb") as f:
+                known_frame = f.read()
+            with open(piped, "rb") as f:
+                piped_frame = f.read()
+            if (wire.read_container(piped_frame)[1] != wire.read_container(known_frame)[1]
+                    or not stats_p["container"] or piped_frame[5] & 0x80 == 0):
+                fail("sessions G1: the pipe's container differs from the known-size one's")
+            with open(one_path, "rb") as f:
+                if f.read() != known_frame:
+                    fail("sessions G1: the pooled container differs from the one-worker one")
+            _, td_k1, _ = counted("G1 file, one worker", "decompress", lambda: (
+                stream_io.decompress_file(known, one_back, session=dec_one)))
+            dstats, td_k, dec_k = counted("G1 file", "decompress", lambda: (
+                stream_io.decompress_file(known, back_path, session=dec)))
+            for path in (one_back, back_path):
+                with open(path, "rb") as f:
+                    if f.read() != raw:
+                        fail("sessions G1: decompress_file did not return the file")
+            with open(piped, "rb") as f:
+                parts, td_p, dec_p = counted("G1 pipe", "decompress",
+                                             lambda: list(dec.iter_frames(f)))
+            want_g = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to("cuda")
+            got_g = torch.cat([p.data for p in parts])
+            if got_g.device.type != "cuda" or not torch.equal(got_g, want_g):
+                fail("sessions G1: iter_frames did not return the file on the card")
+            codecs, missing = missing_kernels(known_frame, enc_k, dec_k)
+            if missing:
+                fail(f"sessions G1 [{codecs}]: never launched {missing}")
+            n = len(raw)
+            print(f"sessions G1 graph_profile chunk_bytes={SESSION_CHUNK_BYTES} [{codecs}]:"
+                  f" chunks={stats_k['chunks']} ratio={n / len(known_frame)}"
+                  f" compress_file_MBps={n / t_k / 1e6} seconds={t_k}"
+                  f" one_worker_compress_file_MBps={n / t_k1 / 1e6} seconds={t_k1}"
+                  f" pipe_compress_file_MBps={n / t_p / 1e6} seconds={t_p}"
+                  f" decompress_file_MBps={n / td_k / 1e6} seconds={td_k}"
+                  f" one_worker_decompress_file_MBps={n / td_k1 / 1e6} seconds={td_k1}"
+                  f" iter_frames_MBps={n / td_p / 1e6} seconds={td_p}"
+                  f" decompress_file_bytes_in={dstats['bytes_in']}")
+            print(f"sessions G1 stats: {stats_of(sess)}; one worker {stats_of(one)};"
+                  f" decode {stats_of(dec)}; one-worker decode {stats_of(dec_one)}")
+            print(f"sessions G1 launches: compress_file {json.dumps(enc_k)} pipe"
+                  f" {json.dumps(enc_p)} decompress_file {json.dumps(dec_k)} iter_frames"
+                  f" {json.dumps(dec_p)}")
+            print(f"check sessions G1 files: the pipe's chunks == the known-size container's"
+                  f" ({len(known_frame)} bytes) == the one-worker container,"
+                  f" count backpatched ({len(piped_frame)} bytes);"
+                  f" decompress_file (pooled and one worker) and iter_frames"
+                  f" returned the file (on the card); 4 MiB prefix card == cpu"
+                  f" ({prefix_g} bytes)")
+            profile_call("sessions G1 compress_file", lambda: stream_io.compress_file(
+                src, known, plan_g, chunk_bytes=SESSION_CHUNK_BYTES, session=sess))
+            profile_call("sessions G1 decompress_file", lambda: stream_io.decompress_file(
+                known, back_path, session=dec))
+    print(f"sessions caches: resolve {rt.resolve_cache_info()} coder (process-wide)"
+          f" {rt.coder_cache_info()}")
+    print(f"sessions peak max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    print(f"sessions launches {json.dumps(totals)}")
+    print(f"sessions phase seconds={time.perf_counter() - t_phase}")
+    return totals
+
+
 def graph_edges(rt) -> None:
     """The graph edge corpus (``GRAPH_EDGES``) through its profiles on the
     card: each frame equals the CPU's and decodes on the card to its file."""
@@ -2281,8 +2608,8 @@ def graph_edges(rt) -> None:
         # arguments (a separator that the spec refuses)
         plan = rt.resolve_profile_spec(how) if isinstance(how, str) else rt.graph_profile(**how)
         stream = rt.serial(raw)
-        frame = rt.compress(plan, stream, device="cuda")
-        if frame != rt.compress(plan, stream, device="cpu"):
+        frame = card_frame(rt, plan, stream)
+        if frame != cpu_frame(rt, plan, stream):
             fail(f"graph edge {label}: the card's frame differs from the CPU's")
         (out,) = rt.decompress(frame, device="cuda")
         if not same_stream(out, stream):
@@ -2356,6 +2683,7 @@ def level_phase(cols, rt, ops) -> None:
     frames = {}
     ops.reset_launches()
     for cname, pname, _ in LEVEL_COLUMNS:
+        rt.resolve_cache_clear()  # resolved afresh, as the CPU's frame below is
         t0 = time.perf_counter()
         frames[cname, pname] = rt.compress(plans[pname], stream_of(rt, cname, prefixes[cname]),
                                            ctx, device="cuda")
@@ -2386,7 +2714,7 @@ def level_phase(cols, rt, ops) -> None:
         prefix, frame, out = prefixes[cname], frames[cname, pname], outs[cname, pname]
         if out.data.device.type != "cuda" or out.content_bytes() != prefix.tobytes():
             fail(f"level {LEVEL} {cname} {pname}: decompress on the card did not return the prefix")
-        if frame != rt.compress(plans[pname], stream_of(rt, cname, prefix), ctx, device="cpu"):
+        if frame != cpu_frame(rt, plans[pname], stream_of(rt, cname, prefix), ctx):
             fail(f"level {LEVEL} {cname} {pname}: the card's frame differs from the CPU's")
         codecs = frame_codecs(rt, frame)
         if FRAME_CODECS.get((cname, pname), codecs) != codecs:
@@ -2402,6 +2730,23 @@ def level_phase(cols, rt, ops) -> None:
                      lambda: rt.compress(plans[pname], stream, ctx, device="cuda"))
         profile_call(f"level{LEVEL} decompress {cname} {pname} [{codecs}]",
                      lambda: rt.decompress(frame, device="cuda"))
+
+
+def card_frame(rt, *args, **kw) -> bytes:
+    """The card's frame, resolved from an empty resolve cache (see
+    ``cpu_frame``): an entry of an earlier stream of the same shape would
+    otherwise choose its plan."""
+    rt.resolve_cache_clear()
+    return rt.compress(*args, device="cuda", **kw)
+
+
+def cpu_frame(rt, *args, **kw) -> bytes:
+    """The CPU's frame, resolved from an empty resolve cache.  Selector trials
+    consult the cache: a CPU call that found the card call's entries there
+    would reuse the card's choices, and its frame would equal the card's
+    whatever the CPU's trials gave."""
+    rt.resolve_cache_clear()
+    return rt.compress(*args, device="cpu", **kw)
 
 
 def frame_codecs(rt, frame: bytes) -> str:
@@ -2548,12 +2893,14 @@ def main() -> None:
     record_calls, records_launches = records_phase(rt, ops, args.seed)
     csv_calls, csv_launches = csv_phase(rt, ops, args.seed)
     graph_calls, graph_launches = graph_phase(rt, ops, args.seed)
+    sessions_launches = sessions_phase(cols, graph_calls, rt, ops)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
         r["records_launches"] = records_launches[r["name"]]
         r["csv_launches"] = csv_launches[r["name"]]
         r["graph_launches"] = graph_launches[r["name"]]
+        r["sessions_launches"] = sessions_launches[r["name"]]
     level_phase(cols, rt, ops)
     profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
     identity = nvidia_smi("name,power.limit")

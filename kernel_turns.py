@@ -383,7 +383,12 @@ def entropy_decode_times(label, seed, ops, ref, check):
         out["fse_decode"][key] = {"ms": ms}
         print(f"{label} fse_decode {key}: ms={ms}")
     del cases, args
-    entropy._TABLES.clear()  # drop the 2^27-state tables from the table cache
+    # drop the 2^27-state tables from the table cache (a tree before the
+    # coder-table cache kept them in a module dict)
+    if hasattr(entropy, "_TABLES"):
+        entropy._TABLES.clear()
+    else:
+        entropy.active_cache().clear()
     return out
 
 

@@ -22,6 +22,9 @@ Entry points::
     frame = compress(csv_profile(8), serial(csv_file))    # the paper's §VI-C CSVs
     frame = compress(graph_profile(), serial(edge_file))  # SNAP-style u<TAB>v lines
     frame = compress(resolve_profile_spec("graph:bin:4"), serial(pairs))  # as the CLI names it
+    with CompressorSession(generic_profile(), chunk_bytes=4 << 20) as session:
+        frame = session.compress(serial(blob))   # chunks encoded on a pool
+    stream_io.compress_file("in.bin", "out.ozl", generic_profile())  # repro_torch.core.stream_io
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
@@ -33,7 +36,11 @@ reference's device backend does, and lowers it back where the data refuses.
 With ``chunk_bytes`` the input is split into views of its tensor on the
 device, the plan is resolved once on the first chunk and executed on every
 chunk, and the chunk frames go into one ``OZLC`` container, byte for byte
-the reference's.
+the reference's.  The chunks are encoded in parallel on a session's pool
+(``CompressorSession``, ``DecompressorSession``); ``compress_file`` and
+``decompress_file`` (``repro_torch.core.stream_io``) stream files and pipes
+through them.  Resolutions are memoized (``resolve_cache_info``) and coder
+tables too (``coder_cache_info``), as the reference's are.
 """
 from .codecs.profiles import (  # noqa: F401
     SAO_FIELDS,
@@ -52,17 +59,27 @@ from .codecs.profiles import (  # noqa: F401
     struct_profile,
     text_profile,
 )
+from .codecs.coder_cache import (  # noqa: F401
+    coder_cache_clear,
+    coder_cache_disabled,
+    coder_cache_info,
+)
 from .core import (  # noqa: F401
     CompressionCtx,
+    CompressorSession,
+    DecompressorSession,
     GraphBuilder,
     Plan,
     Stream,
+    SessionPool,
     SType,
     compress,
     decompress,
     numeric,
     pipeline,
     plan_from_dict,
+    resolve_cache_clear,
+    resolve_cache_info,
     serial,
     strings,
     struct,

@@ -13,6 +13,7 @@ Codec ids (every one of the reference's):
 
 Selectors: entropy_auto, numeric_auto, bytes_auto, generic_auto, adjacency_auto.
 """
+from . import coder_cache  # noqa: F401
 from . import basic  # noqa: F401
 from . import numeric  # noqa: F401
 from . import entropy  # noqa: F401
@@ -23,6 +24,11 @@ from . import parse  # noqa: F401
 from . import selectors  # noqa: F401
 from . import graph  # noqa: F401
 from . import profiles  # noqa: F401
+from .coder_cache import (  # noqa: F401
+    coder_cache_clear,
+    coder_cache_disabled,
+    coder_cache_info,
+)
 from .profiles import (  # noqa: F401
     SAO_FIELDS,
     SAO_HEADER_BYTES,

@@ -61,6 +61,19 @@ class HeaderReader:
             raise ValueError("trailing bytes in codec header")
 
 
+def expect_stream(s: Stream, stype: SType, width: int, op: str, what: str) -> None:
+    """Fail closed unless ``s`` has the type and width its encoder writes.
+
+    A frame carries each stored stream's type tag; a decoder that read a
+    retagged stream as bytes would rebuild the input from the wrong layout.
+    """
+    if s.stype != stype or s.width != width:
+        raise ValueError(
+            f"{op}: the {what} stream is {s.stype.name.lower()}({s.width}),"
+            f" not {stype.name.lower()}({width})"
+        )
+
+
 def numeric_stream(t: torch.Tensor) -> Stream:
     """Wrap a 1-D carrier tensor (uint8/int16/int32/int64) as a NUMERIC stream."""
     return Stream(t.reshape(-1).contiguous(), SType.NUMERIC, t.element_size())

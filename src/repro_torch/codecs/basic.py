@@ -17,7 +17,7 @@ import torch
 
 from ..core.codec import CodecSpec, register_codec
 from ..core.message import Stream, SType
-from ._util import HeaderReader, HeaderWriter, fixed_records, rebuild_like
+from ._util import HeaderReader, HeaderWriter, expect_stream, fixed_records, rebuild_like
 
 _NO_LENGTHS = np.zeros(0, np.uint32)
 
@@ -49,6 +49,7 @@ def _dup_enc(streams, params):
 
 
 def _dup_dec(outs, header):
+    expect_stream(outs[1], outs[0].stype, outs[0].width, "dup", "copy")
     return [outs[0]]
 
 
@@ -147,6 +148,8 @@ def _split_n_dec(outs, header):
     if len(outs) != k or k == 0:
         raise ValueError("split_n: wrong output count")
     s0 = outs[0]
+    for o in outs[1:]:
+        expect_stream(o, s0.stype, s0.width, "split_n", "chunk")
     return [Stream(torch.cat([o.data for o in outs]), s0.stype, s0.width)]
 
 
@@ -262,7 +265,8 @@ def _field_split_dec(outs, header):
     n = outs[0].data.numel() // widths[0]
     cols = []
     for w, o in zip(widths, outs):
-        if o.data.numel() != n * w or o.data.dtype != torch.uint8:
+        expect_stream(o, SType.STRUCT if w > 1 else SType.SERIAL, max(w, 1), "field_split", "column")
+        if o.data.numel() != n * w:
             raise ValueError(f"field_split: a column of {o.data.numel()} bytes for {n} x {w}")
         cols.append(o.data.view(n, w))
     mat = torch.cat(cols, dim=1)  # one (n, rec_w) tensor on the device
@@ -295,6 +299,8 @@ def _string_split_enc(streams, params):
 
 def _string_split_dec(outs, header):
     content, lens = outs
+    expect_stream(content, SType.SERIAL, 1, "string_split", "content")
+    expect_stream(lens, SType.NUMERIC, 4, "string_split", "length")
     # one card-to-host copy of the lengths
     lengths = lens.numpy().astype(np.uint32)
     return [Stream(content.data, SType.STRING, 1, lengths)]

@@ -42,6 +42,8 @@ def _interpret_numeric_dec(outs, header):
     stype = SType(r.u8())
     width = r.varint()
     r.expect_end()
+    if outs[0].stype != SType.NUMERIC:
+        raise ValueError("interpret_numeric: the value stream is not numeric")
     raw = outs[0].raw()
     if stype == SType.NUMERIC and width in CARRIER:
         raw = _aligned(raw, width)

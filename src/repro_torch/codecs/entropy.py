@@ -20,8 +20,6 @@ Wire layout per codec (identical to the reference):
 from __future__ import annotations
 
 import heapq
-import threading
-from collections import OrderedDict
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -30,7 +28,8 @@ import torch
 from ..core.codec import CodecSpec, register_codec
 from ..core.message import Stream, SType, narrow_unsigned, widen_unsigned
 from ..kernels import ops, ref
-from ._util import HeaderReader, HeaderWriter, numeric_stream, rebuild_like
+from .coder_cache import active_cache
+from ._util import HeaderReader, HeaderWriter, expect_stream, numeric_stream, rebuild_like
 
 BLOCK_LOG = 12  # 4096 symbols per Huffman lane-block
 MAX_CODE_LEN = 15
@@ -38,35 +37,29 @@ FSE_BLOCK_LOG = 10  # 1024 symbols per tANS lane (fixed by the wire)
 
 
 # --------------------------------------------------------------- table cache
-# Tables are pure functions of wire-visible descriptors; keep recent ones.
-_TABLES: "OrderedDict[tuple, object]" = OrderedDict()
-_TABLES_LOCK = threading.Lock()
-_TABLES_MAX = 256
-
-
+# Tables are pure functions of wire-visible descriptors: they are memoized in
+# the active coder-table cache (``coder_cache``), which the engine scopes to
+# one call and shares with its pool threads.
 def _cached(key: tuple, build: Callable[[], object]):
-    with _TABLES_LOCK:
-        hit = _TABLES.get(key)
-        if hit is not None:
-            _TABLES.move_to_end(key)
-            return hit
-    value = build()
-    with _TABLES_LOCK:
-        _TABLES[key] = value
-        while len(_TABLES) > _TABLES_MAX:
-            _TABLES.popitem(last=False)
-    return value
+    return active_cache().get_or_build(key, build)
 
 
-def _on_device(key: tuple, build: Callable[[], torch.Tensor], device: torch.device):
-    """A cached host table (or tuple of tables), and its copy on ``device``
-    (cached as well)."""
+def _on_device(key: tuple, build: Callable[[], object], device: torch.device):
+    """A cached host table (or tuple of tables), and its copy on ``device``,
+    cached under a key that names the device."""
     host = _cached(key, build)
     if device.type == "cpu":
         return host
-    if isinstance(host, tuple):
-        return _cached(key + (str(device),), lambda: tuple(t.to(device) for t in host))
-    return _cached(key + (str(device),), lambda: host.to(device))
+
+    def copy():
+        value = tuple(t.to(device) for t in host) if isinstance(host, tuple) else host.to(device)
+        if device.type == "cuda":
+            # the copy is queued on this thread's stream; a call on another
+            # stream may take the cached value, so it must have landed
+            torch.cuda.current_stream(device).synchronize()
+        return value
+
+    return _cached(key + (str(device),), copy)
 
 
 def _freeze(*arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
@@ -89,9 +82,9 @@ def _host_counts(x: torch.Tensor) -> np.ndarray:
     return ops.histogram(x).cpu().numpy().astype(np.int64)
 
 
-def _on(dev: torch.device, arr: np.ndarray) -> torch.Tensor:
-    """A host table as an int32 tensor on ``dev``."""
-    return torch.from_numpy(np.array(arr, dtype=np.int32)).to(dev)
+def _as_i32(arr: np.ndarray) -> torch.Tensor:
+    """A host table as a fresh int32 CPU tensor."""
+    return torch.from_numpy(np.array(arr, dtype=np.int32))
 
 
 # =====================================================================
@@ -204,8 +197,12 @@ def _huffman_enc(streams, params):
     n = x.numel()
     dev = x.device
     lens = _huffman_code_lengths(_host_counts(x))
-    codes = _huffman_codes_cached(lens)
-    code, nbits = ops.huffman_map(x, _on(dev, codes), _on(dev, lens))
+    codes_t, lens_t = _on_device(
+        ("huff_enc_t", lens.tobytes()),
+        lambda: (_as_i32(_huffman_codes_cached(lens)), _as_i32(lens)),
+        dev,
+    )
+    code, nbits = ops.huffman_map(x, codes_t, lens_t)
     offs = ref.exclusive_offsets(nbits)
     total_bytes = (int(offs[-1]) + 7) >> 3
     packed = ref.pack_bits(code, offs[:-1], total_bytes)
@@ -242,8 +239,8 @@ def huffman_lanes(outs, header):
     r.expect_end()
     if len(nib_raw) != 128:
         raise ValueError("huffman: the header holds 256 nibble-packed code lengths")
-    if (block_offs_s.stype, block_offs_s.width) != (SType.NUMERIC, 8):
-        raise ValueError("huffman: block offsets are a numeric(8) stream")
+    expect_stream(bitstream, SType.SERIAL, 1, "huffman", "bit")
+    expect_stream(block_offs_s, SType.NUMERIC, 8, "huffman", "block offset")
 
     def build():
         nib = np.frombuffer(nib_raw, dtype=np.uint8)
@@ -394,9 +391,20 @@ def _fse_enc(streams, params):
         meta = numeric_stream(torch.zeros(0, dtype=torch.int32, device=dev))
         return [empty, meta], _fse_header(0, table_log, stype_tag, b"")
     norm = _normalize_counts(_host_counts(x), table_log)
-    _ds, _dn, _db, enc_table, nb0t, thrt, st0t = _fse_tables_cached(norm, table_log)
     total = 1 << table_log
+
+    _ds, _dn, _db, enc_table, nb0t, thrt, st0t = _fse_tables_cached(norm, table_log)
     width = enc_table.shape[1]
+
+    def build():  # the kernel's tables, compacted once per table
+        sym_start, enc_compact = ref.compact_encode_table(
+            torch.from_numpy(np.array(norm)), torch.from_numpy(np.array(enc_table.reshape(-1))), width
+        )
+        return _as_i32(nb0t), _as_i32(thrt), _as_i32(st0t), _as_i32(norm), sym_start, enc_compact
+
+    nb0, thr, st0, norm_t, sym_start, enc_compact = _on_device(
+        ("fse_enc", norm.tobytes(), table_log), build, dev
+    )
 
     block = 1 << FSE_BLOCK_LOG
     n_blocks = (n + block - 1) // block
@@ -406,12 +414,8 @@ def _fse_enc(streams, params):
     lanesT = ops.byteshuffle(padded.view(n_blocks, block))
     starts = torch.arange(n_blocks, dtype=torch.int64, device=dev) * block
     rem = (n - starts).clamp(max=block).to(torch.int32)
-    sym_start, enc_compact = ref.compact_encode_table(
-        torch.from_numpy(np.array(norm)), torch.from_numpy(np.array(enc_table.reshape(-1))), width
-    )
     vals, nbs, state = ops.fse_encode(
-        lanesT, rem, _on(dev, nb0t), _on(dev, thrt), _on(dev, st0t), _on(dev, norm),
-        sym_start.to(dev), enc_compact.to(dev), width, total,
+        lanesT, rem, nb0, thr, st0, norm_t, sym_start, enc_compact, width, total,
     )
     goffs, bitpos, byte_off = ref.fse_lane_offsets(nbs)
     stream_out = ref.pack_bits(vals, goffs, int(byte_off[-1]))
@@ -452,8 +456,8 @@ def fse_lanes(outs, header):
     for _ in range(tbl.varint()):
         s = tbl.varint()
         norm[s] = tbl.varint()
-    if (meta_s.stype, meta_s.width) != (SType.NUMERIC, 4):
-        raise ValueError("fse: block meta is a numeric(4) stream")
+    expect_stream(bitstream, SType.SERIAL, 1, "fse", "bit")
+    expect_stream(meta_s, SType.NUMERIC, 4, "fse", "block meta")
     if not 1 <= table_log <= ref.FSE_MAX_TABLE_LOG:
         raise ValueError(f"fse: table_log {table_log} is outside 1..{ref.FSE_MAX_TABLE_LOG}")
     if int(norm.sum()) != 1 << table_log:

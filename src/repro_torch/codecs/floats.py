@@ -22,7 +22,7 @@ from __future__ import annotations
 from ..core.codec import CodecSpec, register_codec
 from ..core.message import CARRIER, Stream, SType
 from ..kernels import ops, ref
-from ._util import HeaderReader, HeaderWriter, numeric_stream
+from ._util import HeaderReader, HeaderWriter, expect_stream, numeric_stream
 
 _FMT_BY_WIDTH = {2: 0, 4: 2, 8: 3}  # default fmt per width (bf16 for w=2)
 
@@ -52,6 +52,7 @@ def _float_split_dec(outs, header):
         raise ValueError(f"float_split: unknown fmt {fmt}")
     _width, _exp_bits, _man_bits, exp_width, man_width = ref.FLOAT_FORMATS[fmt]
     # fail closed on planes that do not fit the header (before K8 reads them)
+    expect_stream(signs_s, SType.SERIAL, 1, "float_split", "sign")
     for plane, w, what in ((exp_s, exp_width, "exponent"), (man_s, man_width, "mantissa")):
         if plane.stype != SType.NUMERIC or plane.data.dtype != CARRIER[w]:
             raise ValueError(f"float_split: the {what} plane is not numeric({w})")

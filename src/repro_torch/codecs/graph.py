@@ -38,7 +38,7 @@ from ..core.engine import CompressionCtx, compress
 from ..core.graph import GraphBuilder, Plan
 from ..core.message import CARRIER, Stream, SType, narrow_unsigned, widen_unsigned
 from ..core.selector import SelectorSpec, register_selector
-from ._util import HeaderReader, HeaderWriter, numeric_stream
+from ._util import HeaderReader, HeaderWriter, expect_stream, numeric_stream
 from .convert import _aligned
 from .parse import (
     _NL,
@@ -102,14 +102,6 @@ def _seg_sum(vals: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor) -> to
     """The sum of ``vals[s : s + n]`` for each segment, from one prefix sum."""
     c = torch.cat([vals.new_zeros(1), torch.cumsum(vals, 0)])
     return c[starts + lens] - c[starts]
-
-
-def _u64_view(s: Stream) -> torch.Tensor:
-    """A stream's bytes as int64 (the reference's ``.view(np.uint64)``)."""
-    raw = s.raw()
-    if raw.numel() % 8:
-        raise ValueError("adj_gap: a run or gap stream is not whole u64s")
-    return _aligned(raw, 8).view(torch.int64)
 
 
 # ----------------------------------------------------------------- edge_list
@@ -189,14 +181,16 @@ def _edge_list_dec(outs, header):
     trailing_nl = r.u8()
     sep_b = r.bytes_()
     r.expect_end()
-    bitmap, src_raw, dst_raw = bitmap_s.raw(), src_s.raw(), dst_s.raw()
-    if (bitmap.numel() * 8 < n_lines or src_raw.numel() % 8 or dst_raw.numel() % 8
-            or exc_s.stype != SType.STRING):
+    expect_stream(src_s, SType.NUMERIC, 8, "edge_list", "source")
+    expect_stream(dst_s, SType.NUMERIC, 8, "edge_list", "destination")
+    expect_stream(bitmap_s, SType.SERIAL, 1, "edge_list", "bitmap")
+    expect_stream(exc_s, SType.STRING, 1, "edge_list", "exception")
+    bitmap = bitmap_s.raw()
+    if bitmap.numel() * 8 < n_lines:
         raise ValueError("edge_list: corrupt bitmap/columns")
     dev = bitmap.device
     is_edge = _unpack_bits(bitmap, n_lines)
-    src = _aligned(src_raw, 8).view(torch.int64)
-    dst = _aligned(dst_raw, 8).view(torch.int64)
+    src, dst = src_s.data, dst_s.data  # u64 ids in their int64 carriers
     n_edges = int(is_edge.sum())  # one scalar sync
     if n_edges != src.numel() or src.numel() != dst.numel():
         raise ValueError("edge_list: corrupt bitmap/columns")
@@ -266,14 +260,13 @@ def _edge_list_bin_enc(streams, params):
 
 def _edge_list_bin_dec(outs, header):
     src_s, dst_s = outs
-    if src_s.width != dst_s.width or src_s.n_elts != dst_s.n_elts:
+    if src_s.width not in (2, 4, 8):
         raise ValueError("edge_list_bin: corrupt columns")
-    w = src_s.width
-    if w not in CARRIER:
+    expect_stream(src_s, SType.NUMERIC, src_s.width, "edge_list_bin", "source")
+    expect_stream(dst_s, SType.NUMERIC, src_s.width, "edge_list_bin", "destination")
+    if src_s.n_elts != dst_s.n_elts:
         raise ValueError("edge_list_bin: corrupt columns")
-    src = _aligned(src_s.raw(), w).view(CARRIER[w])
-    dst = _aligned(dst_s.raw(), w).view(CARRIER[w])
-    pairs = torch.stack([src, dst], 1)  # the interleaved (u, v) pairs
+    pairs = torch.stack([src_s.data, dst_s.data], 1)  # the interleaved (u, v) pairs
     return [Stream(pairs.view(torch.uint8).reshape(-1), SType.SERIAL, 1)]
 
 
@@ -414,10 +407,12 @@ def _adj_gap_dec(outs, header):
     r.expect_end()
     if w not in CARRIER:
         raise ValueError("adj_gap: bad width")
-    nodes, degrees, refs = _u64_view(nodes_s), _u64_view(degs_s), _u64_view(refs_s)
-    if bits_s.data.dtype != torch.uint8:
-        raise ValueError("adj_gap: the copy bits are not bytes")
-    bits_raw, gaps = bits_s.raw(), _u64_view(gaps_s)
+    for s, what in ((nodes_s, "node"), (degs_s, "degree"), (refs_s, "reference"), (gaps_s, "gap")):
+        expect_stream(s, SType.NUMERIC, 8, "adj_gap", what)
+    expect_stream(bits_s, SType.SERIAL, 1, "adj_gap", "copy-bit")
+    # the u64 streams in their int64 carriers
+    nodes, degrees, refs, gaps = nodes_s.data, degs_s.data, refs_s.data, gaps_s.data
+    bits_raw = bits_s.raw()
     if not (nodes.numel() == degrees.numel() == refs.numel()):
         raise ValueError("adj_gap: corrupt run streams")
     dev = nodes.device
@@ -570,8 +565,9 @@ def _adjacency_auto(streams, params, ctx):
     """Pick plain gap coding, reference coding, or raw columns by trial.
 
     A bounded aligned sample of the (src, dst) columns is compressed under
-    each candidate, on the sample's device, and the smallest wins.  Only a
-    codec's own refusal (a ``ValueError``) skips a candidate.
+    each candidate, on the sample's device and through the resolve cache
+    (as the reference's trials are), and the smallest wins.  Only a codec's
+    own refusal (a ``ValueError``) skips a candidate.
     """
     window = int(params.get("window", 8))
     s_src, s_dst = streams

@@ -29,7 +29,7 @@ import torch
 
 from ..core.codec import CodecSpec, register_codec
 from ..core.message import Stream, SType, from_numpy, from_wire
-from ._util import HeaderReader, HeaderWriter
+from ._util import HeaderReader, HeaderWriter, expect_stream
 
 MIN_MATCH = 4
 MAX_MATCH = 1 << 16
@@ -435,6 +435,9 @@ def _lz77_dec(outs, header):
     width = r.varint()
     n = r.varint()
     r.expect_end()
+    expect_stream(literals, SType.SERIAL, 1, "lz77", "literal")
+    for s, what in ((lit_runs, "literal run"), (match_lens, "match length"), (offsets, "offset")):
+        expect_stream(s, SType.NUMERIC, 4, "lz77", what)
     lit = literals.numpy()
     runs = lit_runs.numpy().astype(np.int64)
     mls = match_lens.numpy().astype(np.int64)
@@ -571,6 +574,7 @@ def _leaf_in(outs, header, decompress):
     stype = SType(r.u8())
     width = r.varint()
     r.expect_end()
+    expect_stream(outs[0], SType.SERIAL, 1, "host leaf", "payload")
     return [from_wire(stype, width, decompress(outs[0].content_bytes()), None, outs[0].device)]
 
 

@@ -38,6 +38,7 @@ from ..core.message import (
 )
 from ..kernels import ops, ref
 from ._util import (
+    expect_stream,
     HeaderReader,
     HeaderWriter,
     fixed_records,
@@ -145,6 +146,7 @@ def _transpose_dec(outs, header):
     stype = SType(r.u8())
     w = r.varint()
     r.expect_end()
+    expect_stream(outs[0], SType.SERIAL, 1, "transpose", "plane")
     planes = outs[0].raw()
     if w < 1 or planes.numel() % w:
         raise ValueError(f"transpose: {planes.numel()} plane bytes for width {w}")
@@ -181,6 +183,8 @@ def _transpose_split_dec(outs, header):
     r.expect_end()
     if w < 1 or len(outs) != w:
         raise ValueError(f"transpose_split: {len(outs)} planes for width {w}")
+    for o in outs:
+        expect_stream(o, SType.SERIAL, 1, "transpose_split", "plane")
     n = outs[0].data.numel()
     if any(o.data.numel() != n for o in outs):
         raise ValueError("transpose_split: planes of different lengths")
@@ -273,6 +277,7 @@ def _range_pack_dec(outs, header):
     r.expect_end()
     if width not in (1, 2, 4, 8):
         raise ValueError(f"range_pack: numeric width {width}")
+    expect_stream(outs[0], SType.SERIAL, 1, "range_pack", "packed")
     vals = _unpack_bits(outs[0].raw(), bits, n)
     if width == 8:  # (vals + lo) mod 2^64 in 32-bit halves
         low = (vals & _M32) + (lo & _M32)
@@ -351,6 +356,7 @@ def _bitpack_dec(outs, header):
     r.expect_end()
     if width not in (1, 2, 4, 8):
         raise ValueError(f"bitpack: numeric width {width}")
+    expect_stream(outs[0], SType.SERIAL, 1, "bitpack", "packed")
     buf = outs[0].raw()
     if _on_word_kernels(width, bits):
         words = _payload_words(buf, n, bits, "bitpack")
@@ -445,6 +451,7 @@ def _fused_dec(outs, header):
     r.expect_end()
     if width not in (1, 2, 4):
         raise ValueError("fused_delta_bitpack: numeric(1/2/4) streams only")
+    expect_stream(outs[0], SType.SERIAL, 1, "fused_delta_bitpack", "packed")
     buf = outs[0].raw()
     if bits in FUSED_BITS_CHOICES:
         words = _payload_words(buf, n, bits, "fused_delta_bitpack")
@@ -496,11 +503,13 @@ def _rle_dec(outs, header):
     width = r.varint()
     r.expect_end()
     w = width if stype != SType.SERIAL else 1
+    expect_stream(values, stype, width, "rle", "value")
+    expect_stream(runs, SType.NUMERIC, 4, "rle", "run")
     raw = values.raw()
     if w < 1 or raw.numel() % w:
         raise ValueError(f"rle: {raw.numel()} value bytes for width {w}")
     mat = raw.view(-1, w)
-    reps = widen_unsigned(_require_numeric(runs, "rle runs"))
+    reps = widen_unsigned(runs.data)
     if reps.numel() != mat.shape[0]:
         raise ValueError(f"rle: {reps.numel()} runs for {mat.shape[0]} values")
     total = int(reps.sum()) if reps.numel() else 0  # one scalar sync
@@ -575,7 +584,8 @@ def _tokenize_dec(outs, header):
     is_string = r.u8()
     _iw = r.u8()
     r.expect_end()
-    idx = widen_unsigned(_require_numeric(indices, "tokenize indices"))
+    expect_stream(indices, SType.NUMERIC, 4, "tokenize", "index")
+    idx = widen_unsigned(indices.data)
     if is_string:
         return [_untokenize_strings(alphabet, idx)]
     mat, _w = fixed_records(alphabet)

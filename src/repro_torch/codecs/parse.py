@@ -26,7 +26,7 @@ import torch
 
 from ..core.codec import CodecSpec, register_codec
 from ..core.message import Stream, SType, narrow_unsigned
-from ._util import HeaderReader, HeaderWriter, numeric_stream
+from ._util import HeaderReader, HeaderWriter, expect_stream, numeric_stream
 
 _NL, _CR, _MINUS, _ZERO, _NINE = 10, 13, 45, 48, 57
 
@@ -333,8 +333,11 @@ def _parse_numeric_dec(outs, header):
     r = HeaderReader(header)
     n = r.varint()
     r.expect_end()
+    expect_stream(bitmap_s, SType.SERIAL, 1, "parse_numeric", "bitmap")
+    expect_stream(vals_s, SType.NUMERIC, 8, "parse_numeric", "value")
+    expect_stream(exc_s, SType.STRING, 1, "parse_numeric", "exception")
     bitmap, raw = bitmap_s.raw(), vals_s.raw()
-    if bitmap.numel() * 8 < n or raw.numel() % 8 or exc_s.stype != SType.STRING:
+    if bitmap.numel() * 8 < n:
         raise ValueError("parse_numeric: corrupt streams")
     dev = bitmap.device
     is_num = _unpack_bits(bitmap, n)

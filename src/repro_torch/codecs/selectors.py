@@ -4,7 +4,8 @@ The trial selector compresses a bounded sample of the stream with each
 candidate graph of its menu and commits to the smallest.  The menus and
 levels are the reference's, so both packages pick the same graph and write
 the same frame.  Trials run on the sample's device, through the same
-kernels as the real compression.
+kernels as the real compression, and resolve each candidate through the
+resolve cache, as the reference's trials do.
 
 Only a codec's own refusal (a ``ValueError``) marks a candidate as
 inapplicable; any other error — a CUDA fault, a failed kernel build, a

@@ -1,5 +1,17 @@
 """Core of the port: messages, wire format, codec/selector registries, plans
 and the two-phase engine."""
-from .engine import CompressionCtx, compress, decompress, execute, resolve  # noqa: F401
+from .engine import (  # noqa: F401
+    CompressionCtx,
+    CompressorSession,
+    DecompressorSession,
+    ExecScratch,
+    SessionPool,
+    compress,
+    decompress,
+    execute,
+    resolve,
+    resolve_cache_clear,
+    resolve_cache_info,
+)
 from .graph import GraphBuilder, Plan, pipeline, plan_from_dict  # noqa: F401
 from .message import Stream, SType, numeric, serial, strings, struct  # noqa: F401

@@ -35,9 +35,9 @@ a stream's payload crosses between host and device: ``write_frame`` copies
 each stored stream to the host once, and ``read_frame`` parses a frame on
 the host and copies each stored payload to the decode device once.
 
-Not yet ported: the container writer's unknown-count mode (a backpatched
-count, for file streaming) and the salvage scanner; both raise
-``NotImplementedError``.
+A container whose chunk count is unknown when it starts (a pipe) reserves
+a padded count and backpatches it (``ContainerWriter(out, version, None)``).
+Not yet ported: the salvage scanner, which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -307,12 +307,23 @@ class ContainerWriter:
     """Incremental container emitter: header, then one chunk frame at a time.
 
     A running CRC replaces the full-container buffer, so peak memory is one
-    chunk frame.  The chunk count is given up front, and the output is byte
-    for byte ``write_container``'s over the same chunks.  (The reference's
-    unknown-count mode, which backpatches the count in a seekable sink, is
-    not yet ported.)  Use as a context manager, or call :meth:`close`, which
-    checks the promised count and appends the CRC trailer.
+    chunk frame regardless of container size.  Two modes:
+
+      * ``n_chunks`` given — the chunk-count varint is emitted with the header
+        and the output is **byte-identical** to ``write_container`` for the
+        same chunks; any binary sink works.
+      * ``n_chunks=None`` — the count is unknown until :meth:`close`.  The
+        sink must then be seekable *and* readable: a fixed-width (5-byte,
+        LEB128-padded) count placeholder is reserved and backpatched, and the
+        trailing CRC is recomputed by re-reading the body in blocks.  The
+        padded varint decodes identically, but the bytes differ from
+        ``write_container`` at exactly the count field (as the reference's).
+
+    Use as a context manager, or call :meth:`close` explicitly; ``close``
+    verifies the promised chunk count and appends the CRC trailer.
     """
+
+    _PAD_VARINT_LEN = 5  # 5 x 7 = 35 bits of count, far above MAX_CHUNKS
 
     def __init__(self, out, version: int, n_chunks: Optional[int] = None):
         from .versioning import CONTAINER_MIN_VERSION
@@ -322,30 +333,46 @@ class ContainerWriter:
                 f"multi-chunk container requires format version"
                 f" >= {CONTAINER_MIN_VERSION}, got {version}"
             )
-        if n_chunks is None:
-            raise NotImplementedError(
-                "ContainerWriter with an unknown chunk count is not yet ported"
-                " to repro_torch; pass n_chunks"
-            )
-        if n_chunks < 1:
-            raise ValueError("container needs at least one chunk")
         self._out = out
         self._expect = n_chunks
         self._written = 0
         self._closed = False
         header = bytearray(CONTAINER_MAGIC)
         header.append(version & 0xFF)
-        write_varint(header, n_chunks)
+        if n_chunks is not None:
+            if n_chunks < 1:
+                raise ValueError("container needs at least one chunk")
+            write_varint(header, n_chunks)
+            self._count_pos = None
+        else:
+            if not (out.seekable() and out.readable()):
+                raise ValueError(
+                    "ContainerWriter with unknown n_chunks needs a seekable,"
+                    " readable sink (pass n_chunks for pure streaming)"
+                )
+            self._count_pos = out.tell() + len(header)
+            header += self._pad_varint(0)
         self._crc = zlib.crc32(header)
         out.write(bytes(header))
         self.bytes_written = len(header)
+
+    @classmethod
+    def _pad_varint(cls, value: int) -> bytes:
+        raw = bytearray()
+        for _ in range(cls._PAD_VARINT_LEN - 1):
+            raw.append((value & 0x7F) | 0x80)
+            value >>= 7
+        if value > 0x7F:
+            raise ValueError("chunk count overflows the padded varint")
+        raw.append(value)
+        return bytes(raw)
 
     def write_chunk(self, frame: bytes) -> None:
         if self._closed:
             raise ValueError("ContainerWriter already closed")
         if bytes(frame[:4]) != MAGIC:
             raise ValueError("container chunks must be single frames (no nesting)")
-        if self._written >= self._expect:
+        if self._expect is not None and self._written >= self._expect:
             raise ValueError(f"more than the promised {self._expect} chunks")
         head = bytearray()
         write_varint(head, len(frame))
@@ -360,8 +387,25 @@ class ContainerWriter:
         if self._closed:
             return self.bytes_written
         self._closed = True
-        if self._written != self._expect:
+        if self._expect is not None and self._written != self._expect:
             raise ValueError(f"promised {self._expect} chunks, wrote {self._written}")
+        if self._written == 0:
+            raise ValueError("container needs at least one chunk")
+        if self._count_pos is not None:
+            # backpatch the count, then recompute the CRC over the final body
+            end = self._out.tell()
+            self._out.seek(self._count_pos)
+            self._out.write(self._pad_varint(self._written))
+            self._out.seek(end - self.bytes_written)
+            crc = 0
+            remaining = self.bytes_written
+            while remaining:
+                block = self._out.read(min(remaining, 1 << 20))
+                if not block:
+                    raise IOError("container body unreadable during CRC fixup")
+                crc = zlib.crc32(block, crc)
+                remaining -= len(block)
+            self._crc = crc
         self._out.write(_struct.pack("<I", self._crc & 0xFFFFFFFF))
         self.bytes_written += 4
         return self.bytes_written

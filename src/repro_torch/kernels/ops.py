@@ -5,7 +5,8 @@ and launches its kernel on the current CUDA stream.  It takes its kernel's
 plain PyTorch version (``kernels/ref.py``) only for tensors that lie on the
 CPU; for a CUDA tensor it launches the kernel or raises — there is no
 fallback and no size window.  ``<wrapper>.launches`` counts the launches
-made by this process (reset with :func:`reset_launches`).
+made by this process (reset with :func:`reset_launches`), counted under a
+lock, since a session's pool launches from many threads.
 
 Kernels and the TPU kernels they replace:
 
@@ -35,6 +36,7 @@ K15 and K10 fetch each lane's bytes ahead of their walk instead.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -97,13 +99,25 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# a session's pool launches from many threads: each count is one locked
+# read-modify-write
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    with _LAUNCHES_LOCK:
+        wrapper.launches += 1
+
+
 def reset_launches() -> None:
-    for name in KERNELS:
-        globals()[name].launches = 0
+    with _LAUNCHES_LOCK:
+        for name in KERNELS:
+            globals()[name].launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: globals()[name].launches for name in KERNELS}
+    with _LAUNCHES_LOCK:
+        return {name: globals()[name].launches for name in KERNELS}
 
 
 # ------------------------------------------------------------------ K1 delta
@@ -122,7 +136,7 @@ def delta_encode(x: torch.Tensor) -> torch.Tensor:
             ),
             "delta_encode",
         )
-        delta_encode.launches += 1
+        _count(delta_encode)
     return out
 
 
@@ -151,7 +165,7 @@ def delta_decode(d: torch.Tensor) -> torch.Tensor:
             ),
             "delta_decode",
         )
-        delta_decode.launches += 1
+        _count(delta_decode)
     return out
 
 
@@ -196,7 +210,7 @@ def byteshuffle(x: torch.Tensor) -> torch.Tensor:
             ),
             "byteshuffle",
         )
-        byteshuffle.launches += 1
+        _count(byteshuffle)
     return out
 
 
@@ -218,7 +232,7 @@ def byteunshuffle(p: torch.Tensor) -> torch.Tensor:
             _lib().repro_byteunshuffle(p.data_ptr(), out.data_ptr(), w, n, _stream(p)),
             "byteunshuffle",
         )
-        byteunshuffle.launches += 1
+        _count(byteunshuffle)
     return out
 
 
@@ -248,7 +262,7 @@ def huffman_map(
             ),
             "huffman_map",
         )
-        huffman_map.launches += 1
+        _count(huffman_map)
     return code, nbits
 
 
@@ -309,7 +323,7 @@ def fse_encode(
             ),
             "fse_encode",
         )
-        fse_encode.launches += 1
+        _count(fse_encode)
     return vals, nbs, state
 
 
@@ -349,7 +363,7 @@ def huffman_decode(
             ),
             "huffman_decode",
         )
-        huffman_decode.launches += 1
+        _count(huffman_decode)
     return out
 
 
@@ -430,7 +444,7 @@ def fse_decode(
             ),
             "fse_decode",
         )
-        fse_decode.launches += 1
+        _count(fse_decode)
     return out
 
 
@@ -458,7 +472,7 @@ def lane_refill(buf: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
             ),
             "lane_refill",
         )
-        lane_refill.launches += 1
+        _count(lane_refill)
     return out
 
 
@@ -496,7 +510,7 @@ def float_split(u: torch.Tensor, fmt: int) -> Tuple[torch.Tensor, torch.Tensor, 
             ),
             "float_split",
         )
-        float_split.launches += 1
+        _count(float_split)
     return sign, exp, man
 
 
@@ -529,7 +543,7 @@ def float_merge(
             ),
             "float_merge",
         )
-        float_merge.launches += 1
+        _count(float_merge)
     return out
 
 
@@ -551,7 +565,7 @@ def histogram(x: torch.Tensor) -> torch.Tensor:
         _lib().repro_histogram(x.data_ptr(), x.numel(), out.data_ptr(), _stream(x)),
         "histogram",
     )
-    histogram.launches += 1
+    _count(histogram)
     return out
 
 
@@ -594,7 +608,7 @@ def bitpack(x: torch.Tensor, bits: int) -> torch.Tensor:
             ),
             "bitpack",
         )
-        bitpack.launches += 1
+        _count(bitpack)
     return out
 
 
@@ -614,7 +628,7 @@ def bitunpack(w: torch.Tensor, bits: int, n: int, width: int = 4) -> torch.Tenso
             _lib().repro_bitunpack(w.data_ptr(), out.data_ptr(), n, width, bits, _stream(w)),
             "bitunpack",
         )
-        bitunpack.launches += 1
+        _count(bitunpack)
     return out
 
 
@@ -637,7 +651,7 @@ def fused_delta_bitpack(x: torch.Tensor, bits: int) -> torch.Tensor:
             ),
             "fused_delta_bitpack",
         )
-        fused_delta_bitpack.launches += 1
+        _count(fused_delta_bitpack)
     return out
 
 
@@ -667,7 +681,7 @@ def fused_delta_bitpack_decode(
             ),
             "fused_delta_bitpack_decode",
         )
-        fused_delta_bitpack_decode.launches += 1
+        _count(fused_delta_bitpack_decode)
     return out
 
 

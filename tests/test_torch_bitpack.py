@@ -300,7 +300,7 @@ def _frames(plan_spec, col, fv=4):
     for run in (
         lambda: repro_torch.compress(
             repro_torch.pipeline(*plan_spec), repro_torch.numeric(col),
-            repro_torch.CompressionCtx(format_version=fv), device="cpu",
+            repro_torch.CompressionCtx(format_version=fv), device="cpu", use_resolve_cache=False,
         ),
         lambda: ref_compress(
             ref_pipeline(*plan_spec), ref_numeric(col), ctx=RefCtx(format_version=fv),
@@ -401,7 +401,7 @@ def test_steps_after_a_lowered_pair_keep_the_wire_edge_ids():
     col = _column("zipf")[:20000]
     plan = _tokenized_plan(repro_torch.GraphBuilder)
     ref_plan = _tokenized_plan(RefGraphBuilder)
-    frame = repro_torch.compress(plan, repro_torch.numeric(col), device="cpu")
+    frame = repro_torch.compress(plan, repro_torch.numeric(col), device="cpu", use_resolve_cache=False)
     ref_frame = ref_compress(ref_plan, ref_numeric(col), backend="device", use_resolve_cache=False)
     nodes = read_frame(frame)[2]
     assert [n.codec_id for n in nodes] == [9, 3, 6, 14, 3]  # the pair lowered

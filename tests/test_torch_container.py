@@ -50,7 +50,7 @@ def _frames(n=3, seed=0):
         repro_torch.compress(
             repro_torch.pipeline("store"),
             repro_torch.serial(rng.integers(0, 256, 100 + 37 * i, dtype=np.uint8)),
-            device="cpu",
+            device="cpu", use_resolve_cache=False,
         )
         for i in range(n)
     ]
@@ -74,14 +74,24 @@ def test_container_writer_and_readers_match_the_reference():
     )
 
 
+class _WriteOnly(io.RawIOBase):
+    def writable(self):
+        return True
+
+
 def test_container_writer_refuses_what_the_reference_refuses():
     frames = _frames(2)
     with pytest.raises(ValueError):
         wire.ContainerWriter(io.BytesIO(), 3, n_chunks=1)
     with pytest.raises(ValueError):
         wire.ContainerWriter(io.BytesIO(), 4, n_chunks=0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        wire.ContainerWriter(io.BytesIO(), 4)
+    unknown = wire.ContainerWriter(io.BytesIO(), 4)  # count backpatched at close
+    with pytest.raises(ValueError, match="at least one chunk"):
+        unknown.close()
+    with pytest.raises(ValueError, match="seekable"):
+        wire.ContainerWriter(_WriteOnly(), 4)
+    with pytest.raises(ValueError, match="seekable"):
+        ref_wire.ContainerWriter(_WriteOnly(), 4)
     w = wire.ContainerWriter(io.BytesIO(), 4, n_chunks=1)
     with pytest.raises(ValueError):
         w.write_chunk(wire.write_container(4, frames))  # no nesting
@@ -252,7 +262,7 @@ FRAME_CASES = (
 @pytest.mark.parametrize("case", FRAME_CASES)
 def test_chunked_frame_is_the_references_and_decodes_across(case, chunk_bytes):
     plan, ref_plan, (ref_s, s) = _frame_case(case)
-    frame = repro_torch.compress(plan, s, device="cpu", chunk_bytes=chunk_bytes)
+    frame = repro_torch.compress(plan, s, device="cpu", chunk_bytes=chunk_bytes, use_resolve_cache=False)
     want = ref_compress(ref_plan, ref_s, backend="device", chunk_bytes=chunk_bytes,
                         use_resolve_cache=False)
     assert frame[:4] == b"OZLC"
@@ -274,7 +284,7 @@ def test_only_the_first_chunk_of_offsets_fuses():
     offsets = np.concatenate([[0], np.cumsum(rng.integers(0, 256, 5999))]).astype(np.uint32)
     ref_s, s = _pair(offsets, SType.NUMERIC, 4)
     frame = repro_torch.compress(repro_torch.pipeline("delta", "bitpack"), s, device="cpu",
-                                 chunk_bytes=4096 + 4)
+                                 chunk_bytes=4096 + 4, use_resolve_cache=False)
     assert frame == ref_compress(ref_pipeline("delta", "bitpack"), ref_s, backend="device",
                                  chunk_bytes=4096 + 4, use_resolve_cache=False)
     _version, chunks = wire.read_container(frame)
@@ -299,7 +309,7 @@ def test_trained_plan_chunked_from_every_byte_offset(offset):
     buf = np.concatenate([np.zeros(offset, np.uint8), raw])
     s = Stream(torch.from_numpy(buf)[offset:], SType.SERIAL, 1)
     assert s.data.storage_offset() == offset
-    frame = repro_torch.compress(plan, s, device="cpu", chunk_bytes=1024)
+    frame = repro_torch.compress(plan, s, device="cpu", chunk_bytes=1024, use_resolve_cache=False)
     assert frame == ref_compress(ref_plan, RefStream(raw, RefSType.SERIAL, 1),
                                  backend="device", chunk_bytes=1024, use_resolve_cache=False)
     (out,) = repro_torch.decompress(frame, device="cpu")
@@ -315,17 +325,17 @@ def test_chunked_path_refuses_what_the_reference_refuses():
     two.add("store", two.input(0))
     two.add("store", two.input(1))
     with pytest.raises(ValueError, match="exactly one input"):
-        repro_torch.compress(two.build("two"), [s, s], device="cpu", chunk_bytes=4096)
+        repro_torch.compress(two.build("two"), [s, s], device="cpu", chunk_bytes=4096, use_resolve_cache=False)
     with pytest.raises(ValueError):
         repro_torch.compress(plan, s, CompressionCtx(format_version=3), device="cpu",
-                             chunk_bytes=4096)
+                             chunk_bytes=4096, use_resolve_cache=False)
     with pytest.raises(ValueError):
         ref_compress(ref_plan, ref_s, ctx=RefCtx(format_version=3), chunk_bytes=4096)
     with pytest.raises(ValueError):
         repro_torch.compress(plan, s, device="cpu", chunk_bytes=-1)
     # chunk_bytes=0 and a split into one chunk write a plain frame, as in the reference
     for cb in (0, s.nbytes, s.nbytes * 2):
-        frame = repro_torch.compress(plan, s, device="cpu", chunk_bytes=cb)
+        frame = repro_torch.compress(plan, s, device="cpu", chunk_bytes=cb, use_resolve_cache=False)
         assert frame[:4] == b"OZLJ"
         assert frame == ref_compress(ref_plan, ref_s, backend="device", chunk_bytes=cb,
                                      use_resolve_cache=False)
@@ -336,7 +346,7 @@ def test_container_of_multi_input_chunks_fails_closed():
     two.add("store", two.input(0))
     two.add("store", two.input(1))
     s = repro_torch.serial(b"abc")
-    chunk = repro_torch.compress(two.build("two"), [s, s], device="cpu")
+    chunk = repro_torch.compress(two.build("two"), [s, s], device="cpu", use_resolve_cache=False)
     blob = wire.write_container(4, [chunk, chunk])
     with pytest.raises(wire.FrameError, match="single-input"):
         repro_torch.decompress(blob, device="cpu")
@@ -346,9 +356,9 @@ def test_container_of_multi_input_chunks_fails_closed():
 
 def test_chunks_of_different_types_fail_closed():
     a = repro_torch.compress(repro_torch.pipeline("store"), repro_torch.serial(b"abcd"),
-                             device="cpu")
+                             device="cpu", use_resolve_cache=False)
     b = repro_torch.compress(repro_torch.pipeline("store"),
-                             repro_torch.numeric(np.arange(3, dtype=np.uint8)), device="cpu")
+                             repro_torch.numeric(np.arange(3, dtype=np.uint8)), device="cpu", use_resolve_cache=False)
     blob = wire.write_container(4, [a, b])
     with pytest.raises(wire.FrameError, match="disagree"):
         repro_torch.decompress(blob, device="cpu")
@@ -381,7 +391,7 @@ def test_a_chunk_that_refuses_the_first_resolution_is_resolved_afresh(monkeypatc
                         chunk_bytes=4096, use_resolve_cache=False)
     before = engine.fresh_resolves
     frame = repro_torch.compress(repro_torch.numeric_profile(), s, device="cpu",
-                                 chunk_bytes=4096)
+                                 chunk_bytes=4096, use_resolve_cache=False)
     assert engine.fresh_resolves - before == len(ref_calls) - 1 == 1
     assert frame == want
     (out,) = repro_torch.decompress(frame, device="cpu")
@@ -403,14 +413,14 @@ def test_the_retry_does_not_hide_a_kernel_error(monkeypatch):
     monkeypatch.setattr(ops, "delta_encode", flaky)
     with pytest.raises(ops.KernelError):
         repro_torch.compress(repro_torch.pipeline("delta", "range_pack"), s, device="cpu",
-                             chunk_bytes=4096)
+                             chunk_bytes=4096, use_resolve_cache=False)
 
     def broken(x):
         raise ops.KernelError("delta_encode: tensor must be contiguous")
 
     monkeypatch.setattr(ops, "delta_encode", broken)
     with pytest.raises(ops.KernelError):
-        repro_torch.compress(repro_torch.numeric_profile(), s, device="cpu")
+        repro_torch.compress(repro_torch.numeric_profile(), s, device="cpu", use_resolve_cache=False)
 
 
 # --------------------------------------------- interpret_numeric, generic_auto
@@ -423,7 +433,7 @@ def test_interpret_numeric_on_a_view_at_every_offset(offset):
     plan = repro_torch.pipeline(("interpret_numeric", {"width": 8}), "delta", "transpose",
                                 "huffman")
     s = Stream(torch.from_numpy(raw)[offset: offset + 8 * 300], SType.SERIAL, 1)
-    frame = repro_torch.compress(plan, s, device="cpu")
+    frame = repro_torch.compress(plan, s, device="cpu", use_resolve_cache=False)
     assert frame == ref_compress(ref_plan, RefStream(view, RefSType.SERIAL, 1),
                                  backend="device", use_resolve_cache=False)
     (out,) = repro_torch.decompress(frame, device="cpu")
@@ -452,7 +462,7 @@ def test_interpret_numeric_refuses_where_the_reference_refuses(case):
 def test_text_profile_writes_the_reference_frame(level):
     data = b"the quick brown fox jumps over the lazy dog\n" * 200
     frame = repro_torch.compress(repro_torch.text_profile(level), repro_torch.serial(data),
-                                 device="cpu", chunk_bytes=2048)
+                                 device="cpu", chunk_bytes=2048, use_resolve_cache=False)
     assert frame == ref_compress(ref_profiles.text_profile(level),
                                  RefStream(np.frombuffer(data, np.uint8), RefSType.SERIAL, 1),
                                  backend="device", chunk_bytes=2048, use_resolve_cache=False)

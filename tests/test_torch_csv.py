@@ -290,7 +290,7 @@ def test_parse_numeric_decode_fails_closed():
 def _frames_equal(ref_plan, plan, raw: bytes, level=5):
     want = ref_compress(ref_plan, [_ref_serial(raw)], ctx=RefCtx(level=level),
                         backend="device", use_resolve_cache=False)
-    frame = repro_torch.compress(plan, serial(raw), CompressionCtx(level=level), device="cpu")
+    frame = repro_torch.compress(plan, serial(raw), CompressionCtx(level=level), device="cpu", use_resolve_cache=False)
     assert frame == want
     (back,) = repro_torch.decompress(frame, device="cpu")
     assert back.content_bytes() == raw and back.stype == SType.SERIAL
@@ -326,7 +326,7 @@ def test_csv_profile_on_a_file_of_other_width_raises_as_the_reference_does():
         ref_compress(ref_profiles.csv_profile(2), [_ref_serial(raw)], backend="device",
                      use_resolve_cache=False)
     with pytest.raises(AssertionError):
-        repro_torch.compress(repro_torch.csv_profile(2), serial(raw), device="cpu")
+        repro_torch.compress(repro_torch.csv_profile(2), serial(raw), device="cpu", use_resolve_cache=False)
 
 
 @pytest.mark.parametrize("args", ((0,), (-1,), (2, ""), (2, "\n"), (2, "a\rb")))

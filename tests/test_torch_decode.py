@@ -350,7 +350,7 @@ def test_decompress_matches_reference_on_port_frames(plan_name, n):
     plan = repro_torch.numeric_profile() if spec == "profile" else repro_torch.pipeline(*spec)
     col = _column(plan_name, n)
     frame = repro_torch.compress(
-        plan, repro_torch.numeric(col), repro_torch.CompressionCtx(level=level), device="cpu"
+        plan, repro_torch.numeric(col), repro_torch.CompressionCtx(level=level), device="cpu", use_resolve_cache=False
     )
     ours = repro_torch.decompress(frame, device="cpu")
     _same_streams(ours, ref_decompress(frame))
@@ -360,7 +360,7 @@ def test_decompress_matches_reference_on_port_frames(plan_name, n):
 def test_decompress_defaults_to_the_card_and_raises_without_one(monkeypatch):
     frame = repro_torch.compress(
         repro_torch.numeric_profile(), repro_torch.numeric(np.arange(100, dtype=np.uint32)),
-        device="cpu",
+        device="cpu", use_resolve_cache=False,
     )
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(_device.NoCardError):

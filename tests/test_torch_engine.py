@@ -54,7 +54,7 @@ def test_port_frame_equals_reference_device_frame(kind, plan_name):
     else:
         plan, ref_plan = repro_torch.pipeline(*spec), ref_pipeline(*spec)
     frame = repro_torch.compress(
-        plan, repro_torch.numeric(col), repro_torch.CompressionCtx(level=level), device="cpu"
+        plan, repro_torch.numeric(col), repro_torch.CompressionCtx(level=level), device="cpu", use_resolve_cache=False
     )
     ref_frame = ref_compress(
         ref_plan, ref_numeric(col), ctx=RefCtx(level=level), backend="device",
@@ -80,7 +80,7 @@ def test_selector_commits_to_the_reference_choice():
 
 def test_empty_and_tiny_columns_roundtrip():
     for col in (np.zeros(0, np.uint32), np.array([5], np.uint64), np.arange(3, dtype=np.uint16)):
-        frame = repro_torch.compress(repro_torch.numeric_profile(), repro_torch.numeric(col), device="cpu")
+        frame = repro_torch.compress(repro_torch.numeric_profile(), repro_torch.numeric(col), device="cpu", use_resolve_cache=False)
         assert frame == ref_compress(ref_numeric_profile(), ref_numeric(col), use_resolve_cache=False)
         (out,) = repro_torch.decompress(frame, device="cpu")
         assert out.content_bytes() == col.tobytes()

@@ -236,7 +236,7 @@ def _weights(profile, kind):
 def test_float_profile_frame_equals_reference(profile, kind):
     port_plan, ref_plan, _dtype, _n = PROFILES[profile]
     u = _weights(profile, kind)
-    frame = repro_torch.compress(port_plan(), repro_torch.numeric(u), device="cpu")
+    frame = repro_torch.compress(port_plan(), repro_torch.numeric(u), device="cpu", use_resolve_cache=False)
     assert frame == ref_compress(ref_plan(), [_ref_stream(u)], use_resolve_cache=False)
     assert frame == ref_compress(
         ref_plan(), [_ref_stream(u)], backend="device", use_resolve_cache=False
@@ -253,7 +253,7 @@ def test_a_bf16_weight_tensor_becomes_a_numeric_2_stream_in_place():
     s = repro_torch.numeric(w)
     assert (s.stype, s.width, s.data.dtype) == (SType.NUMERIC, 2, torch.int16)
     assert s.data.data_ptr() == w.data_ptr()  # a view: no copy, no host trip
-    frame = repro_torch.compress(repro_torch.bfloat16_profile(), s, device="cpu")
+    frame = repro_torch.compress(repro_torch.bfloat16_profile(), s, device="cpu", use_resolve_cache=False)
     (out,) = repro_torch.decompress(frame, device="cpu")
     assert torch.equal(out.data.view(torch.bfloat16), w)
 
@@ -279,7 +279,7 @@ def test_huffman_refuses_counts_whose_length_cap_does_not_converge():
     g.select("entropy_auto", g.input(0))
     rg = RefGraphBuilder(1)
     rg.select("entropy_auto", rg.input(0))
-    frame = repro_torch.compress(g.build("e"), repro_torch.serial(x.tobytes()), device="cpu")
+    frame = repro_torch.compress(g.build("e"), repro_torch.serial(x.tobytes()), device="cpu", use_resolve_cache=False)
     assert frame == ref_compress(rg.build("e"), [RefStream(x, RefSType.SERIAL, 1)], use_resolve_cache=False)
 
 

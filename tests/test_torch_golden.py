@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 from _golden import GOLDEN_DIR, LEVEL, load_manifest, stream_from_entry  # noqa: E402
 
 from repro.core.serialize import deserialize_plan, plan_to_dict  # noqa: E402
-from repro_torch import CompressionCtx, compress, decompress, plan_from_dict  # noqa: E402
+from repro_torch import CompressionCtx, compress, decompress, plan_from_dict, resolve_cache_clear  # noqa: E402,E501
 from repro_torch.core.message import Stream, SType, from_numpy  # noqa: E402
 
 IN_SLICE = (
@@ -60,6 +60,9 @@ def test_port_reproduces_frozen_frame(name):
         port_s = Stream(torch.from_numpy(s.data.copy()), SType.STRING, 1, s.lengths)
     else:
         port_s = from_numpy(s.data, SType(int(s.stype)), s.width)
+    # selector trials consult the resolve cache (as the reference's do): the
+    # frozen frames are those of an empty cache, not of the vectors before
+    resolve_cache_clear()
     frame = compress(
         plan,
         [port_s],

@@ -432,18 +432,20 @@ def test_adj_gap_decode_refuses_a_bad_width():
 
 # ---------------------------------------------------------------- frames
 def _ref_frame(ref_plan, streams, **kw):
-    """The reference's frame, from an empty resolve cache.  ``adjacency_auto``'s
-    trials compress through the reference's cache even under
-    ``use_resolve_cache=False``, keyed by plan, (type, width, bit length of
-    the count), level and version, so without this the reference's choice
-    would depend on what this process compressed before (ROADMAP §3)."""
+    """The reference's frame, from an empty resolve cache, with the port's
+    cache emptied at the same point.  ``adjacency_auto``'s trials compress
+    through each package's cache even under ``use_resolve_cache=False``,
+    keyed by plan, (type, width, bit length of the count), level and
+    version, so without this a choice would depend on what this process
+    compressed before."""
     resolve_cache_clear()
+    repro_torch.resolve_cache_clear()
     return ref_compress(ref_plan, streams, backend="device", use_resolve_cache=False, **kw)
 
 
 def _frames_equal(ref_plan, plan, raw: bytes, level=5):
     want = _ref_frame(ref_plan, [_ref_serial(raw)], ctx=RefCtx(level=level))
-    frame = repro_torch.compress(plan, serial(raw), CompressionCtx(level=level), device="cpu")
+    frame = repro_torch.compress(plan, serial(raw), CompressionCtx(level=level), device="cpu", use_resolve_cache=False)
     assert frame == want
     (back,) = repro_torch.decompress(frame, device="cpu")
     assert back.content_bytes() == raw and back.stype == SType.SERIAL
@@ -493,7 +495,7 @@ def test_the_adjacency_backends_write_the_reference_frame(edges, window):
     src, dst = (x.copy() for x in edges[1].T)
     ref_ins, ins = _columns(src, dst, 8)
     want = _ref_frame(ref_graph.adj_backend(window), ref_ins)
-    assert repro_torch.compress(graph.adj_backend(window), ins, device="cpu") == want
+    assert repro_torch.compress(graph.adj_backend(window), ins, device="cpu", use_resolve_cache=False) == want
     back = repro_torch.decompress(want, device="cpu")
     _same(back, ref_ins)
 
@@ -508,19 +510,20 @@ def _u32_pairs(seed: int, n: int, unique: bool) -> bytes:
 
 
 def test_adjacency_auto_resolves_afresh_where_the_reference_reuses_its_cache():
-    """A difference by design (ROADMAP §3): the reference's trials reuse a
-    resolution cached for an earlier graph whose sample had the same type,
-    width and count bit length, even under ``use_resolve_cache=False``, so
-    its frame for ``b`` depends on whether it compressed ``a`` first.  The
-    port resolves every trial afresh: its frame is the reference's from an
-    empty cache."""
+    """The trials of both packages reuse a resolution cached for an earlier
+    graph whose sample had the same type, width and count bit length, even
+    under ``use_resolve_cache=False``: the frame for ``b`` depends on
+    whether ``a`` was compressed first.  The port's frame equals the
+    reference's both from empty caches and from caches warmed by ``a``."""
     a, b = _u32_pairs(123, 3000, False), _u32_pairs(223, 2500, True)
     ref_plan, plan = ref_profiles.graph_bin_profile(4), repro_torch.graph_bin_profile(4)
     fresh = _ref_frame(ref_plan, [_ref_serial(b)])
-    _ref_frame(ref_plan, [_ref_serial(a)])
+    assert repro_torch.compress(plan, serial(b), device="cpu", use_resolve_cache=False) == fresh
+    _ref_frame(ref_plan, [_ref_serial(a)])  # both caches emptied, the reference's warmed by a
+    repro_torch.compress(plan, serial(a), device="cpu", use_resolve_cache=False)
     warm = ref_compress(ref_plan, [_ref_serial(b)], backend="device", use_resolve_cache=False)
     assert warm != fresh
-    assert repro_torch.compress(plan, serial(b), device="cpu") == fresh
+    assert repro_torch.compress(plan, serial(b), device="cpu", use_resolve_cache=False) == warm
 
 
 @pytest.mark.parametrize("args", ((3,), (1,), (16, 8)))

@@ -50,14 +50,15 @@ def test_port_file_imports_nothing_forbidden(path):
 def test_the_scan_covers_the_container_slices_modules():
     port = REPO / "src" / "repro_torch"
     for rel in ("codecs/convert.py", "codecs/selectors.py", "codecs/profiles.py",
-                "codecs/graph.py", "core/wire.py", "core/engine.py"):
+                "codecs/graph.py", "codecs/coder_cache.py", "core/wire.py", "core/engine.py",
+                "core/stream_io.py"):
         assert port / rel in PORT_FILES
 
 
 def test_importing_the_port_loads_nothing_forbidden_and_no_cuda():
     code = (
         "import sys, torch, repro_torch, repro_torch.codecs, repro_torch.kernels.ops,"
-        " repro_torch.kernels._build\n"
+        " repro_torch.kernels._build, repro_torch.core.stream_io\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad, torch.cuda.is_initialized())\n" % (FORBIDDEN,)
     )

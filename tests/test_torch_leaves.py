@@ -93,7 +93,7 @@ def test_leaf_refuses_a_string_stream(codec):
 @pytest.mark.parametrize("codec", sorted(LEAVES))
 def test_leaf_plan_frame_equals_reference(codec):
     x, _stype, _width = _stream("u32", seed=4)
-    frame = repro_torch.compress(repro_torch.pipeline(codec), repro_torch.numeric(x), device="cpu")
+    frame = repro_torch.compress(repro_torch.pipeline(codec), repro_torch.numeric(x), device="cpu", use_resolve_cache=False)
     ref_plan = RefGraphBuilder(1)
     ref_plan.add(codec, ref_plan.input(0))
     ref_in = [RefStream(x, RefSType.NUMERIC, 4)]
@@ -118,7 +118,7 @@ def test_selector_commits_to_lzma_where_the_reference_does(selector, level):
     g.select(selector, g.input(0))
     frame = repro_torch.compress(
         g.build("s"), repro_torch.serial(x.tobytes()), repro_torch.CompressionCtx(level=level),
-        device="cpu",
+        device="cpu", use_resolve_cache=False,
     )
     rg = RefGraphBuilder(1)
     rg.select(selector, rg.input(0))
@@ -161,7 +161,7 @@ def test_float_profile_above_level_6_writes_the_reference_frame(profile, kind, l
     port_plan, ref_plan, width = PROFILES[profile]
     u = _weights(profile, kind)
     frame = repro_torch.compress(
-        port_plan(), repro_torch.numeric(u), repro_torch.CompressionCtx(level=level), device="cpu"
+        port_plan(), repro_torch.numeric(u), repro_torch.CompressionCtx(level=level), device="cpu", use_resolve_cache=False
     )
     ref_in = [RefStream(u, RefSType.NUMERIC, width)]
     assert frame == ref_compress(
@@ -183,7 +183,7 @@ def test_one_float32_value_at_level_7_writes_the_reference_frame():
     u = np.array([0.015625], np.float32).view(np.uint32)
     frame = repro_torch.compress(
         repro_torch.float32_profile(), repro_torch.numeric(u), repro_torch.CompressionCtx(level=7),
-        device="cpu",
+        device="cpu", use_resolve_cache=False,
     )
     assert frame == ref_compress(
         ref_profiles.float32_profile(), [RefStream(u, RefSType.NUMERIC, 4)], ctx=RefCtx(level=7),

@@ -129,7 +129,7 @@ def test_bytes_auto_commits_to_the_reference_choice(kind, level):
         x = _data(kind, seed=3)
     frame = repro_torch.compress(
         _bytes_auto(repro_torch.GraphBuilder), repro_torch.serial(x.tobytes()),
-        repro_torch.CompressionCtx(level=level), device="cpu",
+        repro_torch.CompressionCtx(level=level), device="cpu", use_resolve_cache=False,
     )
     ref_in = [RefStream(x, RefSType.SERIAL, 1)]
     ref_plan = _bytes_auto(RefGraphBuilder)

@@ -292,7 +292,7 @@ def test_constant_decodes_onto_the_device_decompress_was_given(monkeypatch):
     g = GraphBuilder(1)
     g.add("constant", g.input(0), n_out=0)
     frame = repro_torch.compress(g.build("c"), repro_torch.numeric(np.full(777, 42, np.uint32)),
-                                 device="cpu")
+                                 device="cpu", use_resolve_cache=False)
     (out,) = repro_torch.decompress(frame, device="cpu")
     assert seen == [torch.device("cpu")]
     assert out.data.device == torch.device("cpu") and out.data.dtype == torch.int32
@@ -332,7 +332,7 @@ def _frames_equal(ref_plan, plan, ref_s, s, level=5, chunk_bytes=None, fv=None):
     ctx = CompressionCtx(*ctx_args) if fv else CompressionCtx(level=level)
     want = ref_compress(ref_plan, [ref_s], ctx=ref_ctx, backend="device",
                         chunk_bytes=chunk_bytes, use_resolve_cache=False)
-    frame = repro_torch.compress(plan, [s], ctx, device="cpu", chunk_bytes=chunk_bytes)
+    frame = repro_torch.compress(plan, [s], ctx, device="cpu", chunk_bytes=chunk_bytes, use_resolve_cache=False)
     assert frame == want
     (back,) = repro_torch.decompress(frame, device="cpu")
     assert back.data.device.type == "cpu"
