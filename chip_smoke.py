@@ -204,7 +204,49 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              each call launches a kernel; MB/s each way, the sessions'
              stats, both caches' counters, the peak of allocated card
              memory and ``profile sessions`` lines.
-10. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
+10. checkpoint — the checkpoint leaf path, its manager and the shard store
+             on the card (``repro_torch.distributed.checkpoint``,
+             ``repro_torch.data``), after the sessions phase.  The CPU's
+             frames first: ``compress_leaf`` of a 4 MiB slice (the first 2^21
+             weights) of ``layers/wq`` and of ``embed`` on the card equal to
+             the CPU's frame and decoded on the card; a route tree of one
+             leaf per dtype route (float32, float64, float16, int8, uint8,
+             bool, int16, int32, int64, uint32; 1-4 MiB each, made from
+             ``--seed`` + 6) through ``save_checkpoint`` on the card, each
+             leaf file equal to the CPU's frame and restored on the card to
+             its input.  Then the serving checkpoint of Llama-3.2-1B
+             (``repro/configs/llama3_2_1b.py``, the stacked tree of
+             ``repro/models/transformer.py``'s ``init_params``: 16 layers,
+             d_model 2048, 32 heads, 8 KV heads, d_ff 8192, vocab 128256,
+             tied embeddings; 11 bfloat16 leaves, 1,235,814,400 weights,
+             2,471,628,800 bytes; weights normal(0, 0.02) and norms ones,
+             drawn on the card from ``--seed``): ``CheckpointManager(keep=2,
+             async_save=True).save(100, ...)`` behind a device sleep, every
+             weight's sign flipped in place (``neg_()``) right after
+             ``save()`` returns, ``wait()``, a synchronous save of step 200;
+             ``restore_or_none`` gives step 200 equal to the flipped tree
+             bit for bit and ``restore_tree(..., 100)`` the tree before the
+             flip; the async save again from a side stream, the flip queued
+             there; the synchronous save and ``restore_or_none`` run under
+             torch.profiler (the card's idle share), a save of ``w_gate``
+             alone and the side stream's restore under cProfile.  Then the
+             trainer's shards (``repro/launch/train.py``'s ``make_shards`` at
+             ``train_4k``'s batch 256, sequence 4096: 4 x 4,195,328 zipf
+             int32 tokens over the vocab, chip_smoke's copy of
+             ``zipf_tokens``) through ``CompressedShardStore``: written,
+             shard 0 rewritten, read back on the card equal, ``stats()``.
+             While the CPU's frames are made, two crash kills with card
+             victims (``repro_torch.reliability.crashkill``, the
+             ``checkpoint`` scenario at ``ckpt.leaf`` #3 and
+             ``ckpt.manifest`` #1, two spawned interpreters at once): each
+             victim dies by ``SIGKILL``, and ``check_invariants`` on the card
+             finds step 1 intact and nothing half-published.  The launch
+             counts are reset before and read after each save, restore and
+             store call (each save launches float split, each restore float
+             merge); save and restore seconds and MB/s, the manifest's and
+             each leaf's ratio, the peak allocated card memory with the
+             snapshot's share, the sessions' counters.
+11. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -214,18 +256,18 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-11. profile — one more compress and one decompress per plan and column under
+12. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
              the records phase's, the CSV phase's and the graph phase's calls.
-12. identity — the card's name and power limit.
+13. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
-``records_launches``, ``csv_launches``, ``graph_launches`` and
-``sessions_launches``), the
+``records_launches``, ``csv_launches``, ``graph_launches``,
+``sessions_launches`` and ``checkpoint_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -235,6 +277,7 @@ import argparse
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -497,6 +540,29 @@ GRAPH_EDGES = (
 )
 # encode_offset_sweep's sizes: ragged, past one vector and past a block's
 OFFSET_SIZES = (1, 37, 4097)
+# the checkpoint phase: the serving checkpoint of Llama-3.2-1B, the tree of
+# ``repro/models/transformer.py``'s ``init_params`` for
+# ``repro/configs/llama3_2_1b.py`` (stacked layer leaves, tied embeddings,
+# bfloat16) at full width and depth: 11 leaves, 1,235,814,400 weights
+LLAMA_LAYERS, LLAMA_D, LLAMA_HEADS, LLAMA_KV_HEADS = 16, 2048, 32, 8
+LLAMA_FF, LLAMA_VOCAB = 8192, 128256
+LLAMA_WEIGHTS = 1_235_814_400
+CKPT_SLICE = 1 << 21  # the weights (4 MiB) of a leaf's slice held against the CPU's frame
+CKPT_SLICED = ("params/layers/wq", "params/embed")
+CKPT_HOST_LEAF = "params/layers/w_gate"  # the leaf whose save runs under cProfile
+# one leaf per dtype route of ``compress_leaf``: (numpy dtype name, bytes)
+ROUTE_LEAVES = (("float32", 1 << 20), ("float64", 2 << 20), ("float16", 1 << 20),
+                ("int8", 1 << 20), ("uint8", 1 << 20), ("bool", 1 << 20),
+                ("int16", 2 << 20), ("int32", 4 << 20), ("int64", 4 << 20),
+                ("uint32", 3 << 20))
+# the trainer's data shards (``repro/launch/train.py``'s ``make_shards`` at
+# ``train_4k``'s batch 256 and sequence 4096): zipf tokens over the vocab
+SHARDS, SHARD_BATCH, SHARD_SEQ = 4, 256, 4096
+SHARD_TOKENS = SHARD_BATCH * (SHARD_SEQ + 1) * 4
+# the crash kills with card victims: (crash point, occurrence)
+CKPT_KILLS = (("ckpt.leaf", 3), ("ckpt.manifest", 1))
+CKPT_SAVE_KERNELS = ("float_split",)
+CKPT_RESTORE_KERNELS = ("float_merge",)
 
 
 def fail(msg: str) -> None:
@@ -2600,6 +2666,346 @@ def sessions_phase(cols, graph_calls, rt, ops):
     return totals
 
 
+def zipf_tokens(n: int, vocab: int, seed: int = 0, alpha: float = 1.2) -> np.ndarray:
+    """``repro/data/synthetic.py``'s ``zipf_tokens``, copied: zipf(``alpha``)
+    ranks over ``vocab`` with a light bigram structure, as int32."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = ranks**-alpha
+    probs /= probs.sum()
+    base = rng.choice(vocab, size=n, p=probs).astype(np.int32)
+    shift = rng.integers(0, 7, size=n).astype(np.int32)
+    out = (base + np.roll(base, 1) % 7 + shift) % vocab
+    return out.astype(np.int32)
+
+
+def llama_params(seed: int, device: str = "cuda") -> dict:
+    """The Llama-3.2-1B parameter tree of ``init_params`` (stacked layers,
+    tied embeddings), bfloat16 on ``device``: weights normal(0, 0.02) drawn
+    there from ``seed``, norms ones."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, dh, ff, n = LLAMA_D, LLAMA_D // LLAMA_HEADS, LLAMA_FF, LLAMA_LAYERS
+
+    def w(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device=device).normal_(
+            0.0, 0.02, generator=gen)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.bfloat16, device=device)
+
+    return {
+        "embed": w(LLAMA_VOCAB, d),
+        "final_norm": ones(d),
+        "layers": {
+            "attn_norm": ones(n, d), "mlp_norm": ones(n, d),
+            "wq": w(n, d, LLAMA_HEADS * dh), "wk": w(n, d, LLAMA_KV_HEADS * dh),
+            "wv": w(n, d, LLAMA_KV_HEADS * dh), "wo": w(n, LLAMA_HEADS * dh, d),
+            "w_gate": w(n, d, ff), "w_up": w(n, d, ff), "w_down": w(n, ff, d),
+        },
+    }
+
+
+def route_arrays(seed: int) -> dict:
+    """One array per dtype route of ``compress_leaf`` (``ROUTE_LEAVES``), made
+    from ``seed`` + 6: weights, masks, codes, counters, token ids, hashes."""
+    rng = np.random.default_rng(seed + 6)
+    out = {}
+    for name, nbytes in ROUTE_LEAVES:
+        n = nbytes // np.dtype(name).itemsize
+        if name.startswith("float"):
+            a = rng.normal(0.0, 0.02, n).astype(name)
+        elif name == "bool":
+            a = rng.random(n) < 0.1
+        elif name == "int8":
+            a = np.clip(np.rint(rng.normal(0.0, 20.0, n)), -128, 127).astype(np.int8)
+        elif name == "uint8":
+            a = np.clip(np.rint(rng.normal(7.5, 2.5, n)), 0, 15).astype(np.uint8)
+        elif name == "int16":
+            a = rng.integers(-1000, 1000, n).astype(np.int16)
+        elif name == "int32":
+            a = (np.minimum(rng.zipf(1.2, n), LLAMA_VOCAB) - 1).astype(np.int32)
+        elif name == "int64":
+            a = np.cumsum(rng.integers(0, 3, n)).astype(np.int64)
+        else:
+            a = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        out[name] = a
+    return out
+
+
+def checkpoint_phase(rt, ops, seed: int):
+    """The checkpoint leaf path, its manager and the shard store on the card:
+    two crash kills with card victims, spawned first and checked once the
+    CPU's frames are made (4 MiB slices of Llama-3.2-1B leaves, and the route
+    tree through ``save_checkpoint``); then the full Llama-3.2-1B bfloat16
+    tree through an async ``CheckpointManager`` with an in-place update
+    right after ``save()`` returns, from the default stream and from a side
+    stream, a synchronous save and restores, each held bit for bit (the
+    synchronous save and ``restore_or_none`` under torch.profiler, a save of
+    one 2^28-weight leaf and a restore under cProfile); and the trainer's
+    shards through
+    ``CompressedShardStore``.  The launch counts are reset just before and
+    read just after each save, restore and store call.  Returns each
+    kernel's launches summed over them."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from repro_torch.data import CompressedShardStore
+    from repro_torch.distributed import checkpoint as ck
+    from repro_torch.reliability import crashkill
+
+    totals = {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+
+    def counted(label, fn, need=(), profiled=False):
+        """``fn()`` on the card with its launches counted and printed; with
+        ``profiled``, under torch.profiler (``profile_device``)."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        if profiled:
+            _, out, dt = profile_device(f"checkpoint {label}", fn)
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        got = ops.launch_counts()
+        for k in totals:
+            totals[k] += got[k]
+        missing = [k for k in need if got[k] == 0]
+        if missing:
+            fail(f"checkpoint {label}: never launched {missing}")
+        print(f"checkpoint {label} launches {json.dumps({k: v for k, v in got.items() if v})}")
+        return out, dt
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def equal(got, want, flipped=False):
+        """Bit for bit; ``flipped``: ``got`` is ``want`` with every sign flipped."""
+        if got.device.type != "cuda" or got.dtype != want.dtype or got.shape != want.shape:
+            return False
+        g = bits(got)
+        return torch.equal(g ^ -32768 if flipped else g, bits(want))
+
+    def like_of(tree):
+        return {k: like_of(v) if isinstance(v, dict) else torch.empty_like(v, device="meta")
+                for k, v in tree.items()}
+
+    def check_tree(label, back, flat, flipped=False):
+        got = ck.flatten_tree(back)
+        if [k for k, _ in got] != [k for k, _ in flat]:
+            fail(f"checkpoint {label}: restored keys {[k for k, _ in got]}")
+        for (key, g), (_, w) in zip(got, flat):
+            if not equal(g, w, flipped):
+                fail(f"checkpoint {label}: leaf {key} differs")
+
+    # ---- (iv) crash kills with card victims, in the shadow of the CPU's frames
+    kill_dir = tempfile.TemporaryDirectory()
+
+    def kill(site):
+        point, occ = site
+        work = os.path.join(kill_dir.name, f"{point}_{occ}")
+        t0 = time.perf_counter()
+        rc = crashkill.run_kill("checkpoint", work, point, occ, "cuda")
+        return site, rc, work, time.perf_counter() - t0
+
+    victims = ThreadPoolExecutor(len(CKPT_KILLS))
+    kills = victims.map(kill, CKPT_KILLS)
+
+    # ---- (ii) the CPU's frames: 4 MiB slices of two leaves, the route tree
+    params = llama_params(seed)
+    tree = {"params": params}
+    like = {"params": like_of(params)}
+    flat = ck.flatten_tree(tree)
+    leaves = dict(flat)
+    raw_bytes = sum(t.numel() * t.element_size() for _, t in flat)
+    n_weights = sum(t.numel() for _, t in flat)
+    if LLAMA_LAYERS == 16 and n_weights != LLAMA_WEIGHTS:
+        fail(f"checkpoint: the Llama-3.2-1B tree holds {n_weights} weights")
+    print(f"checkpoint tree Llama-3.2-1B layers={LLAMA_LAYERS} leaves={len(flat)}"
+          f" weights={n_weights} bytes={raw_bytes}: "
+          + " ".join(f"{k}={tuple(t.shape)}" for k, t in flat))
+    t0 = time.perf_counter()
+    for key in CKPT_SLICED:
+        part = leaves[key].reshape(-1)[:CKPT_SLICE]
+        rt.resolve_cache_clear()
+        card = ck.compress_leaf(part)
+        rt.resolve_cache_clear()
+        if card != ck.compress_leaf(part.cpu(), device="cpu"):
+            fail(f"checkpoint {key}[:{CKPT_SLICE}]: the card's frame differs from the CPU's")
+        if not equal(ck.decompress_leaf(card, part.shape, "bfloat16"), part):
+            fail(f"checkpoint {key}[:{CKPT_SLICE}]: the frame does not decode to it on the card")
+        print(f"check checkpoint {key}[:{CKPT_SLICE}]: card frame == cpu frame"
+              f" ({len(card)} bytes, ratio {part.numel() * 2 / len(card)}), decoded on the card")
+    arrays = route_arrays(seed)
+    route = {name: torch.from_numpy(a).to("cuda") for name, a in arrays.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        rt.resolve_cache_clear()
+        manifest, t_route = counted("route save", lambda: ck.save_checkpoint(tmp, 1, route))
+        back, _ = ck.restore_checkpoint(tmp, 1)
+        step_dir = os.path.join(tmp, "step_0000000001")
+        for entry in manifest["leaves"]:
+            name = entry["key"]
+            rt.resolve_cache_clear()
+            cpu = ck.compress_leaf(torch.from_numpy(arrays[name]), device="cpu")
+            with open(os.path.join(step_dir, entry["file"]), "rb") as f:
+                if f.read() != cpu:
+                    fail(f"checkpoint route leaf {name}: the card's frame differs from the CPU's")
+            got = back[name]
+            if got.device.type != "cuda" or ck.dtype_name(got.dtype) != name or not torch.equal(
+                    got.cpu(), torch.from_numpy(arrays[name])):
+                fail(f"checkpoint route leaf {name}: the restore differs from the input")
+        print(f"check checkpoint route tree: {len(route)} leaves, each card frame == cpu frame"
+              f" and restored on the card; ratios "
+              + " ".join(f"{e['key']}={e['raw_bytes'] / e['compressed_bytes']}"
+                         for e in manifest["leaves"])
+              + f"; card save seconds={t_route}")
+    del route, back
+    print(f"checkpoint cpu frames seconds={time.perf_counter() - t0}")
+    for (point, occ), rc, work, dt in kills:
+        if rc != -signal.SIGKILL:
+            fail(f"checkpoint kill at {point}#{occ}: the card victim exited rc={rc}")
+        verdict = crashkill.check_invariants("checkpoint", work, "cuda")
+        if verdict != {"scenario": "checkpoint", "version": 0, "step": 1}:
+            fail(f"checkpoint kill at {point}#{occ}: {verdict}")
+        print(f"check checkpoint kill at {point}#{occ}: the card victim died by SIGKILL"
+              f" (rc={rc}, {dt} s); step 1 restored on the card intact, nothing"
+              f" half-published")
+    victims.shutdown()
+    kill_dir.cleanup()
+    print(f"checkpoint kills and cpu frames seconds={time.perf_counter() - t_phase}")
+
+    # ---- (i) the Llama-3.2-1B tree: async, synchronous, restores
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "ckpt")
+        mgr = ck.CheckpointManager(d, keep=2, async_save=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        # the snapshot's clones queue behind a device sleep: a save thread
+        # that did not wait for them would read the snapshot before it lands
+        torch.cuda._sleep(SIDE_SLEEP_CYCLES)
+        mgr.save(100, tree)
+        t_return = time.perf_counter() - t0
+        for _, t in flat:
+            t.neg_()  # the next train step's in-place update
+        mgr.wait()
+        torch.cuda.synchronize()
+        t_async = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        got = ops.launch_counts()
+        for k in totals:
+            totals[k] += got[k]
+        if not got["float_split"]:
+            fail("checkpoint async save: never launched float_split")
+        print(f"checkpoint async save 100 launches {json.dumps({k: v for k, v in got.items() if v})}")
+        sync = ck.CheckpointManager(d, keep=2)
+        _, t_sync = counted("save 200 (synchronous)", lambda: sync.save(200, tree),
+                            CKPT_SAVE_KERNELS, profiled=True)
+        m200 = sync.history[-1]
+        out, t_restore = counted("restore_or_none", lambda: mgr.restore_or_none(like),
+                                 CKPT_RESTORE_KERNELS, profiled=True)
+        step, back, _ = out
+        if step != 200:
+            fail(f"checkpoint restore_or_none: step {step}, not 200")
+        check_tree("restore_or_none step 200", back, flat)
+        del out, back
+        out, t_restore100 = counted("restore_tree 100", lambda: ck.restore_tree(d, like, 100),
+                                    CKPT_RESTORE_KERNELS)
+        check_tree("restore_tree step 100 (saved before the update)", out[0], flat, flipped=True)
+        del out
+        print(f"check checkpoint Llama-3.2-1B: step 200 restored on the card equal bit for bit;"
+              f" step 100, saved async before the in-place update, equal to the tree before it;"
+              f" steps kept {sorted(os.listdir(d))}")
+
+        # the same from a side stream, the update queued there
+        side_dir = os.path.join(tmp, "side")
+        side_mgr = ck.CheckpointManager(side_dir, keep=1, async_save=True)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(SIDE_SLEEP_CYCLES)
+            side_mgr.save(300, tree)
+            for _, t in flat:
+                t.neg_()
+        side_mgr.wait()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        t_side = time.perf_counter() - t0
+        got = ops.launch_counts()
+        for k in totals:
+            totals[k] += got[k]
+        back, _ = profile_host("checkpoint restore_tree (Llama-3.2-1B)",
+                               lambda: ck.restore_tree(side_dir, like, 300))
+        check_tree("side-stream async save 300", back, flat, flipped=True)
+        del back
+        print(f"check checkpoint side stream: step 300, saved async from a side stream"
+              f" before the update queued there, equal to the tree before it;"
+              f" seconds={t_side}")
+
+        # the host's share of a save, on one 2^28-weight leaf (a fifth of it)
+        profile_host(f"checkpoint save_checkpoint (synchronous, {CKPT_HOST_LEAF})",
+                     lambda: ck.save_checkpoint(os.path.join(tmp, "prof"), 400,
+                                                {CKPT_HOST_LEAF: leaves[CKPT_HOST_LEAF]}))
+        mb = raw_bytes / 1e6
+        print(f"checkpoint Llama-3.2-1B bytes={raw_bytes} ratio={m200['ratio']}"
+              f" compressed_bytes={m200['compressed_bytes']}"
+              f" async_save_return_seconds={t_return} async_save_seconds={t_async}"
+              f" async_save_MBps={mb / t_async} sync_save_seconds={t_sync} (profiled)"
+              f" sync_save_MBps={mb / t_sync} restore_seconds={t_restore} (profiled)"
+              f" restore_MBps={mb / t_restore} restore_tree_seconds={t_restore100}"
+              f" restore_tree_MBps={mb / t_restore100} side_stream_async_save_seconds={t_side}"
+              f" (reads warm from the page cache)")
+        print("checkpoint leaf ratios: " + " ".join(
+            f"{e['key']}={e['raw_bytes'] / e['compressed_bytes']}" for e in m200["leaves"]))
+        print(f"checkpoint memory: resident tree {resident} bytes, peak allocated during the"
+              f" async save {peak}, snapshot {raw_bytes} ({raw_bytes / peak} of the peak)")
+    del like
+
+    # ---- (iii) the trainer's data shards
+    tokens = [zipf_tokens(SHARD_TOKENS, LLAMA_VOCAB, seed=seed + i) for i in range(SHARDS + 1)]
+    want = [tokens[SHARDS]] + tokens[1:SHARDS]  # shard 0 rewritten
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CompressedShardStore(tmp)
+        _, t_write = counted("shard write", lambda: [
+            store.write_shard(i, {"tokens": torch.from_numpy(tokens[i]).to("cuda")})
+            for i in range(SHARDS)])
+        _, t_rewrite = counted("shard rewrite", lambda: store.write_shard(
+            0, {"tokens": torch.from_numpy(tokens[SHARDS]).to("cuda")}))
+        read, t_read = counted("shard read", lambda: [store.read_shard(i)
+                                                     for i in store.shard_ids()])
+        for i, shard in enumerate(read):
+            got = shard["tokens"]
+            if got.device.type != "cuda" or not torch.equal(
+                    got, torch.from_numpy(want[i]).to("cuda")):
+                fail(f"checkpoint shard {i}: read back differs")
+        if store.shard_ids() != list(range(SHARDS)) or any(
+                n.endswith(".tmp") for n in os.listdir(tmp)):
+            fail(f"checkpoint shards: the store holds {sorted(os.listdir(tmp))}")
+        nbytes = SHARDS * SHARD_TOKENS * 4
+        print(f"check checkpoint shards: {SHARDS} shards of {SHARD_TOKENS} zipf tokens (vocab"
+              f" {LLAMA_VOCAB}), shard 0 rewritten, read back on the card equal; stats"
+              f" {store.stats()} write_MBps={nbytes / t_write / 1e6} seconds={t_write}"
+              f" rewrite_seconds={t_rewrite} read_MBps={nbytes / t_read / 1e6}"
+              f" seconds={t_read}")
+    del read
+
+    print(f"checkpoint sessions {json.dumps(ck.codec_session_stats())}")
+    ck.close_codec_sessions()
+    print(f"checkpoint launches {json.dumps(totals)}")
+    print(f"checkpoint phase seconds={time.perf_counter() - t_phase}")
+    return totals
+
+
 def graph_edges(rt) -> None:
     """The graph edge corpus (``GRAPH_EDGES``) through its profiles on the
     card: each frame equals the CPU's and decodes on the card to its file."""
@@ -2792,9 +3198,17 @@ def profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls,
 
 
 def profile_call(label: str, fn) -> dict:
-    import cProfile
-    import pstats
+    """``fn`` once under ``profile_device`` and once under ``profile_host``
+    -> the port's kernels' device ms."""
+    ours, _, _ = profile_device(label, fn)
+    profile_host(label, fn)
+    return ours
 
+
+def profile_device(label: str, fn):
+    """One call of ``fn`` under torch.profiler: prints its wall ms, the card's
+    busy ms and idle share, the top device rows and the port's kernels' ms
+    -> (kernels' ms, ``fn()``'s result, wall seconds)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2802,7 +3216,7 @@ def profile_call(label: str, fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels and copies as the card ran them (op-level rows would count the
@@ -2828,9 +3242,20 @@ def profile_call(label: str, fn) -> dict:
     print(f"profile {label}: wall_ms={wall_ms} device_busy_ms={busy_ms}"
           f" idle_share={1 - busy_ms / wall_ms} top_device_ms: {top}"
           f" port_kernels_ms: {json.dumps(ours)}")
+    return ours, out, wall_ms / 1e3
+
+
+def profile_host(label: str, fn):
+    """One call of ``fn`` under cProfile: prints the host's top functions by
+    self ms and the named host stages' cumulative ms -> ``fn()``'s result."""
+    import cProfile
+    import pstats
+
+    import torch
+
     host = cProfile.Profile()
     host.enable()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
     host.disable()
     stats = pstats.Stats(host).stats  # (file, line, name) -> (cc, nc, tottime, cumtime, ..)
@@ -2842,7 +3267,7 @@ def profile_call(label: str, fn) -> dict:
     print(f"profile {label} host_self_ms: "
           + ", ".join(f"{name}={ms:.1f}" for ms, name in rows[:8])
           + f" host_cumulative_ms: {json.dumps(cum)}")
-    return ours
+    return out
 
 
 def nvidia_smi(query: str) -> str:
@@ -2894,6 +3319,7 @@ def main() -> None:
     csv_calls, csv_launches = csv_phase(rt, ops, args.seed)
     graph_calls, graph_launches = graph_phase(rt, ops, args.seed)
     sessions_launches = sessions_phase(cols, graph_calls, rt, ops)
+    checkpoint_launches = checkpoint_phase(rt, ops, args.seed)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
@@ -2901,6 +3327,7 @@ def main() -> None:
         r["csv_launches"] = csv_launches[r["name"]]
         r["graph_launches"] = graph_launches[r["name"]]
         r["sessions_launches"] = sessions_launches[r["name"]]
+        r["checkpoint_launches"] = checkpoint_launches[r["name"]]
     level_phase(cols, rt, ops)
     profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
     identity = nvidia_smi("name,power.limit")

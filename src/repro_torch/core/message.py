@@ -140,6 +140,11 @@ class Stream:
         """Raw little-endian bytes of the payload, copied to the host."""
         return self.raw().cpu().numpy().tobytes()
 
+    def as_serial(self) -> "Stream":
+        """The content as opaque bytes (a lossless view change): a SERIAL
+        stream over :meth:`raw`, on the stream's device, with no host trip."""
+        return Stream(self.raw(), SType.SERIAL, 1)
+
     def numpy(self) -> np.ndarray:
         """Host copy with the reference's dtype (unsigned for NUMERIC)."""
         arr = self.data.cpu().numpy()

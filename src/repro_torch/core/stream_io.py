@@ -19,9 +19,12 @@ source of unknown size (a pipe) gets a container whose count is backpatched
 Path destinations are written through :func:`_atomic_sink`: staged in a
 temporary file beside the destination, fsynced, moved over it with
 ``os.replace`` and the directory fsynced, so ``compress_file(f, f)`` reads
-the intact source and an error never leaves a partial output.  (The
-reference's crash and I/O fault seams come with the port's reliability
-slice.)
+the intact source and an error never leaves a partial output.  The sink
+and the sources carry the reference's fault seams: the sink's writes hit
+``io.sink.write`` and a source's reads ``io.src.read``
+(:func:`~repro_torch.reliability.faults.wrap_io`, a pass-through unless a
+plan is armed), and ``sink.replace.before`` and ``sink.replace.after`` are
+crash points around the publishing ``os.replace``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import BinaryIO, Iterator, Optional, Union
 
 import torch
 
+from ..reliability.faults import crash_point, wrap_io
 from .engine import (
     CompressionCtx,
     CompressorSession,
@@ -129,10 +133,12 @@ def _atomic_sink(dst: PathOrFile):
         # read and write: the unknown-count container backpatches its count
         # and re-reads its body for the CRC trailer
         with os.fdopen(fd, "r+b") as f:
-            yield f
+            yield wrap_io(f, "io.sink")
             f.flush()
             os.fsync(f.fileno())
+        crash_point("sink.replace.before")
         os.replace(tmp, final)
+        crash_point("sink.replace.after")
         _fsync_dir(final.parent)
     except BaseException:
         try:
@@ -230,6 +236,7 @@ def compress_file(
         )
     try:
         with _open(src, "rb") as fin, _atomic_sink(dst) as fout:
+            fin = wrap_io(fin, "io.src")
             if not chunk_bytes:
                 return _bare(session, fout, serial(fin.read()))
             size = _input_size(fin)
@@ -291,7 +298,7 @@ def decompress_file(
     try:
         bytes_out = chunks = 0
         with _open(src, "rb") as fin, _atomic_sink(dst) as fout:
-            counted = _CountingReader(fin)
+            counted = _CountingReader(wrap_io(fin, "io.src"))
             for s in session.iter_frames(counted):
                 payload = s.content_bytes()
                 fout.write(payload)

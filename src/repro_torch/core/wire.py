@@ -374,12 +374,13 @@ class ContainerWriter:
             raise ValueError("container chunks must be single frames (no nesting)")
         if self._expect is not None and self._written >= self._expect:
             raise ValueError(f"more than the promised {self._expect} chunks")
-        head = bytearray()
-        write_varint(head, len(frame))
-        self._crc = zlib.crc32(frame, zlib.crc32(head, self._crc))
-        self._out.write(bytes(head))
-        self._out.write(frame)
-        self.bytes_written += len(head) + len(frame)
+        piece = bytearray()
+        write_varint(piece, len(frame))
+        piece += frame
+        self._crc = zlib.crc32(piece, self._crc)
+        # one write a chunk, as the reference's: its sink seam counts writes
+        self._out.write(piece)
+        self.bytes_written += len(piece)
         self._written += 1
 
     def close(self) -> int:

@@ -1,0 +1,2 @@
+"""repro_torch.distributed -- the port's checkpointing of torch tensor
+trees (``repro_torch.distributed.checkpoint``)."""

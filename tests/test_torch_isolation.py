@@ -55,10 +55,21 @@ def test_the_scan_covers_the_container_slices_modules():
         assert port / rel in PORT_FILES
 
 
+def test_the_scan_covers_the_checkpoint_slices_subpackages():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("reliability/__init__.py", "reliability/faults.py",
+                "reliability/crashkill.py", "reliability/_victim.py",
+                "distributed/__init__.py", "distributed/checkpoint.py",
+                "data/__init__.py", "data/shard_store.py"):
+        assert port / rel in PORT_FILES
+
+
 def test_importing_the_port_loads_nothing_forbidden_and_no_cuda():
     code = (
         "import sys, torch, repro_torch, repro_torch.codecs, repro_torch.kernels.ops,"
-        " repro_torch.kernels._build, repro_torch.core.stream_io\n"
+        " repro_torch.kernels._build, repro_torch.core.stream_io,"
+        " repro_torch.reliability.crashkill, repro_torch.distributed.checkpoint,"
+        " repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad, torch.cuda.is_initialized())\n" % (FORBIDDEN,)
     )
