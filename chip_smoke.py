@@ -246,7 +246,37 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              merge); save and restore seconds and MB/s, the manifest's and
              each leaf's ratio, the peak allocated card memory with the
              snapshot's share, the sessions' counters.
-11. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
+11. cli     — the command line (``repro_torch.cli``, ``python -m
+             repro_torch``) on the card, after the checkpoint phase, on files
+             in a temporary directory, each in-process ``cli.main(argv)``
+             call with the launch counts reset before and read after it and
+             timed on the host clock: column A (64 MiB) on the CLI's defaults
+             (``generic``, 4 MiB chunks: 16 chunks; its chunks choose the
+             host's ``zlib_backend``, so the decode may launch nothing)
+             through ``compress``, ``inspect`` (no launch) and
+             ``decompress``, equal to A; A through ``--profile struct:8``
+             on the defaults, a kernel launched each way; A's 4 MiB prefix
+             at 1 MiB chunks equal to ``--device cpu``'s container, the
+             resolve cache emptied before each side.  C1 and C2 (the CSV
+             phase's files) through the trained plan files
+             ``results/trained/ppmf_person_7.ozp`` and ``psam_h_3.ozp`` with
+             ``--chunk-bytes 0`` and back, equal to the input; a lower point
+             of the family where the card and the CPU both refuse the file
+             (printed); the row-aligned prefix of at most 4 MiB equal to
+             ``Compressor.deserialize(blob).compress(..., device="cpu")``.
+             Salvage: A through ``struct:8`` at 1 MiB chunks (64), one byte
+             flipped in the middle of chunks 7, 8 and 40: ``inspect
+             --verify`` exits 1 and prints 61/64 recovered and 7..8, 40 (0
+             on the intact container), ``decompress`` exits 2 and leaves no
+             output, ``decompress --salvage`` exits 1 with A without the
+             three chunks, decoded on the card (0 and A itself from the
+             intact container).  Every tracked ``.ozp`` (``tests/golden``,
+             ``results/trained``: 104) read and written byte for byte with
+             ``msgpack`` never imported.  Two ``python -m repro_torch``
+             children (C2's compress and decompress through its plan) exit 0
+             with files equal to the in-process calls', their wall seconds
+             printed.
+12. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -256,18 +286,18 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-12. profile — one more compress and one decompress per plan and column under
+13. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
              the records phase's, the CSV phase's and the graph phase's calls.
-13. identity — the card's name and power limit.
+14. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
 ``records_launches``, ``csv_launches``, ``graph_launches``,
-``sessions_launches`` and ``checkpoint_launches``), the
+``sessions_launches``, ``checkpoint_launches`` and ``cli_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -562,6 +592,15 @@ SHARD_TOKENS = SHARD_BATCH * (SHARD_SEQ + 1) * 4
 # the crash kills with card victims: (crash point, occurrence)
 CKPT_KILLS = (("ckpt.leaf", 3), ("ckpt.manifest", 1))
 CKPT_SAVE_KERNELS = ("float_split",)
+# the cli phase: (CSV_CALLS label, trained plan family, point) through --plan
+CLI_TRAINED = (("C1", "ppmf_person", 7), ("C2", "psam_h", 3))
+CLI_SALVAGE_CHUNK_BYTES = 1 << 20
+# A's bytes as 8-byte records (field_split, then delta + transpose + zlib on
+# the card): the generic default codes them with zlib alone, which decodes on
+# the host, so the salvage case and the kernels-each-way check use this
+CLI_RECORD_PROFILE = "struct:8"
+CLI_DAMAGED = (7, 8, 40)  # the chunks damaged for salvage, as tests/test_salvage.py's
+PLAN_FILES = 104  # the tracked .ozp files of tests/golden and results/trained
 CKPT_RESTORE_KERNELS = ("float_merge",)
 
 
@@ -3006,6 +3045,286 @@ def checkpoint_phase(rt, ops, seed: int):
     return totals
 
 
+def cli_phase(cols, csv_calls, rt, ops):
+    """The command line on the card (``repro_torch.cli``), after the checkpoint
+    phase, on files in a temporary directory: column A on the CLI's defaults
+    (compress, inspect, decompress; a 4 MiB prefix at 1 MiB chunks equal to
+    ``--device cpu``'s container), C1 and C2 through trained plan files,
+    salvage and verify of A's 1 MiB-chunk container with chunks 7, 8 and 40
+    damaged, every tracked plan file read and written without ``msgpack``,
+    and two ``python -m repro_torch`` children.  Each in-process call runs
+    through ``cli.main(argv)`` with the launch counts reset just before and
+    read just after it.  Returns each kernel's launches summed over them."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+
+    import torch
+    from repro_torch import cli
+    from repro_torch.core import serialize, wire
+
+    totals = {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+
+    def run(label, argv, rc_want=(0,), launch=True):
+        """``cli.main(argv)`` on the card, timed on the host clock to a
+        synchronize -> (exit code, stdout, stderr, seconds, launches).
+        ``launch``: True, a kernel must launch; False, none may; None, either."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+        except SystemExit as e:
+            fail(f"cli {label}: exited with {e}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = ops.launch_counts()
+        for k in totals:
+            totals[k] += got[k]
+        if rc not in rc_want:
+            fail(f"cli {label}: exit code {rc}, expected {rc_want}: {err.getvalue().strip()}")
+        launched = {k: v for k, v in got.items() if v}
+        if launch is True and not launched:
+            fail(f"cli {label}: launched no kernel")
+        if launch is False and launched:
+            fail(f"cli {label}: launched {launched}, expected none")
+        return rc, out.getvalue(), err.getvalue(), dt, launched
+
+    def report(label, raw, packed, dt, stdout, launched):
+        """The call's line: raw and packed bytes, ratio, MB/s of the raw bytes,
+        chunks as the CLI printed them, launches."""
+        m = re.search(r"(\d+) chunk\(s\)", stdout)
+        print(f"cli {label}: raw_bytes={raw} packed_bytes={packed} ratio={raw / max(packed, 1)}"
+              f" MBps={raw / dt / 1e6} seconds={dt} chunks={m.group(1) if m else None}"
+              f" launches={json.dumps(launched)}")
+
+    def slurp(path) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    def same_file(path, want: bytes) -> bool:
+        return slurp(path) == want
+
+    def chunk_spans(blob: bytes):
+        n, pos = wire.read_varint(blob, 5)
+        spans = []
+        for _ in range(n):
+            ln, pos = wire.read_varint(blob, pos)
+            spans.append((pos, pos + ln))
+            pos += ln
+        return spans
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+
+        # 1. A on the CLI's defaults: generic, 4 MiB chunks, the card
+        a = cols["A_timestamps_i64"].tobytes()
+        with open(at("A.bin"), "wb") as f:
+            f.write(a)
+        _, out, _, dt, launched = run("compress A", ["compress", at("A.bin")])
+        if f"{len(a) // CHUNK_BYTES} chunk(s), container" not in out:
+            fail(f"cli compress A: {out.strip()}")
+        packed = os.path.getsize(at("A.bin.ozl"))
+        report("compress A (defaults)", len(a), packed, dt, out, launched)
+        _, out, _, dt, _ = run("inspect A", ["inspect", at("A.bin.ozl")], launch=False)
+        if f"container: {len(a) // CHUNK_BYTES} chunk(s)" not in out:
+            fail(f"cli inspect A: {out.strip()}")
+        print(f"cli inspect A: seconds={dt} lines={len(out.splitlines())} launches={{}}")
+        # the generic profile codes A's raw bytes with the host's zlib_backend
+        # alone, whose decode launches nothing
+        _, out, _, dt, launched = run("decompress A", ["decompress", at("A.bin.ozl"), "-o",
+                                                       at("A.out")], launch=None)
+        if not same_file(at("A.out"), a):
+            fail("cli decompress A: the output differs from A")
+        report("decompress A", len(a), packed, dt, out, launched)
+        # A as 8-byte records, on the default chunks: delta and byte shuffle
+        # each way on the card
+        _, out, _, dt, launched = run("compress A struct", [
+            "compress", at("A.bin"), "-o", at("A.struct.ozl"), "--profile", CLI_RECORD_PROFILE])
+        packed = os.path.getsize(at("A.struct.ozl"))
+        report(f"compress A --profile {CLI_RECORD_PROFILE}", len(a), packed, dt, out, launched)
+        _, out, _, dt, launched = run("decompress A struct", [
+            "decompress", at("A.struct.ozl"), "-o", at("A.struct.out")])
+        if not same_file(at("A.struct.out"), a):
+            fail(f"cli decompress A --profile {CLI_RECORD_PROFILE}: the output differs from A")
+        report(f"decompress A --profile {CLI_RECORD_PROFILE}", len(a), packed, dt, out, launched)
+        with open(at("A4.bin"), "wb") as f:
+            f.write(a[:PREFIX_BYTES])
+        rt.resolve_cache_clear()
+        run("compress A 4 MiB", ["compress", at("A4.bin"), "-o", at("A4.card.ozl"),
+                                 "--chunk-bytes", str(PREFIX_CHUNK_BYTES)])
+        rt.resolve_cache_clear()
+        run("compress A 4 MiB on the cpu", ["compress", at("A4.bin"), "-o", at("A4.cpu.ozl"),
+                                            "--chunk-bytes", str(PREFIX_CHUNK_BYTES),
+                                            "--device", "cpu"], launch=False)
+        card = slurp(at("A4.card.ozl"))
+        if not same_file(at("A4.cpu.ozl"), card) or card[:4] != wire.CONTAINER_MAGIC:
+            fail("cli compress A 4 MiB: the card's container differs from the CPU's")
+        print(f"check cli A: {len(a) // CHUNK_BYTES} chunks on the defaults, decoded on the card equal to A,"
+              f" inspect launched nothing; the 4 MiB prefix's card container =="
+              f" --device cpu's ({len(card)} bytes, {PREFIX_BYTES // PREFIX_CHUNK_BYTES} chunks);"
+              f" --profile {CLI_RECORD_PROFILE} launched kernels each way")
+
+        # 2. C1 and C2 through trained plan files, one frame each
+        raws = {label: stream.content_bytes() for label, _n, _p, stream, *_ in csv_calls}
+        chosen = {}
+        for label, family, point in CLI_TRAINED:
+            raw = raws[label]
+            src = at(f"{label}.csv")
+            with open(src, "wb") as f:
+                f.write(raw)
+            for p in range(point, -1, -1):
+                plan_path = os.path.join(HERE, "results", "trained", f"{family}_{p}.ozp")
+                rc, out, err, dt, launched = run(
+                    f"compress {label}", ["compress", src, "--plan", plan_path,
+                                          "--chunk-bytes", "0"], rc_want=(0, 2), launch=None)
+                if rc == 0:
+                    break
+                if not err.startswith("error (ValueError)"):
+                    fail(f"cli compress {label} --plan {family}_{p}: {err.strip()}")
+                comp = rt.Compressor.deserialize(slurp(plan_path), device="cpu")
+                try:
+                    comp.compress(rt.serial(raw), chunk_bytes=0)
+                except ValueError:
+                    print(f"cli {label}: plan {family}_{p} refuses the full file on the card"
+                          f" and on the CPU: {err.strip()}")
+                    continue
+                fail(f"cli compress {label} --plan {family}_{p}: the card refused ({err.strip()})"
+                     " where the CPU accepts")
+            else:
+                fail(f"cli {label}: no {family} plan accepts the full file")
+            if not launched:
+                fail(f"cli compress {label}: launched no kernel")
+            ozl = src + ".ozl"
+            packed = os.path.getsize(ozl)
+            report(f"compress {label} --plan {family}_{p}", len(raw), packed, dt, out, launched)
+            _, out, _, dt, launched = run(f"decompress {label}",
+                                          ["decompress", ozl, "-o", at(f"{label}.out")])
+            if not same_file(at(f"{label}.out"), raw):
+                fail(f"cli decompress {label}: the output differs from the input")
+            report(f"decompress {label}", len(raw), packed, dt, out, launched)
+            prefix = raw[: raw.rfind(b"\n", 0, PREFIX_BYTES) + 1]
+            with open(at(f"{label}4.csv"), "wb") as f:
+                f.write(prefix)
+            rt.resolve_cache_clear()
+            run(f"compress {label} prefix", ["compress", at(f"{label}4.csv"), "--plan", plan_path,
+                                             "--chunk-bytes", "0"], launch=None)
+            comp = rt.Compressor.deserialize(slurp(plan_path))
+            rt.resolve_cache_clear()
+            if not same_file(at(f"{label}4.csv.ozl"),
+                             comp.compress(rt.serial(prefix), device="cpu", chunk_bytes=0)):
+                fail(f"cli {label}: the prefix's card frame differs from the CPU's")
+            print(f"check cli {label}: --plan {family}_{p} decoded on the card equal to the"
+                  f" file; the {len(prefix)}-byte prefix's card frame == the CPU's"
+                  f" Compressor.deserialize(...).compress frame; codecs"
+                  f" {frame_codecs(rt, slurp(ozl))}")
+            chosen[label] = (plan_path, ozl, raw)
+
+        # 3. salvage and verify on the card
+        _, out, _, dt, launched = run("compress A 1 MiB", [
+            "compress", at("A.bin"), "-o", at("A1.ozl"), "--profile", CLI_RECORD_PROFILE,
+            "--chunk-bytes", str(CLI_SALVAGE_CHUNK_BYTES)])
+        blob = slurp(at("A1.ozl"))
+        spans = chunk_spans(blob)
+        n_chunks = len(a) // CLI_SALVAGE_CHUNK_BYTES
+        if len(spans) != n_chunks:
+            fail(f"cli compress A 1 MiB: {len(spans)} chunks, expected {n_chunks}")
+        report("compress A 1 MiB", len(a), len(blob), dt, out, launched)
+        bad = bytearray(blob)
+        for i in CLI_DAMAGED:
+            lo, hi = spans[i]
+            bad[(lo + hi) // 2] ^= 0xFF
+        with open(at("A1bad.ozl"), "wb") as f:
+            f.write(bad)
+        _, out, _, dt, _ = run("verify A", ["inspect", at("A1.ozl"), "--verify"], launch=False)
+        if f"{n_chunks}/{n_chunks} recovered" not in out:
+            fail(f"cli inspect --verify A: {out.strip()}")
+        _, out, _, dt_verify, _ = run("verify damaged A", ["inspect", at("A1bad.ozl"), "--verify"],
+                                      rc_want=(1,), launch=False)
+        if f"{n_chunks - 3}/{n_chunks} recovered" not in out or "7..8, 40" not in out:
+            fail(f"cli inspect --verify damaged A: {out.strip()}")
+        print(f"cli verify: intact seconds={dt}, damaged seconds={dt_verify}: {out.strip()}")
+        _, _, err, dt, _ = run("decompress damaged A", ["decompress", at("A1bad.ozl"), "-o",
+                                                        at("Abad.out")], rc_want=(2,), launch=None)
+        if os.path.exists(at("Abad.out")) or any(n.endswith(".tmp") for n in os.listdir(tmp)):
+            fail("cli decompress damaged A: left an output behind")
+        print(f"cli decompress damaged A: exit 2 in {dt} s, no output: {err.strip()}")
+        _, out, _, dt, launched = run("salvage A", ["decompress", at("A1bad.ozl"), "-o",
+                                                    at("Asalv.out"), "--salvage"], rc_want=(1,))
+        want = b"".join(a[i * CLI_SALVAGE_CHUNK_BYTES: (i + 1) * CLI_SALVAGE_CHUNK_BYTES]
+                        for i in range(n_chunks) if i not in CLI_DAMAGED)
+        if not same_file(at("Asalv.out"), want):
+            fail("cli decompress --salvage: the output is not A without chunks 7, 8 and 40")
+        report("salvage A (61 of 64 chunks)", len(want), len(bad), dt, out, launched)
+        _, out, _, dt, launched = run("salvage intact A", ["decompress", at("A1.ozl"), "-o",
+                                                           at("Aok.out"), "--salvage"])
+        if not same_file(at("Aok.out"), a):
+            fail("cli decompress --salvage of the intact container: the output differs from A")
+        report("salvage intact A", len(a), len(blob), dt, out, launched)
+        print(f"check cli salvage: verify exits 0 intact and 1 damaged ({n_chunks - 3}/{n_chunks}"
+              " recovered, damaged 7..8, 40); decompress fails closed (exit 2, no output);"
+              " --salvage exits 1 with A without chunks 7, 8, 40 decoded on the card, and 0"
+              " with A from the intact container")
+
+        # 4. every tracked plan file, without msgpack
+        t0 = time.perf_counter()
+        paths = (sorted(glob.glob(os.path.join(HERE, "tests", "golden", "*.ozp")))
+                 + sorted(glob.glob(os.path.join(HERE, "results", "trained", "*.ozp"))))
+        with_knobs = 0
+        for path in paths:
+            blob = slurp(path)
+            plan, meta = serialize.deserialize_plan(blob)
+            if serialize.serialize_plan(plan, meta["name"], format_version=meta.get("format_version"),
+                                        level=meta.get("level")) != blob:
+                fail(f"cli plan files: {path} does not re-serialize to its bytes")
+            again = rt.Compressor.deserialize(blob).serialize()
+            if rt.Compressor.deserialize(again).serialize() != again:
+                fail(f"cli plan files: {path} is no fixed point of Compressor.serialize")
+            if "format_version" in meta and "level" in meta:
+                with_knobs += 1
+                if again != blob:
+                    fail(f"cli plan files: Compressor.serialize of {path} differs from it")
+            serialize.plan_digest(plan, format_version=meta.get("format_version"),
+                                  level=meta.get("level"))
+        if len(paths) != PLAN_FILES or "msgpack" in sys.modules:
+            fail(f"cli plan files: {len(paths)} files (expected {PLAN_FILES}); msgpack loaded:"
+                 f" {'msgpack' in sys.modules}")
+        print(f"check cli plan files: {len(paths)} .ozp files read and written byte for byte"
+              f" without msgpack ({with_knobs} carry format_version and level, and"
+              f" Compressor.deserialize(blob).serialize() gives their bytes; the rest gain"
+              f" the two knobs); seconds={time.perf_counter() - t0}")
+
+        # 5. two children: python -m repro_torch, each with its import and CUDA context
+        plan_path, ozl, raw = chosen["C2"]
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        for argv, check, what in (
+                (["compress", at("C2.csv"), "--plan", plan_path, "--chunk-bytes", "0", "-o",
+                  at("C2.child.ozl")], at("C2.child.ozl"), slurp(ozl)),
+                (["decompress", at("C2.child.ozl"), "-o", at("C2.child.out")],
+                 at("C2.child.out"), raw)):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "repro_torch", *argv], capture_output=True,
+                               text=True, env=env, timeout=600)
+            dt = time.perf_counter() - t0
+            if r.returncode:
+                fail(f"cli child {argv[0]}: exit {r.returncode}: {r.stderr.strip()[-2000:]}")
+            if not same_file(check, what):
+                fail(f"cli child {argv[0]}: its file differs from the in-process call's")
+            print(f"cli child {argv[0]} C2: wall_seconds={dt} (import, CUDA context and the"
+                  f" call): {r.stdout.strip()}")
+        print("check cli children: python -m repro_torch compress and decompress exit 0,"
+              " their files equal the in-process calls'")
+
+    print(f"cli launches {json.dumps(totals)}")
+    print(f"cli phase seconds={time.perf_counter() - t_phase}")
+    return totals
+
+
 def graph_edges(rt) -> None:
     """The graph edge corpus (``GRAPH_EDGES``) through its profiles on the
     card: each frame equals the CPU's and decodes on the card to its file."""
@@ -3320,6 +3639,7 @@ def main() -> None:
     graph_calls, graph_launches = graph_phase(rt, ops, args.seed)
     sessions_launches = sessions_phase(cols, graph_calls, rt, ops)
     checkpoint_launches = checkpoint_phase(rt, ops, args.seed)
+    cli_launches = cli_phase(cols, csv_calls, rt, ops)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
@@ -3328,6 +3648,7 @@ def main() -> None:
         r["graph_launches"] = graph_launches[r["name"]]
         r["sessions_launches"] = sessions_launches[r["name"]]
         r["checkpoint_launches"] = checkpoint_launches[r["name"]]
+        r["cli_launches"] = cli_launches[r["name"]]
     level_phase(cols, rt, ops)
     profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
     identity = nvidia_smi("name,power.limit")

@@ -25,6 +25,9 @@ Entry points::
     with CompressorSession(generic_profile(), chunk_bytes=4 << 20) as session:
         frame = session.compress(serial(blob))   # chunks encoded on a pool
     stream_io.compress_file("in.bin", "out.ozl", generic_profile())  # repro_torch.core.stream_io
+    comp = Compressor.deserialize(open("plan.ozp", "rb").read())  # a trained .ozp plan file
+    frame = comp.compress(serial(csv_file), chunk_bytes=0)
+    # the command line: python -m repro_torch compress F [--plan P.ozp] [--device cpu]
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
@@ -40,7 +43,10 @@ the reference's.  The chunks are encoded in parallel on a session's pool
 (``CompressorSession``, ``DecompressorSession``); ``compress_file`` and
 ``decompress_file`` (``repro_torch.core.stream_io``) stream files and pipes
 through them.  Resolutions are memoized (``resolve_cache_info``) and coder
-tables too (``coder_cache_info``), as the reference's are.
+tables too (``coder_cache_info``), as the reference's are.  ``Compressor``
+reads and writes ``.ozp`` plan files without ``msgpack``
+(``repro_torch.core.serialize``), and ``python -m repro_torch`` is the
+command line (``repro_torch.cli``).
 """
 from .codecs.profiles import (  # noqa: F401
     SAO_FIELDS,
@@ -66,6 +72,7 @@ from .codecs.coder_cache import (  # noqa: F401
 )
 from .core import (  # noqa: F401
     CompressionCtx,
+    Compressor,
     CompressorSession,
     DecompressorSession,
     GraphBuilder,
@@ -75,12 +82,15 @@ from .core import (  # noqa: F401
     SType,
     compress,
     decompress,
+    deserialize_plan,
     numeric,
     pipeline,
+    plan_digest,
     plan_from_dict,
     resolve_cache_clear,
     resolve_cache_info,
     serial,
+    serialize_plan,
     strings,
     struct,
 )

@@ -2,6 +2,7 @@
 and the two-phase engine."""
 from .engine import (  # noqa: F401
     CompressionCtx,
+    Compressor,
     CompressorSession,
     DecompressorSession,
     ExecScratch,
@@ -15,3 +16,4 @@ from .engine import (  # noqa: F401
 )
 from .graph import GraphBuilder, Plan, pipeline, plan_from_dict  # noqa: F401
 from .message import Stream, SType, numeric, serial, strings, struct  # noqa: F401
+from .serialize import deserialize_plan, plan_digest, serialize_plan  # noqa: F401

@@ -44,8 +44,13 @@ every codec's decoder there in reverse topological order — no parameters and
 no selectors.  A container's chunks decode on the pool and join with one
 ``torch.cat`` on the device.
 
-Not yet ported: ``decompress_salvage`` (the salvage slice) and the
-reference's ``Compressor`` facade (it serializes plan files).
+:class:`Compressor` is the deployable facade: a plan with its format version,
+level, device and chunking, which serializes to the ``.ozp`` plan file
+(``core/serialize.py``).  ``DecompressorSession.decompress_salvage`` is the
+recovery decoder over ``wire.salvage_container``: every CRC-valid chunk of a
+damaged container decodes on the session's device.  It catches only a
+codec's ``ValueError`` (``FrameError`` is one) as damage, never a kernel's
+error or a CUDA fault.
 """
 from __future__ import annotations
 
@@ -105,6 +110,7 @@ __all__ = [
     "CompressorSession",
     "DecompressorSession",
     "SessionPool",
+    "Compressor",
 ]
 
 
@@ -1194,10 +1200,73 @@ class DecompressorSession(_SessionBase):
         self._bump(calls=1)
         return [_concat_decoded(parts)]
 
-    def decompress_salvage(self, src):
-        """Best-effort decode of a damaged record: not yet ported (the
-        salvage slice brings it with ``iter_container_frames(salvage=True)``)."""
-        raise NotImplementedError("salvage decoding is not yet ported to repro_torch")
+    # -------------------------------------------------------------- salvage
+    def decompress_salvage(
+        self, src: Union[bytes, BinaryIO]
+    ) -> Tuple[List[Stream], "wire.SalvageReport"]:
+        """Best-effort decode of a damaged frame or container (recovery path).
+
+        Returns ``(streams, report)``: one regenerated stream per recovered
+        container chunk, in chunk order, on the session's device, and the
+        :class:`~repro_torch.core.wire.SalvageReport` naming the chunk
+        indices that survived and the ranges that were lost.  A record's
+        damage never raises: an unrecoverable one returns no streams and a
+        report that says why.  The whole record is held in memory.
+
+        Damage is a ``ValueError`` (a ``FrameError``, or a codec refusing a
+        CRC-valid chunk's contents).  Any other exception (a kernel's
+        ``KernelError``, ``NoCardError``, a CUDA fault) propagates: it says
+        nothing about the data.  The reference counts every exception as
+        damage.
+        """
+        data = bytes(src if isinstance(src, (bytes, bytearray, memoryview)) else src.read())
+        self._bump(calls=1, bytes_in=len(data))
+        if not wire.is_container(data):
+            # a bare frame has no chunk redundancy: decode or report, per its
+            # own CRC; there is nothing to resynchronize on
+            report = wire.SalvageReport(n_chunks=1)
+            try:
+                out = self._one(data)
+            except ValueError as err:
+                report.damaged.append((0, 0))
+                report.trailer_ok = False
+                report.notes.append(f"bare frame unrecoverable: {err}")
+                return [], report
+            report.recovered.append(0)
+            report.trailer_ok = True
+            self._bump(chunks=1, bytes_out=sum(s.nbytes for s in out))
+            return out, report
+        frames, report = wire.salvage_container(data)
+
+        def _try(frame: bytes) -> Optional[List[Stream]]:
+            try:
+                return self._one(frame)
+            except ValueError:
+                return None
+
+        parts = list(self._window_map(_try, frames)) if frames else []
+        # when every recovered chunk has an exact index, frames and
+        # report.recovered align (both in chunk order): a CRC-valid chunk
+        # that still fails to decode moves from recovered to damaged
+        aligned = report.recovered_unplaced == 0 and len(parts) == len(report.recovered)
+        out: List[Stream] = []
+        failed_idx: List[int] = []
+        failed = 0
+        for j, part in enumerate(parts):
+            if part is None or len(part) != 1:
+                failed += 1
+                if aligned:
+                    failed_idx.append(report.recovered[j])
+                continue
+            out.append(part[0])
+        if failed:
+            for i in failed_idx:
+                report.recovered.remove(i)
+                report.damaged.append((i, i))
+            report.damaged.sort(key=lambda r: r[0])
+            report.notes.append(f"{failed} recovered chunk(s) failed to decode")
+        self._bump(chunks=len(out), bytes_out=sum(s.nbytes for s in out))
+        return out, report
 
 
 class SessionPool:
@@ -1454,3 +1523,108 @@ def _decompress_single(frame, dev: torch.device) -> List[Stream]:
         return [edges[i] for i in range(n_inputs)]
     except KeyError as err:
         raise ValueError(f"corrupt frame: input edge {err} not regenerated") from None
+
+
+class Compressor:
+    """A deployable compressor: a plan, its format version and level, the
+    device it runs on and its chunking (the public facade).
+
+    ``serialize()`` writes the ``.ozp`` plan file, byte for byte the
+    reference's; ``Compressor.deserialize(blob)`` reads one back with its
+    ``format_version`` and ``level``.  ``device`` (the card unless the caller
+    names the CPU) takes the place of the reference's ``backend``.
+    """
+
+    def __init__(
+        self,
+        plan: Plan,
+        *,
+        format_version: int = CURRENT_FORMAT_VERSION,
+        level: int = 5,
+        name: str = "",
+        device: DeviceLike = "cuda",
+        chunk_bytes: Optional[int] = None,
+    ):
+        self.plan = plan.validate()
+        self.format_version = check_compress_version(format_version)
+        self.level = level
+        self.name = name or plan.name
+        self.device = device
+        self.chunk_bytes = chunk_bytes
+
+    def _ctx(self) -> CompressionCtx:
+        return CompressionCtx(self.format_version, self.level)
+
+    def compress(
+        self,
+        inputs,
+        *,
+        device: DeviceLike = None,
+        chunk_bytes: Optional[int] = None,
+    ) -> bytes:
+        """``device`` and ``chunk_bytes`` override the instance's; pass
+        ``chunk_bytes=0`` to force an unchunked frame from a chunking
+        compressor."""
+        return compress(
+            self.plan,
+            inputs,
+            self._ctx(),
+            self.device if device is None else device,
+            chunk_bytes=self.chunk_bytes if chunk_bytes is None else chunk_bytes,
+        )
+
+    def resolve(self, inputs) -> ResolvedPlan:
+        """Phase 1 for inspection or warm-up (cached like ``compress``); the
+        inputs are moved to the compressor's device first."""
+        if not _all_metas(inputs):
+            device = _device.resolve_device(self.device)
+            inputs = [s.validate().to(device) for s in _as_streams(inputs)]
+        return resolve(self.plan, inputs, self._ctx())
+
+    def session(self, **overrides) -> CompressorSession:
+        """A long-lived session with this compressor's settings; keyword
+        overrides (``device=``, ``chunk_bytes=``, ``n_workers=``,
+        ``window=``, ...) pass through to :class:`CompressorSession`."""
+        kw = dict(ctx=self._ctx(), device=self.device, chunk_bytes=self.chunk_bytes)
+        kw.update(overrides)
+        return CompressorSession(self.plan, **kw)
+
+    @staticmethod
+    def decompress(frame: bytes, device: DeviceLike = "cuda") -> List[Stream]:
+        return decompress(frame, device)
+
+    def roundtrip_check(self, inputs) -> bool:
+        """Encode and decode on the compressor's device; True when every
+        stream comes back with its type, width, bytes and string lengths."""
+        inputs = _as_streams(inputs)
+        outs = decompress(self.compress(inputs), self.device)
+        if len(outs) != len(inputs):
+            return False
+        for a, b in zip(inputs, outs):
+            if a.stype != b.stype or a.width != b.width:
+                return False
+            if a.content_bytes() != b.content_bytes():
+                return False
+            if a.stype == SType.STRING and not np.array_equal(a.lengths, b.lengths):
+                return False
+        return True
+
+    def serialize(self) -> bytes:
+        from .serialize import serialize_plan
+
+        return serialize_plan(
+            self.plan, name=self.name, format_version=self.format_version, level=self.level
+        )
+
+    @staticmethod
+    def deserialize(blob: bytes, *, device: DeviceLike = "cuda") -> "Compressor":
+        from .serialize import deserialize_plan
+
+        plan, meta = deserialize_plan(blob)
+        return Compressor(
+            plan,
+            name=meta.get("name", ""),
+            format_version=meta.get("format_version", CURRENT_FORMAT_VERSION),
+            level=meta.get("level", 5),
+            device=device,
+        )

@@ -7,9 +7,8 @@ are the graph inputs and each node's outputs take the next consecutive ids.
 Every edge has one producer and at most one consumer; edges nobody consumes
 are terminal and their streams are what the wire stores.
 
-``plan_from_dict`` reads the plain dict that the reference's
-``plan_to_dict`` writes, so a serialized compressor (the port's "weights")
-runs here without the port reading msgpack itself.
+``plan_from_dict`` (``core/serialize.py``, re-exported here) reads the dict
+form of a serialized compressor, the ``.ozp`` plan file.
 """
 from __future__ import annotations
 
@@ -22,7 +21,6 @@ __all__ = ["PlanNode", "Plan", "GraphBuilder", "pipeline", "plan_from_dict"]
 
 KIND_CODEC = "codec"
 KIND_SELECTOR = "selector"
-SERIAL_VERSION = 1  # the reference's serialized-compressor version
 
 
 def _freeze(obj):
@@ -155,29 +153,5 @@ def pipeline(*codecs, name: str = "") -> Plan:
     return g.build(name or "+".join(c if isinstance(c, str) else c[0] for c in codecs))
 
 
-def plan_from_dict(d: dict) -> Tuple[Plan, dict]:
-    """Plan + deployment meta from the reference's ``plan_to_dict`` form.
-
-    Keys: ``v``, ``name``, ``n_inputs``, ``nodes`` (each ``k`` kind, ``c``
-    codec or selector name, ``i`` inputs, ``o`` n_out, ``p`` params) and the
-    optional ``format_version`` and ``level``.
-    """
-    if d.get("v") != SERIAL_VERSION:
-        raise ValueError(f"unsupported serialized-compressor version {d.get('v')}")
-    nodes = tuple(
-        PlanNode(
-            KIND_CODEC if nd["k"] == 0 else KIND_SELECTOR,
-            nd["c"],
-            tuple(nd["i"]),
-            nd["o"],
-            _freeze(nd.get("p") or {}),
-        )
-        for nd in d["nodes"]
-    )
-    plan = Plan(d["n_inputs"], nodes, d.get("name", "")).validate()
-    meta = {"name": d.get("name", "")}
-    if "format_version" in d:
-        meta["format_version"] = int(d["format_version"])
-    if "level" in d:
-        meta["level"] = int(d["level"])
-    return plan, meta
+# ``plan_from_dict`` lives with the plan files; importable from here too
+from .serialize import plan_from_dict  # noqa: E402

@@ -282,6 +282,7 @@ def decompress_file(
     n_workers: Optional[int] = None,
     window: Optional[int] = None,
     session: Optional[DecompressorSession] = None,
+    salvage: bool = False,
 ) -> dict:
     """Universal streaming decode: any frame or container -> raw content bytes.
 
@@ -290,7 +291,12 @@ def decompress_file(
     the output size.  The written bytes are each regenerated stream's
     ``content_bytes()`` (for data compressed by ``compress_file``, the
     original file).  Returns ``{"bytes_in", "bytes_out", "chunks"}``.
-    (The reference's ``salvage=True`` comes with the port's salvage slice.)
+
+    ``salvage=True`` switches to the recovery decoder
+    (:meth:`DecompressorSession.decompress_salvage`): every intact chunk of a
+    damaged container is written (byte-exact, in chunk order; lost chunks are
+    absent from the output) and the stats carry the damage report under
+    ``"salvage"``.  The default path stays fail-closed.
     """
     own_session = session is None
     if session is None:
@@ -298,7 +304,18 @@ def decompress_file(
     try:
         bytes_out = chunks = 0
         with _open(src, "rb") as fin, _atomic_sink(dst) as fout:
-            counted = _CountingReader(wrap_io(fin, "io.src"))
+            fin = wrap_io(fin, "io.src")
+            if salvage:
+                data = fin.read()
+                streams, report = session.decompress_salvage(data)
+                for s in streams:
+                    payload = s.content_bytes()
+                    fout.write(payload)
+                    bytes_out += len(payload)
+                    chunks += 1
+                return {"bytes_in": len(data), "bytes_out": bytes_out, "chunks": chunks,
+                        "salvage": report.to_dict()}
+            counted = _CountingReader(fin)
             for s in session.iter_frames(counted):
                 payload = s.content_bytes()
                 fout.write(payload)

@@ -37,13 +37,17 @@ the host and copies each stored payload to the decode device once.
 
 A container whose chunk count is unknown when it starts (a pipe) reserves
 a padded count and backpatches it (``ContainerWriter(out, version, None)``).
-Not yet ported: the salvage scanner, which raises ``NotImplementedError``.
+
+Salvage and verify (``salvage_container``, ``verify_container``,
+``iter_container_frames(salvage=True)``) walk a damaged container on the
+host: they parse structure and check CRCs, and decode no payload.
 """
 from __future__ import annotations
 
 import io
 import struct as _struct
 import zlib
+from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -70,6 +74,9 @@ __all__ = [
     "write_container",
     "iter_container_frames",
     "read_container",
+    "SalvageReport",
+    "salvage_container",
+    "verify_container",
 ]
 
 
@@ -431,7 +438,11 @@ def write_container(version: int, chunk_frames: Sequence[bytes]) -> bytes:
 
 
 def iter_container_frames(
-    reader, *, allow_empty: bool = False, salvage: bool = False
+    reader,
+    *,
+    allow_empty: bool = False,
+    salvage: bool = False,
+    report: Optional["SalvageReport"] = None,
 ) -> Iterator[bytes]:
     """Yield chunk frames from a file-like container, one chunk in memory.
 
@@ -442,12 +453,22 @@ def iter_container_frames(
     garbage.  The trailing CRC is checked after the last chunk is yielded;
     each chunk frame carries its own CRC, and the iterator raises before it
     completes, so a consumer that drains it never takes a corrupt container
-    for a whole one.  (``salvage`` is not yet ported.)
+    for a whole one.
+
+    ``salvage=True`` switches to the best-effort scanner
+    (:func:`salvage_container`): it yields every chunk frame whose own CRC
+    verifies, skips damaged ones, and fills ``report`` (a caller-supplied
+    :class:`SalvageReport`) with the recovered indices and lost ranges.  It
+    reads the whole record into memory.
     """
     from .versioning import CONTAINER_MIN_VERSION
 
     if salvage:
-        raise NotImplementedError("container salvage is not yet ported to repro_torch")
+        frames, rep = salvage_container(reader.read())
+        if report is not None:
+            report.__dict__.update(rep.__dict__)
+        yield from frames
+        return
     head = reader.read(5)
     if len(head) < 5 or head[:4] != CONTAINER_MAGIC:
         raise FrameError("bad container magic")
@@ -483,6 +504,381 @@ def iter_container_frames(
         raise FrameError("container checksum mismatch")
     if reader.read(1):
         raise FrameError("trailing garbage in container")
+
+
+# ------------------------------------------------------- salvage & verify
+@dataclass
+class SalvageReport:
+    """What a damage scan found: which chunks survived, which were lost.
+
+    ``recovered`` and ``damaged`` hold exact chunk indices (damaged as
+    inclusive ``(lo, hi)`` ranges, ``hi`` None when the end is unknown).
+    Where corruption destroys the *structure* (a chunk length varint, a
+    truncation) the scanner resynchronizes on the next ``OZLJ`` magic whose
+    structural extent carries a valid frame CRC; chunks recovered between two
+    such gaps cannot be indexed exactly and are counted in
+    ``recovered_unplaced``.  ``trailer_ok`` is the whole-container CRC (None
+    when the record is too short to have one).
+    """
+
+    n_chunks: Optional[int] = None
+    recovered: List[int] = field(default_factory=list)
+    recovered_unplaced: int = 0
+    damaged: List[Tuple[int, Optional[int]]] = field(default_factory=list)
+    trailer_ok: Optional[bool] = None
+    notes: List[str] = field(default_factory=list)
+
+    @property
+    def intact(self) -> bool:
+        return (
+            not self.damaged
+            and not self.notes
+            and self.recovered_unplaced == 0
+            and bool(self.trailer_ok)
+            and (self.n_chunks is None or len(self.recovered) == self.n_chunks)
+        )
+
+    def damaged_ranges(self) -> str:
+        def one(lo, hi):
+            if hi is None:
+                return f"{lo}..?"
+            return str(lo) if lo == hi else f"{lo}..{hi}"
+
+        return ", ".join(one(lo, hi) for lo, hi in self.damaged) or "none"
+
+    def summary(self) -> str:
+        total = "?" if self.n_chunks is None else str(self.n_chunks)
+        parts = [
+            f"chunks: {len(self.recovered)}/{total} recovered",
+            f"damaged: {self.damaged_ranges()}",
+        ]
+        if self.recovered_unplaced:
+            parts.append(f"{self.recovered_unplaced} recovered at uncertain index")
+        if self.trailer_ok is not None:
+            parts.append(f"container crc {'ok' if self.trailer_ok else 'BAD'}")
+        parts.extend(self.notes)
+        return "; ".join(parts)
+
+    def to_dict(self) -> dict:
+        return {
+            "n_chunks": self.n_chunks,
+            "recovered": list(self.recovered),
+            "recovered_unplaced": self.recovered_unplaced,
+            "damaged": [list(r) for r in self.damaged],
+            "trailer_ok": self.trailer_ok,
+            "notes": list(self.notes),
+            "intact": self.intact,
+        }
+
+
+def _frame_extent(buf: bytes, start: int, limit: int) -> int:
+    """Structural end offset of the frame starting at ``start`` (< ``limit``).
+
+    Frames are self-delimiting (every variable-length field is preceded by
+    its length), so a parse walk finds the extent without trusting any outer
+    container framing.  Raises :class:`FrameError` when the walk leaves
+    ``[start, limit]`` or a count is implausible.  The frame's own CRC is
+    *not* checked here.
+    """
+    if buf[start : start + 4] != MAGIC or start + 9 > limit:
+        raise FrameError("bad magic")
+    pos = start + 5  # magic + version byte
+
+    def var(p: int) -> Tuple[int, int]:
+        v, p = read_varint(buf, p)
+        if p > limit:
+            raise FrameError("frame walk leaves the record")
+        return v, p
+
+    _, pos = var(pos)  # n_graph_inputs
+    n_nodes, pos = var(pos)
+    if n_nodes > 1_000_000:
+        raise FrameError("implausible node count")
+    for _ in range(n_nodes):
+        _, pos = var(pos)  # codec_id
+        n_in, pos = var(pos)
+        if n_in > 1_000_000:
+            raise FrameError("implausible input count")
+        for _ in range(n_in):
+            _, pos = var(pos)
+        _, pos = var(pos)  # n_out
+        hlen, pos = var(pos)
+        if pos + hlen > limit:
+            raise FrameError("truncated node header")
+        pos += hlen
+    n_stored, pos = var(pos)
+    if n_stored > 1_000_000:
+        raise FrameError("implausible stored count")
+    for _ in range(n_stored):
+        _, pos = var(pos)  # edge id
+        if pos >= limit:
+            raise FrameError("truncated stream entry")
+        stype = buf[pos]
+        pos += 1
+        _, pos = var(pos)  # width
+        if stype == int(SType.STRING):
+            n_str, pos = var(pos)
+            if n_str > limit - pos:
+                raise FrameError("implausible string count")
+            for _ in range(n_str):
+                _, pos = var(pos)
+        plen, pos = var(pos)
+        if pos + plen > limit:
+            raise FrameError("truncated stream payload")
+        pos += plen
+    if pos + 4 > limit:
+        raise FrameError("truncated frame crc")
+    return pos + 4
+
+
+def _frame_crc_ok(buf: bytes, start: int, end: int) -> bool:
+    if end - start < 9:
+        return False
+    (crc_expect,) = _struct.unpack("<I", buf[end - 4 : end])
+    return (zlib.crc32(buf[start : end - 4]) & 0xFFFFFFFF) == crc_expect
+
+
+def salvage_container(data: bytes) -> Tuple[List[bytes], SalvageReport]:
+    """Best-effort scan of a (possibly damaged) container record.
+
+    Returns ``(frames, report)``: every chunk frame whose own CRC verifies,
+    in physical (= chunk) order, and a :class:`SalvageReport` naming the
+    chunk indices recovered and the ranges lost.
+
+    It walks the chunk framing (length varint + frame) while it stays
+    believable: a chunk whose payload is corrupt but whose length prefix is
+    intact costs that one index.  Where the structure breaks (a bad varint,
+    an implausible length, a truncation) it resynchronizes on the next
+    ``OZLJ`` magic whose structural extent (:func:`_frame_extent`) carries a
+    valid frame CRC and resumes the chunk chain after it.  Indices are
+    assigned forward from 0 up to the first such gap and backward from the
+    header's chunk count over the cleanly parsed tail; chunks between two
+    gaps are recovered but unplaced.  The whole record is held in memory.
+    """
+    data = bytes(data)
+    report = SalvageReport()
+    if len(data) < 10:
+        report.notes.append(f"record too short to be a container ({len(data)} bytes)")
+        return [], report
+    from .versioning import CONTAINER_MIN_VERSION
+
+    if data[:4] != CONTAINER_MAGIC:
+        report.notes.append("container magic damaged")
+    elif data[4] < CONTAINER_MIN_VERSION:
+        report.notes.append(f"container version byte damaged ({data[4]})")
+    body_end = len(data) - 4
+    (crc_expect,) = _struct.unpack("<I", data[-4:])
+    report.trailer_ok = (zlib.crc32(data[:body_end]) & 0xFFFFFFFF) == crc_expect
+    pos = 5
+    try:
+        n_chunks, pos = read_varint(data, pos)
+        # a chunk costs at least 10 wire bytes (a 1-byte length varint and
+        # the 9-byte minimum frame), so a count the record cannot hold is a
+        # damaged varint: trusting it would mis-anchor the backward indices
+        capacity = max(1, (body_end - pos) // 10)
+        if 0 < n_chunks <= min(MAX_CHUNKS, capacity):
+            report.n_chunks = n_chunks
+        else:
+            report.notes.append(f"implausible chunk count {n_chunks} in header")
+            pos = 5
+    except FrameError:
+        report.notes.append("chunk count varint unreadable")
+        pos = 5
+    if report.n_chunks is None:
+        # the header's structure is gone: resync onto the first frame magic
+        first = data.find(MAGIC, pos)
+        pos = first if first != -1 else body_end
+
+    # scan -> ("ok", frame) | ("bad", None): a damaged chunk of known extent
+    # | ("gap", None): a structural break
+    items: List[Tuple[str, Optional[bytes]]] = []
+
+    def resync(p: int) -> int:
+        """Scan forward from ``p`` for a self-delimiting frame with a valid
+        CRC -> the offset after it (the frame is appended), or body_end."""
+        items.append(("gap", None))
+        cand = data.find(MAGIC, p)
+        while cand != -1 and cand < body_end:
+            try:
+                end = _frame_extent(data, cand, body_end)
+            except FrameError:
+                end = None
+            if end is not None and _frame_crc_ok(data, cand, end):
+                items.append(("ok", data[cand:end]))
+                return end
+            cand = data.find(MAGIC, cand + 1)
+        return body_end
+
+    while pos < body_end:
+        try:
+            flen, npos = read_varint(data, pos)
+        except FrameError:
+            pos = resync(pos + 1)
+            continue
+        if not (9 <= flen <= body_end - npos) or data[npos : npos + 4] != MAGIC:
+            pos = resync(pos + 1)
+            continue
+        end = npos + flen
+        if _frame_crc_ok(data, npos, end):
+            items.append(("ok", data[npos:end]))
+        else:
+            # the length prefix is believable but the frame is corrupt: trust
+            # it (and charge one chunk index) only when it lands on another
+            # chunk boundary or the end of the record
+            looks_chained = end == body_end
+            if not looks_chained:
+                try:
+                    nxt_len, nxt_pos = read_varint(data, end)
+                    looks_chained = (
+                        9 <= nxt_len <= body_end - nxt_pos
+                        and data[nxt_pos : nxt_pos + 4] == MAGIC
+                    )
+                except FrameError:
+                    looks_chained = False
+            if not looks_chained:
+                pos = resync(pos + 1)
+                continue
+            items.append(("bad", None))
+        pos = end
+    if pos > body_end:
+        items.append(("gap", None))
+        report.notes.append("record truncated mid-chunk")
+
+    # index assignment: forward to the first gap, backward from the header
+    # count over the clean tail, unplaced in between
+    gaps = [i for i, (k, _) in enumerate(items) if k == "gap"]
+    first_gap = gaps[0] if gaps else len(items)
+    last_gap = gaps[-1] if gaps else -1
+    frames: List[bytes] = []
+    damaged: List[int] = []
+    idx = 0
+    for kind, frame in items[:first_gap]:
+        if kind == "ok":
+            report.recovered.append(idx)
+            frames.append(frame)
+        else:
+            damaged.append(idx)
+        idx += 1
+    fwd_end = idx  # the first index the forward walk does not account for
+    if first_gap < len(items):
+        # chunks recovered between the first and last gap have no anchor on
+        # either side: keep them (physical order) and report the uncertainty
+        middle = items[first_gap : last_gap + 1]
+        n_mid = sum(1 for k, _ in middle if k == "ok")
+        frames.extend(f for k, f in middle if k == "ok")
+        if n_mid:
+            report.recovered_unplaced += n_mid
+            report.notes.append(
+                f"{n_mid} chunk(s) recovered between structural gaps (position uncertain)"
+            )
+        tail = items[last_gap + 1 :]
+        bwd_start = None if report.n_chunks is None else report.n_chunks - len(tail)
+        if pos == body_end and bwd_start is not None and bwd_start >= fwd_end:
+            # the tail chain parsed cleanly through to the trailer: anchor
+            # its indices backward from the header's chunk count
+            j = bwd_start
+            for kind, frame in tail:
+                if kind == "ok":
+                    report.recovered.append(j)
+                    frames.append(frame)
+                else:
+                    damaged.append(j)
+                j += 1
+            if bwd_start > fwd_end:
+                report.damaged.append((fwd_end, bwd_start - 1))
+        else:
+            frames.extend(f for k, f in tail if k == "ok")
+            report.recovered_unplaced += sum(1 for k, _ in tail if k == "ok")
+            hi = None if report.n_chunks is None else report.n_chunks - 1
+            report.damaged.append((fwd_end, hi))
+    elif report.n_chunks is not None and idx != report.n_chunks:
+        report.notes.append(f"header promises {report.n_chunks} chunks, record holds {idx}")
+    # merge damaged singletons into inclusive ranges
+    for i in sorted(damaged):
+        if report.damaged and report.damaged[-1][1] == i - 1:
+            report.damaged[-1] = (report.damaged[-1][0], i)
+        else:
+            report.damaged.append((i, i))
+    report.damaged.sort(key=lambda r: r[0])
+    report.recovered.sort()
+    return frames, report
+
+
+def verify_container(reader) -> SalvageReport:
+    """Streaming integrity walk: every chunk frame's CRC and the container
+    trailer, decoding no payload.
+
+    Unlike :func:`iter_container_frames` it does not stop at the first bad
+    chunk: it walks on while the *structure* (the length varints) holds, so
+    the report lists every damaged chunk index.  A structural break ends the
+    walk with a note (:func:`salvage_container` resyncs past it).  A bare
+    ``OZLJ`` frame gets a one-chunk report.
+    """
+    from .versioning import CONTAINER_MIN_VERSION
+
+    report = SalvageReport()
+    head = reader.read(5)
+    if len(head) < 5:
+        report.notes.append("record too short")
+        return report
+    if head[:4] == MAGIC:
+        frame = head + reader.read()
+        report.n_chunks = 1
+        if len(frame) >= 9 and _frame_crc_ok(frame, 0, len(frame)):
+            report.recovered.append(0)
+            report.trailer_ok = True
+        else:
+            report.damaged.append((0, 0))
+            report.trailer_ok = False
+            report.notes.append("bare frame CRC mismatch")
+        return report
+    if head[:4] != CONTAINER_MAGIC:
+        report.notes.append("bad container magic")
+        return report
+    crc = zlib.crc32(head)
+    if head[4] < CONTAINER_MIN_VERSION:
+        report.notes.append(f"container version {head[4]} predates the record")
+    try:
+        n_chunks, raw = read_stream_varint(reader)
+    except FrameError:
+        report.notes.append("chunk count varint unreadable")
+        return report
+    crc = zlib.crc32(raw, crc)
+    if n_chunks > MAX_CHUNKS:
+        report.notes.append(f"implausible chunk count {n_chunks}")
+        return report
+    report.n_chunks = n_chunks
+    for i in range(n_chunks):
+        try:
+            flen, raw = read_stream_varint(reader)
+        except FrameError:
+            report.notes.append(f"structure unreadable at chunk {i}")
+            return report
+        crc = zlib.crc32(raw, crc)
+        if flen > (1 << 48):
+            report.notes.append(f"implausible length for chunk {i}")
+            return report
+        chunk = reader.read(flen)
+        if len(chunk) != flen:
+            report.notes.append(f"record truncated in chunk {i}")
+            report.damaged.append((i, n_chunks - 1))
+            return report
+        crc = zlib.crc32(chunk, crc)
+        if chunk[:4] == MAGIC and _frame_crc_ok(chunk, 0, len(chunk)):
+            report.recovered.append(i)
+        elif report.damaged and report.damaged[-1][1] == i - 1:
+            report.damaged[-1] = (report.damaged[-1][0], i)
+        else:
+            report.damaged.append((i, i))
+    trailer = reader.read(4)
+    if len(trailer) != 4:
+        report.notes.append("container trailer missing")
+        return report
+    (crc_expect,) = _struct.unpack("<I", trailer)
+    report.trailer_ok = (crc & 0xFFFFFFFF) == crc_expect
+    if reader.read(1):
+        report.notes.append("trailing garbage after container")
+    return report
 
 
 def read_container(blob: bytes) -> Tuple[int, List[bytes]]:

@@ -344,8 +344,11 @@ def test_iter_frames_yields_the_references_chunks_and_salvage_waits():
         bare = ref_compress(ref_codecs.generic_profile(), ref_s, backend="device")
         (one,) = dec.iter_frames(io.BytesIO(bare))
         _same(one, ref_s)
-        with pytest.raises(NotImplementedError):
-            dec.decompress_salvage(frame)
+        streams, report = dec.decompress_salvage(frame)
+        with RefDecompressorSession() as rdec:
+            ref_streams, ref_report = rdec.decompress_salvage(frame)
+        assert report.to_dict() == ref_report.to_dict() and report.intact
+        assert [x.content_bytes() for x in streams] == [x.content_bytes() for x in ref_streams]
         bad = bytearray(frame)
         bad[-1] ^= 1  # the container's CRC
         with pytest.raises(wire.FrameError):
