@@ -276,7 +276,40 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              children (C2's compress and decompress through its plan) exit 0
              with files equal to the in-process calls', their wall seconds
              printed.
-12. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
+12. service — the compression service (``repro_torch.service``) on the card,
+             after the cli phase: an in-process ``CompressionServer(device=
+             "cuda")`` on a Unix socket in a temporary directory, with
+             ``struct:8`` and a float32 plan file (``interpret_numeric`` at
+             width 4, then the float32 profile: ``float32_bytes_plan``)
+             registered, two sessions a plan, eight clients.  A and D (64 MiB
+             each) as single requests at 4 MiB chunks through
+             ``ServiceClient``, each way: decoded equal to the input, the
+             container equal to ``stream_io.compress_file``'s on the card,
+             ``struct:8`` launching delta and byte shuffle then delta decode
+             and byte unshuffle, float32 float split then float merge; each
+             one's 4 MiB prefix at 1 MiB chunks equal to the CPU's container,
+             both caches emptied before each side.  Eight clients at once,
+             each a different 16 MiB slice of A through ``struct:8`` and back,
+             every container equal to its offline twin (MB/s each way, the
+             ``stats`` verb's p50/p99 per verb, the pool's acquires, creates
+             and waits).  The ``stats`` (its request counts as sent, no
+             error), ``metrics`` and ``ping`` verbs.  The fault drill, with a
+             quarantine threshold of 3 and a 2 s cooldown: a ``FaultPlan``
+             armed at ``device.encode.cuda.float_split`` (and at every host
+             encoder, which must never fire): three float32 requests answered
+             with the injected fault on one connection that stays open, the
+             fourth ``plan_quarantined`` with a ``retry_after``, ``struct:8``
+             requests served between them with their launches counted; after
+             the cooldown a float32 request succeeds, equal to the offline
+             container.  One A request under torch.profiler and the request
+             core on this thread under cProfile.  Then ``python -m repro_torch
+             serve --socket ... --profile struct:8`` as a child on the card,
+             ``client ping``, ``client compress`` (A) and ``client
+             decompress`` children, their files equal to the in-process
+             service's, and SIGTERM stopping the server with exit 0 and
+             "server stopped"; each child's wall seconds.  The launch counts
+             are reset before and read after each request group.
+13. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -286,18 +319,19 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-13. profile — one more compress and one decompress per plan and column under
+14. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
              the records phase's, the CSV phase's and the graph phase's calls.
-14. identity — the card's name and power limit.
+15. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
 ``records_launches``, ``csv_launches``, ``graph_launches``,
-``sessions_launches``, ``checkpoint_launches`` and ``cli_launches``), the
+``sessions_launches``, ``checkpoint_launches``, ``cli_launches`` and
+``service_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -602,6 +636,20 @@ CLI_RECORD_PROFILE = "struct:8"
 CLI_DAMAGED = (7, 8, 40)  # the chunks damaged for salvage, as tests/test_salvage.py's
 PLAN_FILES = 104  # the tracked .ozp files of tests/golden and results/trained
 CKPT_RESTORE_KERNELS = ("float_merge",)
+SERVICE_RECORD_PLAN = "struct:8"  # A's records: K1, K3 each way's encode, K2, K4 decode
+SERVICE_FLOAT_PLAN = "float32"  # D's raw bytes: interpret_numeric, then the float profile
+SERVICE_CLIENTS = 8
+SERVICE_SLICE_BYTES = 16 << 20
+SERVICE_SLICE_STEP = 6 << 20  # client i sends A[i * 6 MiB: i * 6 MiB + 16 MiB]
+SERVICE_QUARANTINE = 3  # failures that trip a plan's breaker in the fault drill
+SERVICE_COOLDOWN_S = 2.0
+SERVICE_FAULT_POINT = "device.encode.cuda.float_split"
+SERVICE_KERNELS = {SERVICE_RECORD_PLAN: (("delta_encode", "byteshuffle"),
+                                         ("delta_decode", "byteunshuffle")),
+                   SERVICE_FLOAT_PLAN: (("float_split",), ("float_merge",))}
+SERVICE_HOST_STAGES = ("handle", "_do_compress", "read_request", "_next_block",
+                       "write_response", "_write_body", "compress_file", "compress_chunks",
+                       "rollover", "BlockReader.read", "spool.write")
 
 
 def fail(msg: str) -> None:
@@ -3325,6 +3373,402 @@ def cli_phase(cols, csv_calls, rt, ops):
     return totals
 
 
+def float32_bytes_plan(rt):
+    """float32 weights sent as raw bytes: ``interpret_numeric`` at width 4,
+    then the float32 profile's split and selectors (a plan a service operator
+    registers as a ``.ozp`` file; the named ``float32`` profile wants a
+    numeric column, which a byte stream is not)."""
+    g = rt.GraphBuilder(1)
+    x = g.add("interpret_numeric", g.input(0), width=4)
+    signs, exp, man = g.add("float_split", x, fmt=2)
+    g.select("bytes_auto", signs)
+    g.select("entropy_auto", exp)
+    g.select("numeric_auto", man)
+    return g.build(SERVICE_FLOAT_PLAN)
+
+
+def service_phase(cols, rt, ops):
+    """The compression service on the card (``repro_torch.service``), after
+    the cli phase: an in-process ``CompressionServer(device="cuda")`` on a
+    Unix socket with ``struct:8`` and a float32 plan file registered; A and D
+    (64 MiB each) through ``ServiceClient`` each way, equal to the offline
+    ``stream_io.compress_file`` container on the card and, on a 4 MiB prefix
+    at 1 MiB chunks, to the CPU's; eight clients at once on 16 MiB slices of
+    A; the ``stats``, ``metrics`` and ``ping`` verbs; the fault drill (a card
+    fault at every ``float_split`` encode: three structured errors on one
+    connection, then ``plan_quarantined``, ``struct:8`` serving throughout,
+    recovery after the cooldown); ``python -m repro_torch serve`` and
+    ``client`` children; one A request under torch.profiler and cProfile.
+    The launch counts are reset just before and read just after each request
+    group.  Returns each kernel's launches summed over the groups."""
+    import io
+    import tempfile
+    import threading
+
+    import torch
+    from repro_torch.core import stream_io, wire
+    from repro_torch.reliability import FaultPlan
+    from repro_torch.service import (CompressionServer, PlanRegistry, ServiceClient,
+                                     ServiceUnavailable)
+    from repro_torch.service import protocol as SP
+
+    totals = {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+    a = cols["A_timestamps_i64"].tobytes()
+    d = cols["D_weights_f32"].tobytes()
+    float_plan = float32_bytes_plan(rt)
+    plans = {SERVICE_RECORD_PLAN: rt.resolve_profile_spec(SERVICE_RECORD_PLAN),
+             SERVICE_FLOAT_PLAN: float_plan}
+    sent = {"ping": 0, "compress": 0, "decompress": 0, "stats": 0}
+
+    def group(label, fn, want=None):
+        """``fn()`` with the launch counts reset just before and read just
+        after; ``want`` names kernels that must have launched."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = ops.launch_counts()
+        for k in totals:
+            totals[k] += got[k]
+        missing = [k for k in (want or ()) if not got[k]]
+        if missing:
+            fail(f"service {label}: {missing} did not launch ({got})")
+        return out, dt, {k: v for k, v in got.items() if v}
+
+    def offline(name, data: bytes, chunk_bytes: int, device: str = "cuda") -> bytes:
+        buf = io.BytesIO()
+        stream_io.compress_file(io.BytesIO(data), buf, plans[name], device=device,
+                                chunk_bytes=chunk_bytes)
+        return buf.getvalue()
+
+    def roundtrip(c, label, name, data: bytes, chunk_bytes: int):
+        """One compress and one decompress request through ``c``: each a
+        request group; the container must equal the offline one and decode
+        to ``data``."""
+        enc, kdec = SERVICE_KERNELS[name]
+        (frame, info), dt_c, l_c = group(f"{label} compress", lambda: c.compress_bytes(
+            data, name, chunk_bytes=chunk_bytes), enc)
+        (back, _), dt_d, l_d = group(f"{label} decompress", lambda: c.decompress_bytes(frame),
+                                     kdec)
+        sent["compress"] += 1
+        sent["decompress"] += 1
+        if back != data:
+            fail(f"service {label}: the decompressed bytes differ from the input")
+        if frame != offline(name, data, chunk_bytes):
+            fail(f"service {label}: the container differs from the offline compress_file's")
+        n = -(-len(data) // chunk_bytes)
+        if info["chunks"] != n or (n > 1) != (frame[:4] == wire.CONTAINER_MAGIC):
+            fail(f"service {label}: {info['chunks']} chunks, expected {n}")
+        print(f"service {label} through {name}: raw_bytes={len(data)} packed_bytes={len(frame)}"
+              f" ratio={len(data) / len(frame)} compress_MBps={len(data) / dt_c / 1e6}"
+              f" decompress_MBps={len(data) / dt_d / 1e6} compress_s={dt_c} decompress_s={dt_d}"
+              f" chunks={n} compress_launches={json.dumps(l_c)}"
+              f" decompress_launches={json.dumps(l_d)}")
+        return frame
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-svc-") as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+
+        ozp = at(f"{SERVICE_FLOAT_PLAN}.ozp")
+        with open(ozp, "wb") as f:
+            f.write(rt.Compressor(float_plan, name=SERVICE_FLOAT_PLAN).serialize())
+        reg = PlanRegistry()
+        reg.register_profile(SERVICE_RECORD_PLAN)
+        reg.register_file(ozp)
+        rt.resolve_cache_clear()
+        rt.coder_cache_clear()
+        t0 = time.perf_counter()
+        srv = CompressionServer(reg, socket_path=at("ozl.sock"), device="cuda",
+                                sessions_per_plan=2, max_clients=SERVICE_CLIENTS,
+                                request_timeout=300.0, quarantine_threshold=SERVICE_QUARANTINE,
+                                quarantine_cooldown_s=SERVICE_COOLDOWN_S).start()
+        print(f"service server: {srv.address} on {srv.device}, plans"
+              f" {[e['plan_id'] for e in reg.entries()]}, start_seconds={time.perf_counter() - t0}")
+        try:
+            with ServiceClient(srv.address, timeout=300.0) as c:
+                # 1. A and D, single requests at 4 MiB chunks, each way
+                frame_a = roundtrip(c, "A", SERVICE_RECORD_PLAN, a, CHUNK_BYTES)
+                roundtrip(c, "D", SERVICE_FLOAT_PLAN, d, CHUNK_BYTES)
+                # the 4 MiB prefixes at 1 MiB chunks against the CPU's
+                for label, name, data in (("A", SERVICE_RECORD_PLAN, a),
+                                          ("D", SERVICE_FLOAT_PLAN, d)):
+                    prefix = data[:PREFIX_BYTES]
+                    rt.resolve_cache_clear()
+                    rt.coder_cache_clear()
+                    card, _, _ = group(f"{label} prefix", lambda: c.compress_bytes(
+                        prefix, name, chunk_bytes=PREFIX_CHUNK_BYTES)[0])
+                    sent["compress"] += 1
+                    rt.resolve_cache_clear()
+                    rt.coder_cache_clear()
+                    t0 = time.perf_counter()
+                    cpu = offline(name, prefix, PREFIX_CHUNK_BYTES, "cpu")
+                    if card != cpu or card[:4] != wire.CONTAINER_MAGIC:
+                        fail(f"service {label} prefix: the card's container differs from the CPU's")
+                    print(f"check service {label}: the service's container == the offline"
+                          f" compress_file's on the card, decoded equal to {label}; the 4 MiB"
+                          f" prefix's container at 1 MiB chunks == the CPU's ({len(card)} bytes;"
+                          f" the CPU side {time.perf_counter() - t0} s)")
+
+            # 2. eight clients at once on 16 MiB slices of A, compress then decompress
+            slices = [a[i * SERVICE_SLICE_STEP: i * SERVICE_SLICE_STEP + SERVICE_SLICE_BYTES]
+                      for i in range(SERVICE_CLIENTS)]
+            if len({len(x) for x in slices}) != 1:
+                fail("service clients: the slices of A are not all 16 MiB")
+            frames, backs, errors = [None] * SERVICE_CLIENTS, [None] * SERVICE_CLIENTS, []
+            gate = threading.Barrier(SERVICE_CLIENTS + 1)
+            secs = {"compress": 0.0, "decompress": 0.0}
+
+            def client(i):
+                try:
+                    with ServiceClient(srv.address, timeout=300.0) as ci:
+                        gate.wait()
+                        frames[i] = ci.compress_bytes(slices[i], SERVICE_RECORD_PLAN,
+                                                      chunk_bytes=CHUNK_BYTES)[0]
+                        gate.wait()
+                        gate.wait()
+                        backs[i] = ci.decompress_bytes(frames[i])[0]
+                        gate.wait()
+                except Exception as err:  # reported below, then fail
+                    errors.append((i, repr(err)))
+                    gate.abort()
+
+            def crowd():
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(SERVICE_CLIENTS)]
+                for t in threads:
+                    t.start()
+                try:
+                    for way in ("compress", "decompress"):
+                        gate.wait()
+                        t0 = time.perf_counter()
+                        gate.wait()
+                        secs[way] = time.perf_counter() - t0
+                except threading.BrokenBarrierError:
+                    pass
+                for t in threads:
+                    t.join(600)
+
+            _, dt, launched = group("clients", crowd, SERVICE_KERNELS[SERVICE_RECORD_PLAN][0]
+                                    + SERVICE_KERNELS[SERVICE_RECORD_PLAN][1])
+            if errors:
+                fail(f"service clients: {errors}")
+            sent["compress"] += SERVICE_CLIENTS
+            sent["decompress"] += SERVICE_CLIENTS
+            for i in range(SERVICE_CLIENTS):
+                if backs[i] != slices[i]:
+                    fail(f"service client {i}: the decompressed slice differs")
+                if frames[i] != offline(SERVICE_RECORD_PLAN, slices[i], CHUNK_BYTES):
+                    fail(f"service client {i}: the container differs from the offline one")
+            total = SERVICE_CLIENTS * SERVICE_SLICE_BYTES
+            st = srv.stats()
+            pool = st["sessions"][reg.resolve(SERVICE_RECORD_PLAN).digest]
+            print(f"service clients: {SERVICE_CLIENTS} at once, {SERVICE_SLICE_BYTES} bytes each;"
+                  f" compress_MBps={total / secs['compress'] / 1e6} ({secs['compress']} s)"
+                  f" decompress_MBps={total / secs['decompress'] / 1e6} ({secs['decompress']} s)"
+                  f" group_seconds={dt} launches={json.dumps(launched)}")
+            print(f"service latency (stats verb, ms): "
+                  + ", ".join(f"{v}: n={x['n']} p50={x['p50_ms']} p99={x['p99_ms']}"
+                              for v, x in sorted(st["latency"].items()))
+                  + f"; {SERVICE_RECORD_PLAN} pool: acquires={pool['acquires']}"
+                  f" creates={pool['creates']} waits={pool['waits']} created={pool['created']}"
+                  f" in_use={pool['in_use']}")
+            print("check service clients: every container == its offline twin, every slice"
+                  " decoded equal")
+
+            # 3. the stats, metrics and ping verbs
+            with ServiceClient(srv.address, timeout=60.0) as c:
+                st = c.stats()
+                sent["stats"] += 1
+                text = c.metrics().decode()
+                sent["stats"] += 1
+                info = c.ping()
+                sent["ping"] += 1
+                want = dict(sent, stats=sent["stats"] - 1, ping=sent["ping"] - 1)
+                if st["requests"] != want or st["errors"] or st["shed"]:
+                    fail(f"service stats: requests {st['requests']} (sent {want}),"
+                         f" errors {st['errors']}, shed {st['shed']}")
+                if (f'ozl_requests_total{{verb="compress"}} {sent["compress"]}' not in text
+                        or not info["ok"] or info["plans"] != 2):
+                    fail(f"service metrics or ping: {text[:400]!r} {info}")
+            print(f"check service verbs: stats counts {st['requests']} as sent, errors 0;"
+                  f" metrics {len(text.splitlines())} lines; ping ok; resolve_cache"
+                  f" {st['resolve_cache']} coder_cache {st['coder_cache']}"
+                  f" bytes_in={st['bytes_in']} bytes_out={st['bytes_out']}")
+
+            # 4. the fault drill: a card fault at every float_split encode
+            dp = d[:PREFIX_BYTES]
+            ap = a[:PREFIX_BYTES]
+            digest = reg.resolve(SERVICE_FLOAT_PLAN).digest
+            with ServiceClient(srv.address, timeout=60.0) as c:
+                c.ping()
+                conns = srv.stats()["connections"]
+                # every host encoder would fire too: a retry on the host would show
+                plan = FaultPlan().at(SERVICE_FAULT_POINT, times=10 ** 6).at(
+                    "device.encode.cpu.*", times=10 ** 6)
+
+                def drill():
+                    kinds = []
+                    with plan.arm(all_threads=True):
+                        for i in range(SERVICE_QUARANTINE + 1):
+                            try:
+                                c.compress_bytes(dp, SERVICE_FLOAT_PLAN,
+                                                 chunk_bytes=PREFIX_CHUNK_BYTES)
+                                kinds.append("ok")
+                            except ServiceUnavailable as err:
+                                kinds.append((err.kind, err.retry_after))
+                            except RuntimeError as err:
+                                kinds.append(str(err))
+                            # the other plan keeps serving meanwhile
+                            if c.compress_bytes(ap, SERVICE_RECORD_PLAN)[0] != frame_a4:
+                                fail("service drill: struct:8's container changed under the fault")
+                    return kinds
+
+                frame_a4 = offline(SERVICE_RECORD_PLAN, ap, CHUNK_BYTES)
+                kinds, dt, launched = group("drill", drill, SERVICE_KERNELS[SERVICE_RECORD_PLAN][0])
+                fired = [n for n, _k, _a in plan.fired]
+                errs = kinds[:SERVICE_QUARANTINE]
+                if (any(f"InjectedDeviceFault: injected fault at '{SERVICE_FAULT_POINT}'" not in e
+                        for e in errs if isinstance(e, str)) or not all(isinstance(e, str)
+                                                                         for e in errs)):
+                    fail(f"service drill: the first {SERVICE_QUARANTINE} answers were {errs}")
+                last = kinds[-1]
+                if not (isinstance(last, tuple) and last[0] == "plan_quarantined"
+                        and last[1] and last[1] > 0):
+                    fail(f"service drill: the request after the threshold got {last}")
+                if not fired or set(fired) != {SERVICE_FAULT_POINT}:
+                    fail(f"service drill: faults fired at {sorted(set(fired))}")
+                q = srv.stats()["quarantine"][digest]
+                if not q["quarantined"] or q["trips"] != 1:
+                    fail(f"service drill: quarantine {q}")
+                if srv.stats()["connections"] != conns:
+                    fail("service drill: the connection was dropped")
+                time.sleep(SERVICE_COOLDOWN_S + 0.1)
+                (good, _), _, l_ok = group("drill recovery", lambda: c.compress_bytes(
+                    dp, SERVICE_FLOAT_PLAN, chunk_bytes=PREFIX_CHUNK_BYTES), ("float_split",))
+                if good != offline(SERVICE_FLOAT_PLAN, dp, PREFIX_CHUNK_BYTES):
+                    fail("service drill: the recovered container differs from the offline one")
+                if srv.stats()["quarantine"][digest]["quarantined"]:
+                    fail("service drill: the plan is still quarantined after a success")
+            print(f"service drill: answers {kinds}; faults fired {len(fired)}, all at"
+                  f" {SERVICE_FAULT_POINT}, none at a host encoder; {SERVICE_RECORD_PLAN}"
+                  f" launches {json.dumps(launched)}; recovery launches {json.dumps(l_ok)};"
+                  f" drill_seconds={dt}")
+            print(f"check service drill: {SERVICE_QUARANTINE} structured errors on one open"
+                  f" connection, then plan_quarantined with retry_after; {SERVICE_RECORD_PLAN}"
+                  f" served throughout; no encoder ran on the host; after"
+                  f" {SERVICE_COOLDOWN_S} s the plan's container == the offline one")
+
+            # 5. one A request under torch.profiler, and the request core under cProfile
+            with ServiceClient(srv.address, timeout=300.0) as c:
+                profile_device("service A compress (struct:8, 4 MiB chunks)",
+                               lambda: c.compress_bytes(a, SERVICE_RECORD_PLAN,
+                                                        chunk_bytes=CHUNK_BYTES))
+            req = io.BytesIO()
+            SP.write_request(req, SP.VERB_COMPRESS, {"plan": SERVICE_RECORD_PLAN,
+                                                     "size": len(a), "chunk_bytes": CHUNK_BYTES},
+                             SP.iter_body_blocks(a))
+            service_host_profile(srv, SP, req.getvalue())
+        finally:
+            srv.shutdown()
+
+        # 6. the command line: a serve child on the card and three client children
+        with open(at("A.bin"), "wb") as f:
+            f.write(a)
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        sock = at("cli.sock")
+        t0 = time.perf_counter()
+        server = subprocess.Popen([sys.executable, "-m", "repro_torch", "serve", "--socket", sock,
+                                   "--profile", SERVICE_RECORD_PLAN], env=env, text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        try:
+            while True:
+                try:
+                    with ServiceClient(sock, timeout=10.0) as c:
+                        c.ping()
+                    break
+                except OSError:
+                    if server.poll() is not None or time.perf_counter() - t0 > 300:
+                        server.kill()
+                        _, err = server.communicate()
+                        fail(f"service serve child did not answer: {err[-2000:]}")
+                    time.sleep(0.1)
+            print(f"service serve child: answering after {time.perf_counter() - t0} s")
+            for argv, check, what in (
+                    (["ping"], None, None),
+                    (["compress", at("A.bin"), "-o", at("A.svc.ozl"), "--plan-id",
+                      SERVICE_RECORD_PLAN, "--chunk-bytes", str(CHUNK_BYTES)], at("A.svc.ozl"),
+                     frame_a),
+                    (["decompress", at("A.svc.ozl"), "-o", at("A.svc.out")], at("A.svc.out"), a)):
+                t1 = time.perf_counter()
+                r = subprocess.run([sys.executable, "-m", "repro_torch", "client", *argv,
+                                    "--socket", sock], capture_output=True, text=True, env=env,
+                                   timeout=600)
+                dt = time.perf_counter() - t1
+                if r.returncode:
+                    fail(f"service client child {argv[0]}: exit {r.returncode}: {r.stderr[-2000:]}")
+                if check is not None:
+                    with open(check, "rb") as f:
+                        if f.read() != what:
+                            fail(f"service client child {argv[0]}: its file differs from the"
+                                 " in-process one")
+                print(f"service client child {argv[0]}: wall_seconds={dt}: {r.stdout.strip()}")
+            server.send_signal(signal.SIGTERM)
+            out, err = server.communicate(timeout=120)
+        finally:
+            if server.poll() is None:
+                server.kill()
+                server.communicate()
+        if server.returncode or "server stopped" not in out:
+            fail(f"service serve child: exit {server.returncode}: {out[-1000:]} {err[-2000:]}")
+        print(f"service serve child: wall_seconds={time.perf_counter() - t0}, exit 0 on"
+              f" SIGTERM: {out.strip()!r}")
+        print("check service cli: serve on the card, client ping/compress/decompress exit 0,"
+              " their files == the in-process service's, SIGTERM stops the server")
+
+    print(f"service launches {json.dumps(totals)}")
+    print(f"service phase seconds={time.perf_counter() - t_phase}")
+    return totals
+
+
+def service_host_profile(srv, SP, request: bytes) -> None:
+    """One framed A request through the server's request core on this thread
+    under cProfile (the handler's own path, without the socket): the
+    cumulative ms of the protocol, the spool and the session."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    host = cProfile.Profile()
+    host.enable()
+    t0 = time.perf_counter()
+    verb, header, body = SP.read_request(io.BytesIO(request))
+    resp, out = srv.core.handle(verb, header, body)
+    sink = io.BytesIO()
+    SP.write_response(sink, SP.STATUS_OK, resp, SP.iter_body_blocks(out))
+    out.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host.disable()
+    stats = pstats.Stats(host).stats
+    cum = {}
+    for (path, _line, name), v in stats.items():
+        key = name if name in SERVICE_HOST_STAGES else None
+        if name == "read" and path.endswith("protocol.py"):
+            key = "BlockReader.read"  # the request body, block by block
+        if name == "write" and path.endswith("tempfile.py"):
+            key = "spool.write"
+        if key:
+            cum[key] = cum.get(key, 0.0) + v[3] * 1e3
+    print(f"profile service request core (A, {SERVICE_RECORD_PLAN}): wall_ms={wall * 1e3}"
+          f" host_cumulative_ms: {json.dumps(cum)}")
+
+
 def graph_edges(rt) -> None:
     """The graph edge corpus (``GRAPH_EDGES``) through its profiles on the
     card: each frame equals the CPU's and decodes on the card to its file."""
@@ -3640,6 +4084,7 @@ def main() -> None:
     sessions_launches = sessions_phase(cols, graph_calls, rt, ops)
     checkpoint_launches = checkpoint_phase(rt, ops, args.seed)
     cli_launches = cli_phase(cols, csv_calls, rt, ops)
+    service_launches = service_phase(cols, rt, ops)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
@@ -3649,6 +4094,7 @@ def main() -> None:
         r["sessions_launches"] = sessions_launches[r["name"]]
         r["checkpoint_launches"] = checkpoint_launches[r["name"]]
         r["cli_launches"] = cli_launches[r["name"]]
+        r["service_launches"] = service_launches[r["name"]]
     level_phase(cols, rt, ops)
     profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
     identity = nvidia_smi("name,power.limit")

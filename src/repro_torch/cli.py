@@ -9,6 +9,8 @@ subcommands.
     python -m repro_torch inspect    corpus.ozl [--chunks N] [--verify]
     python -m repro_torch decompress corpus.ozl -o corpus.out [--salvage]
     python -m repro_torch profiles
+    python -m repro_torch serve  --socket /tmp/ozl.sock --profile text --register plan.ozp
+    python -m repro_torch client compress corpus.bin --socket /tmp/ozl.sock --plan-id text
 
 ``compress`` and ``decompress`` run on the card unless ``--device cpu`` is
 given (the reference's ``--backend`` has no counterpart: every codec runs on
@@ -18,8 +20,13 @@ the chosen device); without a card the default exits 2 with the
 file above ``--chunk-bytes`` (4 MiB by default) becomes an ``OZLC``
 container.  ``inspect`` parses the embedded graph and stored streams on the
 host without decoding any payload; its node lines carry no ``:: in -> out``
-type annotation (the codec signatures are not ported).  Output files, exit
-codes and printed lines are the reference's.
+type annotation (the codec signatures are not ported).  ``serve`` runs the
+threaded compression daemon (``repro_torch.service``) in this process, on the
+card unless ``--device cpu`` is given (without a card it exits 2 with the
+``NoCardError`` message), until SIGINT or SIGTERM; the reference's
+``--workers`` (its pre-forked plane) is not accepted yet.  ``client`` talks
+to a running daemon of either package and never touches the card.  Output
+files, exit codes and printed lines are the reference's.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import sys
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
+from . import _device
 from . import codecs as _codecs  # noqa: F401  (registers the codec suite)
 from .core import stream_io, wire
 from .core.codec import get_codec_by_id
@@ -238,6 +246,133 @@ def _cmd_profiles(_args) -> int:
     return 0
 
 
+# ------------------------------------------------------------------- service
+def _service_address(args) -> str:
+    if args.socket and args.tcp:
+        raise SystemExit("pass --socket or --tcp, not both")
+    if args.socket:
+        return f"unix:{args.socket}"
+    if args.tcp:
+        return args.tcp
+    raise SystemExit("pass --socket PATH or --tcp HOST:PORT")
+
+
+def _cmd_serve(args) -> int:
+    import signal
+    import socket
+
+    from .service import CompressionServer, PlanRegistry
+    from .service.protocol import parse_address
+
+    spec = _service_address(args)  # exactly one of --socket / --tcp
+    try:
+        family, target = parse_address(spec)
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
+    device = _device.resolve_device(args.device)  # no card: exit 2, nothing served
+    registry = PlanRegistry()
+    try:
+        for spec in args.profile or []:
+            entry = registry.register_profile(spec)
+            print(f"registered profile {entry.plan_id} (digest {entry.digest[:12]})")
+        for path in args.register or []:
+            entry = registry.register_file(path)
+            print(
+                f"registered plan {entry.plan_id} from {path}"
+                f" (digest {entry.digest[:12]})"
+            )
+    except (ValueError, OSError) as err:
+        raise SystemExit(f"serve: {err}") from None
+    if not len(registry):
+        print("warning: no plans registered; only decompress/stats will work")
+
+    if family == socket.AF_UNIX:
+        addr_kw = dict(socket_path=target)
+    else:
+        host, port = target
+        addr_kw = dict(host=host, port=port)
+    server = CompressionServer(
+        registry,
+        **addr_kw,
+        max_clients=args.max_clients,
+        sessions_per_plan=args.sessions_per_plan,
+        n_workers=args.session_threads,
+        window=args.window,
+        request_timeout=args.timeout,
+        idle_timeout=args.idle_timeout,
+        admission_timeout=args.admission_timeout,
+        device=device,
+        rate_limit=args.rate_limit,
+        rate_burst=args.rate_burst,
+    )
+
+    def _stop(_sig, _frm):
+        server.request_stop()
+
+    signal.signal(signal.SIGINT, _stop)
+    signal.signal(signal.SIGTERM, _stop)
+    print(f"serving on {server.address} ({len(registry)} plan(s); ^C to stop)")
+    sys.stdout.flush()
+    try:
+        server.serve_forever()
+    finally:
+        server.shutdown()
+        print("server stopped")
+    return 0
+
+
+def _cmd_client(args) -> int:
+    from .service import ServiceClient
+
+    address = _service_address(args)
+    with ServiceClient(address, timeout=args.timeout, retries=args.retries) as client:
+        if args.action == "stats":
+            import json
+
+            print(json.dumps(client.stats(), indent=2, sort_keys=True))
+            return 0
+        if args.action == "metrics":
+            sys.stdout.write(client.metrics().decode())
+            return 0
+        if args.action == "ping":
+            info = client.ping()
+            print(
+                f"{address}: ok, protocol v{info['protocol_version']},"
+                f" {info['plans']} plan(s), up {info['uptime_s']}s"
+            )
+            return 0
+        if not args.input:
+            raise SystemExit(f"client {args.action} needs an input file")
+        src = Path(args.input)
+        if args.action == "compress":
+            if not args.plan_id:
+                raise SystemExit("client compress needs --plan-id")
+            dst = Path(args.output) if args.output else src.with_name(src.name + ".ozl")
+            stats = client.compress_file(
+                src, dst, args.plan_id, chunk_bytes=_parse_size(args.chunk_bytes)
+            )
+            ratio = stats["bytes_in"] / max(stats["bytes_out"], 1)
+            kind = "container" if stats["container"] else "frame"
+            print(
+                f"{src} -> {dst}: {stats['bytes_in']} -> {stats['bytes_out']}"
+                f" bytes (x{ratio:.2f}), {stats['chunks']} chunk(s), {kind},"
+                f" plan={stats['plan_id']} digest={stats['digest'][:12]}"
+            )
+        else:  # decompress
+            if args.output:
+                dst = Path(args.output)
+            elif src.suffix == ".ozl":
+                dst = src.with_suffix("")
+            else:
+                dst = src.with_name(src.name + ".out")
+            stats = client.decompress_file(src, dst)
+            print(
+                f"{src} -> {dst}: {stats['bytes_in']} -> {stats['bytes_out']}"
+                f" bytes, {stats['chunks']} chunk(s)"
+            )
+    return 0
+
+
 # -------------------------------------------------------------------- parser
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -294,6 +429,66 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("profiles", help="list named profiles")
     p.set_defaults(fn=_cmd_profiles)
+
+    s = sub.add_parser(
+        "serve", help="run the compression daemon (paper §VIII services)"
+    )
+    s.add_argument("--socket", default=None, help="Unix socket path to bind")
+    s.add_argument("--tcp", default=None, help="HOST:PORT to bind (TCP)")
+    s.add_argument("--register", action="append", metavar="PLAN.ozp",
+                   help="serialized trained plan to register (repeatable;"
+                   " id = file stem)")
+    s.add_argument("--profile", action="append", metavar="NAME",
+                   help="named profile to register (repeatable; id = name)")
+    s.add_argument("--max-clients", type=int, default=8,
+                   help="concurrent connections served (default 8)")
+    s.add_argument("--sessions-per-plan", type=int, default=2,
+                   help="compressor sessions pooled per plan (default 2)")
+    s.add_argument("--session-threads", type=int, default=None,
+                   help="encode/decode threads per compression session")
+    s.add_argument("--rate-limit", type=float, default=None,
+                   help="per-client token-bucket rate (requests/second) for"
+                        " compress/decompress; rejected requests carry"
+                        " error_kind=rate_limited + retry_after")
+    s.add_argument("--rate-burst", type=float, default=None,
+                   help="token-bucket burst capacity (default 2x rate)")
+    s.add_argument("--window", type=int, default=None,
+                   help="max in-flight chunks per request (bounds memory)")
+    s.add_argument("--timeout", type=float, default=60.0,
+                   help="per-request socket timeout seconds (default 60)")
+    s.add_argument("--idle-timeout", type=float, default=300.0,
+                   help="seconds a persistent connection may sit idle between"
+                        " requests before the server drops it (default 300)")
+    s.add_argument("--admission-timeout", type=float, default=None,
+                   help="shed compress requests that cannot get a pooled"
+                        " session within this many seconds (error_kind="
+                        "overloaded + retry_after); default: block instead")
+    s.add_argument("--device", default="cuda",
+                   help="device every pooled session runs on (default cuda;"
+                        " cpu runs the kernels' plain versions)")
+    s.set_defaults(fn=_cmd_serve)
+
+    cl = sub.add_parser("client", help="talk to a running compression daemon")
+    cl.add_argument(
+        "action",
+        choices=["compress", "decompress", "stats", "ping", "metrics"],
+    )
+    cl.add_argument("input", nargs="?", default=None)
+    cl.add_argument("-o", "--output", default=None, help="default: INPUT.ozl /"
+                    " strip .ozl")
+    cl.add_argument("--socket", default=None, help="daemon Unix socket path")
+    cl.add_argument("--tcp", default=None, help="daemon HOST:PORT")
+    cl.add_argument("--plan-id", default=None,
+                    help="registered plan id or content digest (compress)")
+    cl.add_argument("--chunk-bytes", default="4MiB",
+                    help="chunk size for the container (default 4MiB, as the"
+                    " offline CLI)")
+    cl.add_argument("--timeout", type=float, default=60.0,
+                    help="client socket timeout seconds (default 60)")
+    cl.add_argument("--retries", type=int, default=0,
+                    help="bounded retries (backoff + jitter, honoring the"
+                         " server's retry_after) when the daemon sheds load")
+    cl.set_defaults(fn=_cmd_client)
     return ap
 
 

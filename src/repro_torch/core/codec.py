@@ -15,6 +15,12 @@ Only the ``zlib_backend`` leaf goes through the host, since zlib is a host
 library.  A decoder whose codec has no output streams (``constant``) has no
 tensor to learn the device from: its spec sets ``wants_device``, and
 ``run_decode`` hands it the decode device as the ``device`` keyword.
+
+Every encoder call passes the fault point ``device.encode.<device
+type>.<codec>`` (``device.encode.cuda.float_split`` on the card), where the
+device is that of the call's input tensors: an armed
+:class:`~repro_torch.reliability.faults.FaultPlan` makes the call fail there
+as a card fault would, before the encoder runs.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from ..reliability.faults import InjectedDeviceFault, fault_point
 from .message import Stream
 
 __all__ = ["CodecSpec", "register_codec", "get_codec", "get_codec_by_id", "all_codecs"]
@@ -50,6 +57,10 @@ class CodecSpec:
             raise ValueError(
                 f"codec {self.name}: expected {self.n_inputs} inputs, got {len(streams)}"
             )
+        # injectable card failure (repro_torch.reliability), where a real
+        # kernel's would surface; one contextvar read when disarmed
+        device = streams[0].device.type if streams else "cpu"
+        fault_point(f"device.encode.{device}.{self.name}", InjectedDeviceFault)
         outs, header = self.encode(list(streams), params)
         if self.n_outputs >= 0 and len(outs) != self.n_outputs:
             raise AssertionError(

@@ -20,19 +20,24 @@ bytes, a declared length past the remaining bytes (checked before anything is
 allocated), a map key that is not ``str`` or ``bytes``, invalid UTF-8,
 nesting deeper than msgpack's stack (1024 containers), the reserved byte
 ``0xc1`` and the ``ext`` family, which msgpack returns as ``ExtType`` and no
-plan holds.
+plan holds.  ``unpackb(blob, ext=True)`` (the service protocol's headers,
+``repro_torch.service.protocol``) takes the ``ext`` family as msgpack does:
+an :class:`ExtType`, or a :class:`Timestamp` for code -1, whose 4-, 8- or
+12-byte forms and nanoseconds below 10^9 it checks as msgpack does.
 """
 from __future__ import annotations
 
 import hashlib
 import struct as _struct
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 from .graph import KIND_CODEC, KIND_SELECTOR, Plan, PlanNode, _freeze
 
 SERIAL_VERSION = 1
 
 __all__ = [
+    "ExtType",
+    "Timestamp",
     "packb",
     "unpackb",
     "plan_to_dict",
@@ -142,13 +147,49 @@ def packb(obj) -> bytes:
 _NO_KEY = object()  # a map entry whose key is not read yet
 
 
+class ExtType(NamedTuple):
+    """An ``ext`` value, as ``msgpack.ExtType`` holds it."""
+
+    code: int
+    data: bytes
+
+
+class Timestamp(NamedTuple):
+    """An ``ext`` value of code -1, as ``msgpack.Timestamp`` holds it."""
+
+    seconds: int
+    nanoseconds: int
+
+
+def _ext_value(code: int, data: bytes):
+    if code >= 0:
+        return ExtType(code, data)
+    if code != -1:  # msgpack reserves the other negative codes
+        raise ValueError("code must be 0~127")
+    if len(data) == 4:
+        seconds, nanoseconds = _struct.unpack(">I", data)[0], 0
+    elif len(data) == 8:
+        word = _struct.unpack(">Q", data)[0]
+        seconds, nanoseconds = word & ((1 << 34) - 1), word >> 34
+    elif len(data) == 12:
+        nanoseconds, seconds = _struct.unpack(">Iq", data)
+    else:
+        raise ValueError("Unpack failed: error = -1")
+    if nanoseconds >= 10 ** 9:
+        raise ValueError(
+            "nanoseconds must be a non-negative integer less than 999999999."
+        )
+    return Timestamp(seconds, nanoseconds)
+
+
 class _Reader:
     """An iterative msgpack reader: an explicit stack of open containers, so
     nesting as deep as msgpack's stack never meets Python's recursion limit."""
 
-    def __init__(self, blob):
+    def __init__(self, blob, ext: bool = False):
         self.buf = memoryview(bytes(blob))
         self.pos = 0
+        self.ext = ext
 
     def take(self, n: int) -> memoryview:
         if n > len(self.buf) - self.pos:
@@ -202,13 +243,17 @@ class _Reader:
             return dict, self.count(self.uint(*_MAP_READ[tag]), 2)
         if tag == 0xC1:
             raise ValueError("Unpack failed: reserved byte 0xc1")
-        raise ValueError(f"msgpack ext type (0x{tag:02x}) is not part of a plan file")
+        if not self.ext:
+            raise ValueError(f"msgpack ext type (0x{tag:02x}) is not part of a plan file")
+        n = _FIXEXT[tag] if tag in _FIXEXT else self.uint(*_EXT_READ[tag])
+        code = _struct.unpack(">b", self.take(1))[0]
+        return _ext_value(code, bytes(self.take(self.count(n, 1))))
 
     def value(self):
         stack: list = []  # [container, items left, pending map key]
         while True:
             v = self.head()
-            if isinstance(v, tuple):
+            if type(v) is tuple:  # a container header, not a value
                 kind, n = v
                 if len(stack) >= UNPACK_MAX_DEPTH:
                     raise ValueError("Unpack failed: nesting too deep")
@@ -250,12 +295,15 @@ _STR_READ = {0xD9: (">B", 1), 0xDA: (">H", 2), 0xDB: (">I", 4)}
 _BIN_READ = {0xC4: (">B", 1), 0xC5: (">H", 2), 0xC6: (">I", 4)}
 _ARRAY_READ = {0xDC: (">H", 2), 0xDD: (">I", 4)}
 _MAP_READ = {0xDE: (">H", 2), 0xDF: (">I", 4)}
+_FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+_EXT_READ = {0xC7: (">B", 1), 0xC8: (">H", 2), 0xC9: (">I", 4)}
 
 
-def unpackb(blob):
+def unpackb(blob, *, ext: bool = False):
     """``msgpack.unpackb(blob, raw=False)`` over the plan subset; one value
-    that spans the whole blob, else ``ValueError``."""
-    r = _Reader(blob)
+    that spans the whole blob, else ``ValueError``.  ``ext=True`` also takes
+    the ``ext`` family, as msgpack does."""
+    r = _Reader(blob, ext)
     obj = r.value()
     if r.pos != len(r.buf):
         raise ValueError("unpack(b) received extra data.")

@@ -61,6 +61,7 @@ __all__ = [
 
 ENV_PLAN = "REPRO_FAULT_PLAN"
 SITES_FILE = "sites.json"
+ENCODE_POINT_PREFIX = "device.encode."  # core/codec.py: an encoder call's fault point
 SCENARIOS = ("shard_rewrite", "checkpoint", "atomic_sink")
 SINK_CHUNK_BYTES = 1 << 12
 VICTIM_TIMEOUT = 300.0
@@ -167,8 +168,12 @@ def run_victim(scenario: str, workdir, device: str = "cuda") -> None:
     if plan is not None and plan.record:
         from ..core.stream_io import _atomic_sink
 
+        # an encoder's fault point precedes its codec's work and tears no
+        # file, so it is no kill site (the reference's host encoders pass none)
+        sites = [[name, occ] for name, occ in plan.sites
+                 if not name.startswith(ENCODE_POINT_PREFIX)]
         with _atomic_sink(workdir / SITES_FILE) as f:
-            f.write(json.dumps([[name, occ] for name, occ in plan.sites]).encode())
+            f.write(json.dumps(sites).encode())
 
 
 # ------------------------------------------------------------------ harness

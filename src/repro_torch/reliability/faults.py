@@ -29,7 +29,10 @@ Principles:
 * **Faults look real.**  Injected errors are :class:`InjectedFault`
   (an ``IOError``) for I/O points, ``ConnectionResetError`` for ``drop``
   rules, and a genuine ``SIGKILL`` for crash points -- recovery code cannot
-  tell them from the failures they model.
+  tell them from the failures they model.  The card's points
+  (``device.encode.*``) raise :class:`InjectedDeviceFault`, an
+  ``InjectedFault`` that says where it arose: a card fault is the plan's,
+  not the transport's.
 
 Actions
 -------
@@ -61,6 +64,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     "InjectedFault",
+    "InjectedDeviceFault",
     "FaultRule",
     "FaultPlan",
     "fault_point",
@@ -74,6 +78,12 @@ __all__ = [
 class InjectedFault(IOError):
     """An error injected by an armed :class:`FaultPlan` (an I/O error to
     callers — recovery paths must treat it exactly like the real thing)."""
+
+
+class InjectedDeviceFault(InjectedFault):
+    """An :class:`InjectedFault` at a card's point (``device.encode.*``):
+    the failure a kernel launch would raise, told apart from a file's or a
+    socket's by its type."""
 
 
 ACTIONS = ("raise", "drop", "short", "kill")
@@ -251,18 +261,19 @@ def current_plan() -> Optional[FaultPlan]:
     return _GLOBAL  # unlocked read: arming is rare, None is the fast path
 
 
-def _perform(rule: FaultRule, name: str) -> None:
+def _perform(rule: FaultRule, name: str, fault=InjectedFault) -> None:
     if rule.action == "kill":
         os.kill(os.getpid(), signal.SIGKILL)
     if rule.exc is not None:
         raise rule.exc(name)
     if rule.action == "drop":
         raise ConnectionResetError(f"injected connection drop at {name!r}")
-    raise InjectedFault(f"injected fault at {name!r}")
+    raise fault(f"injected fault at {name!r}")
 
 
-def fault_point(name: str) -> None:
-    """Hook: a named place where an armed plan may inject a failure.
+def fault_point(name: str, fault=InjectedFault) -> None:
+    """Hook: a named place where an armed plan may inject a failure
+    (``fault``, unless the rule says otherwise).
 
     No-op (one contextvar read) when nothing is armed.
     """
@@ -271,7 +282,7 @@ def fault_point(name: str) -> None:
         return
     rule = plan._hit(name)
     if rule is not None:
-        _perform(rule, name)
+        _perform(rule, name, fault)
 
 
 #: Crash points are fault points at irreversible steps (rename/replace/write

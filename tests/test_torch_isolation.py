@@ -70,12 +70,21 @@ def test_the_scan_covers_the_cli_slices_modules():
         assert port / rel in PORT_FILES
 
 
+def test_the_scan_covers_the_service_slices_modules():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("service/__init__.py", "service/protocol.py", "service/registry.py",
+                "service/server.py", "service/client.py", "service/ratelimit.py",
+                "service/metrics.py", "reliability/failover.py"):
+        assert port / rel in PORT_FILES
+
+
 def test_importing_the_port_loads_nothing_forbidden_and_no_cuda():
     code = (
         "import sys, torch, repro_torch, repro_torch.codecs, repro_torch.kernels.ops,"
         " repro_torch.kernels._build, repro_torch.core.stream_io,"
         " repro_torch.reliability.crashkill, repro_torch.distributed.checkpoint,"
-        " repro_torch.data, repro_torch.core.serialize, repro_torch.cli\n"
+        " repro_torch.data, repro_torch.core.serialize, repro_torch.cli,"
+        " repro_torch.service, repro_torch.reliability.failover\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad, torch.cuda.is_initialized())\n" % (FORBIDDEN,)
     )
