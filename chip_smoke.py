@@ -309,7 +309,31 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              service's, and SIGTERM stopping the server with exit 0 and
              "server stopped"; each child's wall seconds.  The launch counts
              are reset before and read after each request group.
-13. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
+13. frontend — the non-blocking service frontend
+             (``repro_torch.service.ServiceFrontend``) after the service
+             phase's server has shut down: one ``RequestCore(device="cuda")``
+             with the same two plans behind one event loop on a Unix socket
+             (four compute threads, 512 connections, a 10 s request
+             deadline).  A and D as single requests at 4 MiB chunks each way:
+             decoded equal, each container equal to the threaded server's
+             from the service phase and to the offline ``compress_file``'s on
+             the card, each 4 MiB prefix's at 1 MiB chunks to the CPU's.  Two
+             16 MiB requests (A's and D's) pipelined on one raw socket, two
+             in-order responses equal to their offline containers.  200 idle
+             connections and 40 slow-loris sockets (1-7 bytes of a request
+             each) parked while A runs once more and the eight clients run on
+             16 MiB slices of A with a ninth pinging (MB/s each way, the ping
+             round trip's and the ``stats`` verb's p50/p99); every loris
+             reaped within the deadline + 5 s, the active connections back
+             to the 200.  One A request under torch.profiler and one under
+             cProfile and a clock around ``feed``, ``_pump_write``,
+             ``_response_chunks``, ``handle`` and ``compress_file``, beside
+             the service phase's request.  ``stop()`` while an A compress
+             runs: the loop exits within 30 s after the request ends,
+             ``torch.cuda.synchronize()`` raises nothing, no session is
+             checked out before ``core.close()``.  Launch counts are reset
+             before and read after each request group.
+14. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -319,19 +343,19 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-14. profile — one more compress and one decompress per plan and column under
+15. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
              the records phase's, the CSV phase's and the graph phase's calls.
-15. identity — the card's name and power limit.
+16. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
 ``records_launches``, ``csv_launches``, ``graph_launches``,
-``sessions_launches``, ``checkpoint_launches``, ``cli_launches`` and
-``service_launches``), the
+``sessions_launches``, ``checkpoint_launches``, ``cli_launches``,
+``service_launches`` and ``frontend_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -650,6 +674,16 @@ SERVICE_KERNELS = {SERVICE_RECORD_PLAN: (("delta_encode", "byteshuffle"),
 SERVICE_HOST_STAGES = ("handle", "_do_compress", "read_request", "_next_block",
                        "write_response", "_write_body", "compress_file", "compress_chunks",
                        "rollover", "BlockReader.read", "spool.write")
+FRONTEND_COMPUTE_THREADS = 4
+FRONTEND_MAX_CONNS = 512
+FRONTEND_REQUEST_TIMEOUT = 10.0  # the slow-loris budget: a frame must land within it
+FRONTEND_IDLE = 200  # idle connections parked on the loop through the crowd
+FRONTEND_LORIS = 40  # sockets each holding 1-7 bytes of a valid request
+FRONTEND_PIPELINE_BYTES = 16 << 20
+FRONTEND_STOP_JOIN_S = 30.0
+FRONTEND_A_TURNS = 2  # A compresses alone (warm), then as many with the crowd parked
+# the frontend's A request's host stages, each timed by a clock around its calls
+FRONTEND_HOST_STAGES = ("feed", "_pump_write", "_response_chunks", "handle", "compress_file")
 
 
 def fail(msg: str) -> None:
@@ -3387,6 +3421,88 @@ def float32_bytes_plan(rt):
     return g.build(SERVICE_FLOAT_PLAN)
 
 
+def service_plans(rt) -> dict:
+    """The service phases' two registered plans, by name."""
+    return {SERVICE_RECORD_PLAN: rt.resolve_profile_spec(SERVICE_RECORD_PLAN),
+            SERVICE_FLOAT_PLAN: float32_bytes_plan(rt)}
+
+
+def request_group(ops, totals: dict, label: str, fn, want=None):
+    """``fn()`` with the launch counts reset just before and read just after,
+    added into ``totals``; ``want`` names kernels that must have launched ->
+    (``fn()``'s result, seconds, the kernels launched)."""
+    import torch
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = ops.launch_counts()
+    for k in totals:
+        totals[k] += got[k]
+    missing = [k for k in (want or ()) if not got[k]]
+    if missing:
+        fail(f"{label}: {missing} did not launch ({got})")
+    return out, dt, {k: v for k, v in got.items() if v}
+
+
+def offline_container(plan, data: bytes, chunk_bytes: int, device: str = "cuda") -> bytes:
+    """``stream_io.compress_file``'s container of ``data`` (a seekable source:
+    the known-count path)."""
+    import io
+
+    from repro_torch.core import stream_io
+
+    buf = io.BytesIO()
+    stream_io.compress_file(io.BytesIO(data), buf, plan, device=device, chunk_bytes=chunk_bytes)
+    return buf.getvalue()
+
+
+def run_clients(client_cls, address, slices):
+    """One client a slice, all at once through ``address``: each compresses its
+    slice through ``SERVICE_RECORD_PLAN`` at ``CHUNK_BYTES``, then, once all
+    have, decompresses its container; the two rounds are timed from their
+    common start to their last answer -> (containers, decoded slices, seconds
+    each way, errors)."""
+    import threading
+
+    n = len(slices)
+    frames, backs, errors = [None] * n, [None] * n, []
+    gate = threading.Barrier(n + 1)
+    secs = {"compress": 0.0, "decompress": 0.0}
+
+    def client(i):
+        try:
+            with client_cls(address, timeout=300.0) as ci:
+                gate.wait()
+                frames[i] = ci.compress_bytes(slices[i], SERVICE_RECORD_PLAN,
+                                              chunk_bytes=CHUNK_BYTES)[0]
+                gate.wait()
+                gate.wait()
+                backs[i] = ci.decompress_bytes(frames[i])[0]
+                gate.wait()
+        except Exception as err:  # reported by the caller, then fail
+            errors.append((i, repr(err)))
+            gate.abort()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    try:
+        for way in ("compress", "decompress"):
+            gate.wait()
+            t0 = time.perf_counter()
+            gate.wait()
+            secs[way] = time.perf_counter() - t0
+    except threading.BrokenBarrierError:
+        pass
+    for t in threads:
+        t.join(600)
+    return frames, backs, secs, errors
+
+
 def service_phase(cols, rt, ops):
     """The compression service on the card (``repro_torch.service``), after
     the cli phase: an in-process ``CompressionServer(device="cuda")`` on a
@@ -3400,13 +3516,12 @@ def service_phase(cols, rt, ops):
     recovery after the cooldown); ``python -m repro_torch serve`` and
     ``client`` children; one A request under torch.profiler and cProfile.
     The launch counts are reset just before and read just after each request
-    group.  Returns each kernel's launches summed over the groups."""
-    import io
+    group.  Returns each kernel's launches summed over the groups, and what the
+    frontend phase holds its own against: A's and D's containers, their 4 MiB
+    prefixes' CPU containers, and the A request's profile."""
     import tempfile
-    import threading
 
-    import torch
-    from repro_torch.core import stream_io, wire
+    from repro_torch.core import wire
     from repro_torch.reliability import FaultPlan
     from repro_torch.service import (CompressionServer, PlanRegistry, ServiceClient,
                                      ServiceUnavailable)
@@ -3416,33 +3531,15 @@ def service_phase(cols, rt, ops):
     t_phase = time.perf_counter()
     a = cols["A_timestamps_i64"].tobytes()
     d = cols["D_weights_f32"].tobytes()
-    float_plan = float32_bytes_plan(rt)
-    plans = {SERVICE_RECORD_PLAN: rt.resolve_profile_spec(SERVICE_RECORD_PLAN),
-             SERVICE_FLOAT_PLAN: float_plan}
+    plans = service_plans(rt)
+    float_plan = plans[SERVICE_FLOAT_PLAN]
     sent = {"ping": 0, "compress": 0, "decompress": 0, "stats": 0}
 
     def group(label, fn, want=None):
-        """``fn()`` with the launch counts reset just before and read just
-        after; ``want`` names kernels that must have launched."""
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        got = ops.launch_counts()
-        for k in totals:
-            totals[k] += got[k]
-        missing = [k for k in (want or ()) if not got[k]]
-        if missing:
-            fail(f"service {label}: {missing} did not launch ({got})")
-        return out, dt, {k: v for k, v in got.items() if v}
+        return request_group(ops, totals, f"service {label}", fn, want)
 
     def offline(name, data: bytes, chunk_bytes: int, device: str = "cuda") -> bytes:
-        buf = io.BytesIO()
-        stream_io.compress_file(io.BytesIO(data), buf, plans[name], device=device,
-                                chunk_bytes=chunk_bytes)
-        return buf.getvalue()
+        return offline_container(plans[name], data, chunk_bytes, device)
 
     def roundtrip(c, label, name, data: bytes, chunk_bytes: int):
         """One compress and one decompress request through ``c``: each a
@@ -3492,7 +3589,8 @@ def service_phase(cols, rt, ops):
             with ServiceClient(srv.address, timeout=300.0) as c:
                 # 1. A and D, single requests at 4 MiB chunks, each way
                 frame_a = roundtrip(c, "A", SERVICE_RECORD_PLAN, a, CHUNK_BYTES)
-                roundtrip(c, "D", SERVICE_FLOAT_PLAN, d, CHUNK_BYTES)
+                frame_d = roundtrip(c, "D", SERVICE_FLOAT_PLAN, d, CHUNK_BYTES)
+                cpu_prefix = {}
                 # the 4 MiB prefixes at 1 MiB chunks against the CPU's
                 for label, name, data in (("A", SERVICE_RECORD_PLAN, a),
                                           ("D", SERVICE_FLOAT_PLAN, d)):
@@ -3505,7 +3603,7 @@ def service_phase(cols, rt, ops):
                     rt.resolve_cache_clear()
                     rt.coder_cache_clear()
                     t0 = time.perf_counter()
-                    cpu = offline(name, prefix, PREFIX_CHUNK_BYTES, "cpu")
+                    cpu = cpu_prefix[label] = offline(name, prefix, PREFIX_CHUNK_BYTES, "cpu")
                     if card != cpu or card[:4] != wire.CONTAINER_MAGIC:
                         fail(f"service {label} prefix: the card's container differs from the CPU's")
                     print(f"check service {label}: the service's container == the offline"
@@ -3518,42 +3616,9 @@ def service_phase(cols, rt, ops):
                       for i in range(SERVICE_CLIENTS)]
             if len({len(x) for x in slices}) != 1:
                 fail("service clients: the slices of A are not all 16 MiB")
-            frames, backs, errors = [None] * SERVICE_CLIENTS, [None] * SERVICE_CLIENTS, []
-            gate = threading.Barrier(SERVICE_CLIENTS + 1)
-            secs = {"compress": 0.0, "decompress": 0.0}
-
-            def client(i):
-                try:
-                    with ServiceClient(srv.address, timeout=300.0) as ci:
-                        gate.wait()
-                        frames[i] = ci.compress_bytes(slices[i], SERVICE_RECORD_PLAN,
-                                                      chunk_bytes=CHUNK_BYTES)[0]
-                        gate.wait()
-                        gate.wait()
-                        backs[i] = ci.decompress_bytes(frames[i])[0]
-                        gate.wait()
-                except Exception as err:  # reported below, then fail
-                    errors.append((i, repr(err)))
-                    gate.abort()
-
-            def crowd():
-                threads = [threading.Thread(target=client, args=(i,))
-                           for i in range(SERVICE_CLIENTS)]
-                for t in threads:
-                    t.start()
-                try:
-                    for way in ("compress", "decompress"):
-                        gate.wait()
-                        t0 = time.perf_counter()
-                        gate.wait()
-                        secs[way] = time.perf_counter() - t0
-                except threading.BrokenBarrierError:
-                    pass
-                for t in threads:
-                    t.join(600)
-
-            _, dt, launched = group("clients", crowd, SERVICE_KERNELS[SERVICE_RECORD_PLAN][0]
-                                    + SERVICE_KERNELS[SERVICE_RECORD_PLAN][1])
+            (frames, backs, secs, errors), dt, launched = group(
+                "clients", lambda: run_clients(ServiceClient, srv.address, slices),
+                SERVICE_KERNELS[SERVICE_RECORD_PLAN][0] + SERVICE_KERNELS[SERVICE_RECORD_PLAN][1])
             if errors:
                 fail(f"service clients: {errors}")
             sent["compress"] += SERVICE_CLIENTS
@@ -3663,15 +3728,13 @@ def service_phase(cols, rt, ops):
                   f" {SERVICE_COOLDOWN_S} s the plan's container == the offline one")
 
             # 5. one A request under torch.profiler, and the request core under cProfile
+            profile = {}
             with ServiceClient(srv.address, timeout=300.0) as c:
                 profile_device("service A compress (struct:8, 4 MiB chunks)",
                                lambda: c.compress_bytes(a, SERVICE_RECORD_PLAN,
-                                                        chunk_bytes=CHUNK_BYTES))
-            req = io.BytesIO()
-            SP.write_request(req, SP.VERB_COMPRESS, {"plan": SERVICE_RECORD_PLAN,
-                                                     "size": len(a), "chunk_bytes": CHUNK_BYTES},
-                             SP.iter_body_blocks(a))
-            service_host_profile(srv, SP, req.getvalue())
+                                                        chunk_bytes=CHUNK_BYTES), profile)
+            profile["host_ms"] = service_host_profile(srv, SP, request_bytes(
+                SP, {"plan": SERVICE_RECORD_PLAN, "size": len(a), "chunk_bytes": CHUNK_BYTES}, a))
         finally:
             srv.shutdown()
 
@@ -3731,13 +3794,24 @@ def service_phase(cols, rt, ops):
 
     print(f"service launches {json.dumps(totals)}")
     print(f"service phase seconds={time.perf_counter() - t_phase}")
-    return totals
+    return totals, {"frames": {"A": frame_a, "D": frame_d}, "cpu_prefix": cpu_prefix,
+                    "profile": profile}
 
 
-def service_host_profile(srv, SP, request: bytes) -> None:
+def request_bytes(SP, header: dict, data: bytes) -> bytes:
+    """One framed compress request with ``data`` as its body in the
+    protocol's default blocks."""
+    import io
+
+    buf = io.BytesIO()
+    SP.write_request(buf, SP.VERB_COMPRESS, header, SP.iter_body_blocks(data))
+    return buf.getvalue()
+
+
+def service_host_profile(srv, SP, request: bytes) -> dict:
     """One framed A request through the server's request core on this thread
     under cProfile (the handler's own path, without the socket): the
-    cumulative ms of the protocol, the spool and the session."""
+    cumulative ms of the protocol, the spool and the session -> those ms."""
     import cProfile
     import io
     import pstats
@@ -3767,6 +3841,462 @@ def service_host_profile(srv, SP, request: bytes) -> None:
             cum[key] = cum.get(key, 0.0) + v[3] * 1e3
     print(f"profile service request core (A, {SERVICE_RECORD_PLAN}): wall_ms={wall * 1e3}"
           f" host_cumulative_ms: {json.dumps(cum)}")
+    return {"wall_ms": wall * 1e3, **cum}
+
+
+def frontend_phase(cols, rt, ops, svc):
+    """The non-blocking service frontend on the card
+    (``repro_torch.service.ServiceFrontend``), after the service phase's
+    server has shut down: one ``RequestCore(device="cuda")`` with the service
+    phase's two plans behind one event loop on a Unix socket (four compute
+    threads, 512 connections, a 10 s request deadline).  A and D (64 MiB
+    each) as single requests at 4 MiB chunks each way, decoded equal, each
+    container equal to the threaded server's from the service phase (``svc``)
+    and to the offline ``compress_file``'s on the card, each 4 MiB prefix's
+    at 1 MiB chunks to the CPU's; two requests pipelined on one raw socket;
+    A twice alone (warm), then 200 idle connections and 40 slow-loris
+    sockets parked while A runs twice more and the eight clients run on
+    16 MiB slices of A, a ninth pinging; every loris reaped by the deadline;
+    one A request under torch.profiler and one with each host stage clocked
+    (and cProfile on the compute thread), beside the service phase's;
+    ``stop()`` while an A compress holds a pooled session.  The launch counts are reset just before and read
+    just after each request group -> each kernel's launches summed over the
+    groups."""
+    import cProfile
+    import pstats
+    import resource
+    import socket
+    import tempfile
+    import threading
+
+    import torch
+    from repro_torch.core import stream_io, wire
+    from repro_torch.service import PlanRegistry, RequestCore, ServiceClient, ServiceFrontend
+    from repro_torch.service import frontend as FE
+    from repro_torch.service import protocol as SP
+
+    totals = {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+    a = cols["A_timestamps_i64"].tobytes()
+    d = cols["D_weights_f32"].tobytes()
+    plans = service_plans(rt)
+    enc_a, dec_a = SERVICE_KERNELS[SERVICE_RECORD_PLAN]
+    # each parked connection holds two descriptors in this process
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != resource.RLIM_INFINITY and soft < 4 * FRONTEND_MAX_CONNS:
+        want = 4 * FRONTEND_MAX_CONNS
+        resource.setrlimit(resource.RLIMIT_NOFILE,
+                           (want if hard == resource.RLIM_INFINITY else min(want, hard), hard))
+
+    def group(label, fn, want=None):
+        return request_group(ops, totals, f"frontend {label}", fn, want)
+
+    def q(xs, p: float) -> float:
+        """``RequestCore``'s percentile of ``xs``, in ms."""
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(round(p * (len(xs) - 1))))] * 1e3
+
+    def active() -> int:
+        return fe.transport_stats()["active_connections"]
+
+    def settle(n: int, what: str, seconds: float = 30.0) -> None:
+        deadline = time.monotonic() + seconds
+        while active() != n:
+            if time.monotonic() > deadline:
+                fail(f"frontend {what}: {active()} active connections, expected {n}")
+            time.sleep(0.01)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fe-") as tmp:
+        ozp = os.path.join(tmp, f"{SERVICE_FLOAT_PLAN}.ozp")
+        with open(ozp, "wb") as f:
+            f.write(rt.Compressor(plans[SERVICE_FLOAT_PLAN], name=SERVICE_FLOAT_PLAN).serialize())
+        reg = PlanRegistry()
+        reg.register_profile(SERVICE_RECORD_PLAN)
+        reg.register_file(ozp)
+        rt.resolve_cache_clear()
+        rt.coder_cache_clear()
+        path = os.path.join(tmp, "fe.sock")
+        t0 = time.perf_counter()
+        core = RequestCore(reg, device="cuda", sessions_per_plan=2, request_timeout=300.0)
+        finished = []  # (size, perf_counter) of each compress request whose handle returned
+        handle = core.handle
+
+        def counted(verb, header, body):
+            out = handle(verb, header, body)
+            if verb == SP.VERB_COMPRESS:
+                finished.append((header.get("size"), time.perf_counter()))
+            return out
+
+        core.handle = counted
+        lst = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        lst.bind(path)
+        lst.listen(FRONTEND_MAX_CONNS)
+        fe = ServiceFrontend(core, lst, compute_threads=FRONTEND_COMPUTE_THREADS,
+                             max_conns=FRONTEND_MAX_CONNS,
+                             request_timeout=FRONTEND_REQUEST_TIMEOUT, owns_listener=True)
+        loop = threading.Thread(target=fe.serve_forever, name="frontend-loop", daemon=True)
+        loop.start()
+        address = f"unix:{path}"
+        print(f"frontend: {address} on {core.device}, compute_threads={FRONTEND_COMPUTE_THREADS}"
+              f" max_conns={FRONTEND_MAX_CONNS} request_timeout={FRONTEND_REQUEST_TIMEOUT},"
+              f" start_seconds={time.perf_counter() - t0}")
+        stopped = False
+        try:
+            # 1. A and D, single requests at 4 MiB chunks, each way
+            alone = {}
+            with ServiceClient(address, timeout=300.0) as c:
+                for label, name, data in (("A", SERVICE_RECORD_PLAN, a),
+                                          ("D", SERVICE_FLOAT_PLAN, d)):
+                    enc, dec = SERVICE_KERNELS[name]
+                    (frame, info), dt_c, l_c = group(f"{label} compress", lambda: c.compress_bytes(
+                        data, name, chunk_bytes=CHUNK_BYTES), enc)
+                    (back, _), dt_d, l_d = group(f"{label} decompress",
+                                                 lambda: c.decompress_bytes(frame), dec)
+                    n = -(-len(data) // CHUNK_BYTES)
+                    if back != data:
+                        fail(f"frontend {label}: the decompressed bytes differ from the input")
+                    if frame != svc["frames"][label]:
+                        fail(f"frontend {label}: the container differs from the threaded server's")
+                    if frame != offline_container(plans[name], data, CHUNK_BYTES):
+                        fail(f"frontend {label}: the container differs from the offline one")
+                    if info["chunks"] != n or frame[:4] != wire.CONTAINER_MAGIC:
+                        fail(f"frontend {label}: {info['chunks']} chunks, expected {n}")
+                    alone[label] = dt_c
+                    print(f"frontend {label} through {name}: raw_bytes={len(data)}"
+                          f" packed_bytes={len(frame)} ratio={len(data) / len(frame)}"
+                          f" compress_MBps={len(data) / dt_c / 1e6}"
+                          f" decompress_MBps={len(data) / dt_d / 1e6} compress_s={dt_c}"
+                          f" decompress_s={dt_d} chunks={n} compress_launches={json.dumps(l_c)}"
+                          f" decompress_launches={json.dumps(l_d)}")
+                    prefix = data[:PREFIX_BYTES]
+                    rt.resolve_cache_clear()
+                    rt.coder_cache_clear()
+                    card, _, _ = group(f"{label} prefix", lambda: c.compress_bytes(
+                        prefix, name, chunk_bytes=PREFIX_CHUNK_BYTES)[0])
+                    if card != svc["cpu_prefix"][label]:
+                        fail(f"frontend {label} prefix: the card's container differs from the CPU's")
+                    print(f"check frontend {label}: decoded equal; the container == the threaded"
+                          f" server's and the offline compress_file's on the card; the 4 MiB"
+                          f" prefix's at 1 MiB chunks == the CPU's ({len(card)} bytes)")
+
+            # 2. two requests written back to back on one raw socket
+            pipe_in = ((SERVICE_RECORD_PLAN, a[:FRONTEND_PIPELINE_BYTES]),
+                       (SERVICE_FLOAT_PLAN, d[:FRONTEND_PIPELINE_BYTES]))
+            blobs = [request_bytes(SP, {"plan": name, "size": len(x), "chunk_bytes": CHUNK_BYTES},
+                                   x) for name, x in pipe_in]
+            raw = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            raw.settimeout(300.0)
+            raw.connect(path)
+            second_started, werr = threading.Event(), []
+
+            def writer():
+                # the first request and the second's first byte go out before
+                # any response byte is read; the rest of the second follows
+                # while the first's response is read (the server pauses
+                # reading while a request runs, so a 16 MiB second request
+                # cannot sit whole in the socket's buffer)
+                try:
+                    raw.sendall(blobs[0] + blobs[1][:1])
+                    second_started.set()
+                    raw.sendall(blobs[1][1:])
+                except OSError as err:
+                    werr.append(repr(err))
+                    second_started.set()
+
+            def pipeline():
+                w = threading.Thread(target=writer)
+                w.start()
+                second_started.wait(300.0)
+                r = raw.makefile("rb")
+                got = []
+                for _ in blobs:
+                    status, header, body = SP.read_response(r)
+                    got.append((status, header, body.read()))
+                w.join(300.0)
+                r.close()
+                return got
+
+            got, dt, launched = group("pipelined", pipeline,
+                                      enc_a + SERVICE_KERNELS[SERVICE_FLOAT_PLAN][0])
+            raw.close()
+            if werr:
+                fail(f"frontend pipelined: the writer failed: {werr}")
+            for (name, x), (status, header, body) in zip(pipe_in, got):
+                if status != SP.STATUS_OK or body != offline_container(plans[name], x, CHUNK_BYTES):
+                    fail(f"frontend pipelined {name}: status {status} {header}, or the container"
+                         " differs from the offline one")
+            print(f"frontend pipelined: 2 requests ({FRONTEND_PIPELINE_BYTES} bytes of A through"
+                  f" {SERVICE_RECORD_PLAN}, of D through {SERVICE_FLOAT_PLAN}) on one socket,"
+                  f" seconds={dt} launches={json.dumps(launched)}")
+            print("check frontend pipelined: two in-order responses, each == its offline"
+                  " container")
+
+            # 3. the crowd: idle and slow-loris sockets parked, then A, then
+            # the eight clients with a ninth pinging
+            settle(0, "before the crowd")
+            # A alone, warm (the pool's sessions were built by the first
+            # request), then A with the crowd parked: the pair the crowd is
+            # read against
+            warm, crowded = [], []
+
+            def a_compress(label, into):
+                with ServiceClient(address, timeout=300.0) as c:
+                    (frame, _), dt, launched = group(label, lambda: c.compress_bytes(
+                        a, SERVICE_RECORD_PLAN, chunk_bytes=CHUNK_BYTES), enc_a)
+                if frame != svc["frames"]["A"]:
+                    fail(f"frontend {label}: A's container differs from the threaded server's")
+                into.append(dt)
+                return launched
+
+            for _ in range(FRONTEND_A_TURNS):
+                a_compress("A compress, warm alone", warm)
+            parked = []
+
+            def dial():
+                s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                s.settimeout(60.0)
+                s.connect(path)
+                parked.append(s)
+                return s
+
+            for _ in range(FRONTEND_IDLE):
+                dial()
+            t_loris = time.monotonic()
+            lorises = [dial() for _ in range(FRONTEND_LORIS)]
+            for i, s in enumerate(lorises):
+                s.sendall(blobs[0][: 1 + i % 7])
+            n_parked = FRONTEND_IDLE + FRONTEND_LORIS
+            settle(n_parked, "parking the crowd")
+            for _ in range(FRONTEND_A_TURNS):
+                launched = a_compress("A compress, crowd parked", crowded)
+            print(f"frontend A with {n_parked} sockets parked: compress_s={crowded}"
+                  f" compress_MBps={len(a) / min(crowded) / 1e6}; warm alone just before:"
+                  f" compress_s={warm} compress_MBps={len(a) / min(warm) / 1e6};"
+                  f" parked_over_warm={min(crowded) / min(warm)} (best of {FRONTEND_A_TURNS}"
+                  f" each; the first, cold request: compress_s={alone['A']})"
+                  f" launches={json.dumps(launched)}")
+            slices = [a[i * SERVICE_SLICE_STEP: i * SERVICE_SLICE_STEP + SERVICE_SLICE_BYTES]
+                      for i in range(SERVICE_CLIENTS)]
+            rtts, ping_errors, crowd_done = [], [], threading.Event()
+
+            def pinger():
+                try:
+                    with ServiceClient(address, timeout=60.0) as pc:
+                        while not crowd_done.is_set():
+                            t1 = time.perf_counter()
+                            pc.ping()
+                            rtts.append(time.perf_counter() - t1)
+                            crowd_done.wait(0.005)
+                except Exception as err:  # reported below, then fail
+                    ping_errors.append(repr(err))
+
+            ping_thread = threading.Thread(target=pinger)
+            ping_thread.start()
+            try:
+                (frames, backs, secs, errors), dt, launched = group(
+                    "crowd", lambda: run_clients(ServiceClient, address, slices), enc_a + dec_a)
+            finally:
+                crowd_done.set()
+                ping_thread.join(60.0)
+            if errors or ping_errors or not rtts:
+                fail(f"frontend crowd: client errors {errors}, ping errors {ping_errors}")
+            for i in range(SERVICE_CLIENTS):
+                if backs[i] != slices[i]:
+                    fail(f"frontend crowd client {i}: the decompressed slice differs")
+                if frames[i] != offline_container(plans[SERVICE_RECORD_PLAN], slices[i],
+                                                  CHUNK_BYTES):
+                    fail(f"frontend crowd client {i}: the container differs from the offline one")
+            with ServiceClient(address, timeout=60.0) as c:
+                st = c.stats()
+            total = SERVICE_CLIENTS * SERVICE_SLICE_BYTES
+            print(f"frontend crowd: {SERVICE_CLIENTS} clients at once, {SERVICE_SLICE_BYTES} bytes"
+                  f" each, beside {FRONTEND_IDLE} idle and {FRONTEND_LORIS} slow-loris sockets;"
+                  f" compress_MBps={total / secs['compress'] / 1e6} ({secs['compress']} s)"
+                  f" decompress_MBps={total / secs['decompress'] / 1e6} ({secs['decompress']} s)"
+                  f" group_seconds={dt} launches={json.dumps(launched)}")
+            print(f"frontend crowd ping (a ninth client, ms): n={len(rtts)} p50={q(rtts, 0.5)}"
+                  f" p99={q(rtts, 0.99)} max={max(rtts) * 1e3}; latency (stats verb, ms): "
+                  + ", ".join(f"{v}: n={x['n']} p50={x['p50_ms']} p99={x['p99_ms']}"
+                              for v, x in sorted(st["latency"].items())))
+            reaped = []
+            for i, s in enumerate(lorises):
+                s.settimeout(max(0.1, t_loris + FRONTEND_REQUEST_TIMEOUT + 5.0 - time.monotonic()))
+                try:
+                    while s.recv(65536):
+                        pass
+                except (ConnectionResetError, BrokenPipeError):
+                    pass
+                except socket.timeout:
+                    fail(f"frontend crowd: loris {i} not reaped within"
+                         f" {FRONTEND_REQUEST_TIMEOUT + 5.0} s")
+                reaped.append(time.monotonic() - t_loris)
+                s.close()
+            settle(FRONTEND_IDLE, "after the crowd")
+            print(f"check frontend crowd: every container == its offline twin, every slice decoded"
+                  f" equal; {FRONTEND_LORIS} lorises reaped {min(reaped)}-{max(reaped)} s after"
+                  f" their first bytes (deadline {FRONTEND_REQUEST_TIMEOUT} s);"
+                  f" active_connections back to {FRONTEND_IDLE}")
+            for s in parked:
+                s.close()
+            settle(0, "after closing the idle crowd")
+
+            # 4. one A request under torch.profiler, then one with a clock
+            # around each host stage and cProfile on the compute thread's
+            # handle (cProfile under Python 3.12 sees every thread and
+            # misattributes calls that interleave across them; around handle
+            # the loop thread only ticks in select)
+            prof = {}
+            with ServiceClient(address, timeout=300.0) as c:
+                c.ping()
+                profile_device("frontend A compress (struct:8, 4 MiB chunks)",
+                               lambda: c.compress_bytes(a, SERVICE_RECORD_PLAN,
+                                                        chunk_bytes=CHUNK_BYTES), prof)
+                timed = {name: 0.0 for name in FRONTEND_HOST_STAGES}
+                host = cProfile.Profile()
+
+                def clocked(fn, name):
+                    def call(*args, **kw):
+                        t1 = time.perf_counter()
+                        try:
+                            return fn(*args, **kw)
+                        finally:
+                            timed[name] += (time.perf_counter() - t1) * 1e3
+                    return call
+
+                def clocked_chunks(*args, **kw):
+                    pieces = saved_chunks(*args, **kw)
+                    while True:
+                        t1 = time.perf_counter()
+                        piece = next(pieces, None)
+                        timed["_response_chunks"] += (time.perf_counter() - t1) * 1e3
+                        if piece is None:
+                            return
+                        yield piece
+
+                def profiled_handle(*args, **kw):  # on the compute thread
+                    host.enable()
+                    try:
+                        return saved_handle(*args, **kw)
+                    finally:
+                        host.disable()
+
+                saved_feed, saved_chunks = FE.FrameParser.feed, FE._response_chunks
+                saved_file, saved_handle = stream_io.compress_file, core.handle
+                FE.FrameParser.feed = clocked(saved_feed, "feed")
+                FE._response_chunks = clocked_chunks
+                stream_io.compress_file = clocked(saved_file, "compress_file")
+                core.handle = clocked(profiled_handle, "handle")
+                fe._pump_write = clocked(fe._pump_write, "_pump_write")
+                try:
+                    t1 = time.perf_counter()
+                    frame, _ = c.compress_bytes(a, SERVICE_RECORD_PLAN, chunk_bytes=CHUNK_BYTES)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t1) * 1e3
+                finally:
+                    FE.FrameParser.feed, FE._response_chunks = saved_feed, saved_chunks
+                    stream_io.compress_file, core.handle = saved_file, saved_handle
+                    del fe._pump_write
+            if frame != svc["frames"]["A"]:
+                fail("frontend profile: A's container differs from the threaded server's")
+            cum = {}
+            for (src, _line, name), v in pstats.Stats(host).stats.items():
+                if (os.path.basename(src), name) in (("server.py", "handle"),
+                                                     ("stream_io.py", "compress_file")):
+                    cum[name] = cum.get(name, 0.0) + v[3] * 1e3
+            sp = svc["profile"]
+            print(f"profile frontend A ({SERVICE_RECORD_PLAN}, one call each, this run):"
+                  f" torch.profiler wall_ms={prof['wall_ms']} device_busy_ms={prof['busy_ms']}"
+                  f" idle_share={prof['idle_share']}; clocked wall_ms={wall_ms}"
+                  f" host_clocked_ms (a clock around each call): {json.dumps(timed)}"
+                  f" host_cumulative_ms (cProfile on the compute thread): {json.dumps(cum)};"
+                  f" the service phase's same request: torch.profiler wall_ms={sp['wall_ms']}"
+                  f" device_busy_ms={sp['busy_ms']} idle_share={sp['idle_share']}, its request"
+                  f" core on one thread under cProfile, host_cumulative_ms:"
+                  f" {json.dumps(sp['host_ms'])}")
+
+            # 5. stop() while an A compress holds a pooled session on a
+            # compute thread: its compress_file waits at a gate that opens
+            # only after stop() is issued, so all of its card work runs after
+            blob = request_bytes(SP, {"plan": SERVICE_RECORD_PLAN, "size": len(a),
+                                      "chunk_bytes": CHUNK_BYTES}, a)
+            raw = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            raw.settimeout(300.0)
+            raw.connect(path)
+            held, release = threading.Event(), threading.Event()
+            compress_file = stream_io.compress_file
+
+            def gated(*args, **kw):  # on the compute thread, its session checked out
+                held.set()
+                release.wait(120.0)
+                return compress_file(*args, **kw)
+
+            def in_flight():
+                before = len(finished)
+                stream_io.compress_file = gated
+                try:
+                    raw.sendall(blob)
+                    if not held.wait(120.0):
+                        fail("frontend stop: the A request never reached compress_file")
+                    with ServiceClient(address, timeout=30.0) as pc:
+                        t1 = time.perf_counter()
+                        pc.ping()  # the loop answers while a compute thread holds A
+                        ping_ms = (time.perf_counter() - t1) * 1e3
+                    in_use = core.pool.total_in_use()
+                    t_stop = time.perf_counter()
+                    fe.stop()
+                    release.set()
+                    loop.join(FRONTEND_STOP_JOIN_S)
+                    join_s = time.perf_counter() - t_stop
+                finally:
+                    release.set()
+                    stream_io.compress_file = compress_file
+                torch.cuda.synchronize()
+                try:
+                    tail = raw.recv(65536)
+                except ConnectionResetError:
+                    tail = b""
+                return before, in_use, t_stop, ping_ms, join_s, tail
+
+            (before, in_use, t_stop, ping_ms, join_s, tail), _, launched = group(
+                "stop in flight", in_flight, enc_a)
+            stopped = True
+            raw.close()
+            if loop.is_alive():
+                fail(f"frontend stop: the loop thread is alive {FRONTEND_STOP_JOIN_S} s after"
+                     " stop()")
+            if in_use != 1 or [size for size, _ in finished[before:]] != [len(a)]:
+                fail(f"frontend stop: {in_use} sessions checked out at stop(), requests ended"
+                     f" {finished[before:]}")
+            end_after_stop = finished[-1][1] - t_stop
+            if not 0.0 < end_after_stop <= join_s:
+                fail(f"frontend stop: the A request ended {end_after_stop} s after stop(), the"
+                     f" loop {join_s} s after")
+            if core.pool.total_in_use() or tail:
+                fail(f"frontend stop: {core.pool.total_in_use()} sessions checked out, or a"
+                     f" response on a closed connection ({len(tail)} bytes)")
+            counters = core.counters()
+            if counters["errors"] != FRONTEND_LORIS or counters["shed"] or (
+                    fe.transport_stats()["shed_connections"]):
+                fail(f"frontend: errors {counters['errors']} (the {FRONTEND_LORIS} reaped"
+                     f" lorises only), shed {counters['shed']}, {fe.transport_stats()}")
+            print(f"frontend stop in flight: ping while A was held ping_ms={ping_ms}; stop() to"
+                  f" the request's end {end_after_stop} s, to the loop's exit {join_s} s;"
+                  f" launches={json.dumps(launched)};"
+                  f" transport {json.dumps(fe.transport_stats())}; requests"
+                  f" {json.dumps(counters['requests'])}")
+            print("check frontend stop: stop() issued while A held a pooled session, its card"
+                  " work ran after, serve_forever returned after the request ended, the loop"
+                  " thread exited, torch.cuda.synchronize() raised nothing, no session checked"
+                  " out before core.close(); errors are the reaped lorises only")
+        finally:
+            if not stopped:
+                fe.stop()
+                loop.join(FRONTEND_STOP_JOIN_S)
+            core.close()
+
+    print(f"frontend launches {json.dumps(totals)}")
+    print(f"frontend phase seconds={time.perf_counter() - t_phase}")
+    return totals
 
 
 def graph_edges(rt) -> None:
@@ -3968,10 +4498,11 @@ def profile_call(label: str, fn) -> dict:
     return ours
 
 
-def profile_device(label: str, fn):
+def profile_device(label: str, fn, into=None):
     """One call of ``fn`` under torch.profiler: prints its wall ms, the card's
     busy ms and idle share, the top device rows and the port's kernels' ms
-    -> (kernels' ms, ``fn()``'s result, wall seconds)."""
+    (also into the dict ``into``, where one is given) -> (kernels' ms,
+    ``fn()``'s result, wall seconds)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4005,6 +4536,8 @@ def profile_device(label: str, fn):
     print(f"profile {label}: wall_ms={wall_ms} device_busy_ms={busy_ms}"
           f" idle_share={1 - busy_ms / wall_ms} top_device_ms: {top}"
           f" port_kernels_ms: {json.dumps(ours)}")
+    if into is not None:
+        into.update(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
     return ours, out, wall_ms / 1e3
 
 
@@ -4084,7 +4617,8 @@ def main() -> None:
     sessions_launches = sessions_phase(cols, graph_calls, rt, ops)
     checkpoint_launches = checkpoint_phase(rt, ops, args.seed)
     cli_launches = cli_phase(cols, csv_calls, rt, ops)
-    service_launches = service_phase(cols, rt, ops)
+    service_launches, service_out = service_phase(cols, rt, ops)
+    frontend_launches = frontend_phase(cols, rt, ops, service_out)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
@@ -4095,6 +4629,7 @@ def main() -> None:
         r["checkpoint_launches"] = checkpoint_launches[r["name"]]
         r["cli_launches"] = cli_launches[r["name"]]
         r["service_launches"] = service_launches[r["name"]]
+        r["frontend_launches"] = frontend_launches[r["name"]]
     level_phase(cols, rt, ops)
     profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
     identity = nvidia_smi("name,power.limit")

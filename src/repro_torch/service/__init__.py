@@ -17,13 +17,19 @@ Public API:
     Plan registry ......... repro_torch.service.registry  (id + content digest)
     Verb engine ........... repro_torch.service.server    (RequestCore)
     Threaded daemon ....... repro_torch.service.server    (CompressionServer)
+    Event-loop frontend ... repro_torch.service.frontend  (ServiceFrontend)
     Blocking client ....... repro_torch.service.client    (ServiceClient)
     Rate limiting ......... repro_torch.service.ratelimit (RateLimiter)
     Metrics rendering ..... repro_torch.service.metrics   (render_prometheus)
 
-The reference's pre-forked multi-process plane (``ServiceFrontend``,
-``ServicePlane``) is not ported yet: a forked child cannot use a CUDA context
-made in its parent, so the port's workers will be spawned.
+Two server embeddings share that core: the threaded
+:class:`~repro_torch.service.server.CompressionServer` (a thread a
+connection) and :class:`~repro_torch.service.frontend.ServiceFrontend`, one
+``selectors`` event loop over every connection whose compute threads alone
+run requests on the card.  The reference's pre-forked multi-process plane
+(``ServicePlane``, one frontend a worker) is not ported yet: a forked child
+cannot use a CUDA context made in its parent, so the port's workers will be
+spawned.
 """
 from .protocol import (  # noqa: F401
     PROTOCOL_VERSION,
@@ -37,5 +43,6 @@ from .client import (  # noqa: F401
     ServiceClient,
     ServiceUnavailable,
 )
+from .frontend import ServiceFrontend  # noqa: F401
 from .ratelimit import RateLimiter  # noqa: F401
 from .metrics import render_prometheus  # noqa: F401

@@ -74,7 +74,7 @@ def test_the_scan_covers_the_service_slices_modules():
     port = REPO / "src" / "repro_torch"
     for rel in ("service/__init__.py", "service/protocol.py", "service/registry.py",
                 "service/server.py", "service/client.py", "service/ratelimit.py",
-                "service/metrics.py", "reliability/failover.py"):
+                "service/metrics.py", "service/frontend.py", "reliability/failover.py"):
         assert port / rel in PORT_FILES
 
 
@@ -84,7 +84,7 @@ def test_importing_the_port_loads_nothing_forbidden_and_no_cuda():
         " repro_torch.kernels._build, repro_torch.core.stream_io,"
         " repro_torch.reliability.crashkill, repro_torch.distributed.checkpoint,"
         " repro_torch.data, repro_torch.core.serialize, repro_torch.cli,"
-        " repro_torch.service, repro_torch.reliability.failover\n"
+        " repro_torch.service, repro_torch.service.frontend, repro_torch.reliability.failover\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(bad, torch.cuda.is_initialized())\n" % (FORBIDDEN,)
     )
@@ -94,6 +94,20 @@ def test_importing_the_port_loads_nothing_forbidden_and_no_cuda():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] False"
+
+
+def test_importing_the_frontend_alone_loads_nothing_forbidden_and_no_cuda():
+    code = (
+        "import sys, repro_torch.service.frontend as f, torch\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad, torch.cuda.is_initialized(), f.ServiceFrontend.__name__)\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False ServiceFrontend"
 
 
 def test_entry_point_without_a_card_raises(monkeypatch):
