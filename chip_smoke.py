@@ -333,7 +333,38 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              ``torch.cuda.synchronize()`` raises nothing, no session is
              checked out before ``core.close()``.  Launch counts are reset
              before and read after each request group.
-14. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
+14. signatures — codec signatures and the plan type-checker
+             (``repro_torch.analysis``) on the card, after the frontend
+             phase: every single-input codec on each of the reference
+             probe's seven atoms (SERIAL, STRING, STRUCT(3), NUMERIC(1/2/4/8);
+             ``tests/test_analysis.py``'s samples repeated to 1 MiB of card
+             streams, 64 KiB for ``lz77`` and the three host leaves) through
+             ``CodecSpec.run_encode``: where the signature accepts, the
+             outputs stay on the card and ``run_decode(device="cuda")`` gives
+             the input back (compared on the card); where it refuses, the
+             encode raises ``ValueError`` (never ``KernelError``) with no
+             launch, and ``check_plan`` flags the same wiring; the
+             accept/refuse matrix on one line, and every kernel but K16
+             launched over the probe.  ``check_plan`` of every plan the
+             other phases compress through at its real inputs' atoms
+             (columns A-G, S, R, T, C1, C2, G1, G2, the sessions' plans, the
+             checkpoint route tree's ten dtypes and the Llama leaves, the
+             CLI's ``generic``, ``struct:8`` and two trained plan files, the
+             service's two plans, the level-7 plans), each clean, with its
+             host ms.  A's ``numeric_profile`` compress from an empty
+             resolve cache, ``RESOLVE_CHECK_PAIRS`` pairs in turns with
+             ``set_resolve_check`` off and on, writes the main phase's frame
+             every time (the medians of each and of the pairs' differences
+             printed); each ``tests/illtyped`` plan on 1 MiB
+             card streams of a type it refuses raises ``PlanTypeError`` with
+             its manifest's code and launches nothing.  A
+             ``RequestCore(device="cuda")``'s registry refuses the five with
+             ``error_kind="ill_typed_plan"`` and stays empty, then serves A
+             through ``struct:8``, its container equal to the offline one;
+             one ``python -m repro_torch lint --json`` child exits 1 with each
+             file's code (its wall seconds); ``inspect`` of the main phase's
+             A frame prints an ``  :: in -> out`` suffix on every node line.
+15. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -343,19 +374,19 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-15. profile — one more compress and one decompress per plan and column under
+16. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
              the records phase's, the CSV phase's and the graph phase's calls.
-16. identity — the card's name and power limit.
+17. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
 ``records_launches``, ``csv_launches``, ``graph_launches``,
 ``sessions_launches``, ``checkpoint_launches``, ``cli_launches``,
-``service_launches`` and ``frontend_launches``), the
+``service_launches``, ``frontend_launches`` and ``signatures_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -366,6 +397,7 @@ import json
 import os
 import re
 import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -684,6 +716,16 @@ FRONTEND_STOP_JOIN_S = 30.0
 FRONTEND_A_TURNS = 2  # A compresses alone (warm), then as many with the crowd parked
 # the frontend's A request's host stages, each timed by a clock around its calls
 FRONTEND_HOST_STAGES = ("feed", "_pump_write", "_response_chunks", "handle", "compress_file")
+# the signatures phase: the reference probe's seven concrete atoms (SERIAL,
+# STRING, STRUCT(3), NUMERIC(1/2/4/8)), its samples scaled to 1 MiB on the
+# card (the host leaves to 64 KiB), and the repeats of each plan's check
+SIG_ATOMS = ((0, 1), (3, 1), (1, 3), (2, 1), (2, 2), (2, 4), (2, 8))
+SIG_BYTES = 1 << 20
+SIG_HOST_BYTES = 64 << 10
+SIG_HOST_LEAVES = ("lz77", "zlib_backend", "lzma_backend", "bz2_backend")
+SIG_CHECK_REPEATS = 5
+# A's checked and unchecked compresses, timed in turns (the order flips each pair)
+RESOLVE_CHECK_PAIRS = 5
 
 
 def fail(msg: str) -> None:
@@ -2521,7 +2563,8 @@ def sessions_phase(cols, graph_calls, rt, ops):
     ``DecompressorSession.iter_frames``; and
     ``compress_traced`` on A's 4 MiB.  The launch counts are reset just
     before and read just after each call.  Returns each kernel's launches
-    summed over the phase's calls."""
+    summed over the phase's calls, and its plans, each ``(label, plan,
+    stream, format_version)`` with a stream of that plan's input type."""
     import tempfile
 
     import torch
@@ -2784,7 +2827,11 @@ def sessions_phase(cols, graph_calls, rt, ops):
     print(f"sessions peak max_memory_allocated={torch.cuda.max_memory_allocated()}")
     print(f"sessions launches {json.dumps(totals)}")
     print(f"sessions phase seconds={time.perf_counter() - t_phase}")
-    return totals
+    a_typed = stream_of(rt, "A_timestamps_i64", col_a)
+    return totals, [("sessions A generic_profile", plan, a_typed, None),
+                    ("sessions A delta+transpose+zlib_backend", plain, a_typed, None),
+                    ("sessions C bfloat16_profile", plan_c, c, None),
+                    ("sessions G1 graph_profile", plan_g, rt.serial(raw), None)]
 
 
 def zipf_tokens(n: int, vocab: int, seed: int = 0, alpha: float = 1.2) -> np.ndarray:
@@ -2869,7 +2916,8 @@ def checkpoint_phase(rt, ops, seed: int):
     shards through
     ``CompressedShardStore``.  The launch counts are reset just before and
     read just after each save, restore and store call.  Returns each
-    kernel's launches summed over them."""
+    kernel's launches summed over them, and the plan of each dtype the
+    trees hold as ``(label, plan, stream, format_version)``."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2947,6 +2995,11 @@ def checkpoint_phase(rt, ops, seed: int):
     n_weights = sum(t.numel() for _, t in flat)
     if LLAMA_LAYERS == 16 and n_weights != LLAMA_WEIGHTS:
         fail(f"checkpoint: the Llama-3.2-1B tree holds {n_weights} weights")
+    # one stream of each dtype the tree holds, on the host: its type is all
+    # that the signatures phase reads of it
+    typed = [(f"checkpoint Llama-3.2-1B {dt}", ck._plan_for_dtype(dt)[0],
+              ck._to_numeric_stream(torch.zeros(1, dtype=t.dtype)), None)
+             for dt, t in {ck.dtype_name(t.dtype): t for _, t in flat}.items()]
     print(f"checkpoint tree Llama-3.2-1B layers={LLAMA_LAYERS} leaves={len(flat)}"
           f" weights={n_weights} bytes={raw_bytes}: "
           + " ".join(f"{k}={tuple(t.shape)}" for k, t in flat))
@@ -2963,6 +3016,8 @@ def checkpoint_phase(rt, ops, seed: int):
         print(f"check checkpoint {key}[:{CKPT_SLICE}]: card frame == cpu frame"
               f" ({len(card)} bytes, ratio {part.numel() * 2 / len(card)}), decoded on the card")
     arrays = route_arrays(seed)
+    typed += [(f"checkpoint route {name}", ck._plan_for_dtype(name)[0],
+               ck._to_numeric_stream(torch.from_numpy(a)), None) for name, a in arrays.items()]
     route = {name: torch.from_numpy(a).to("cuda") for name, a in arrays.items()}
     with tempfile.TemporaryDirectory() as tmp:
         rt.resolve_cache_clear()
@@ -3124,7 +3179,7 @@ def checkpoint_phase(rt, ops, seed: int):
     ck.close_codec_sessions()
     print(f"checkpoint launches {json.dumps(totals)}")
     print(f"checkpoint phase seconds={time.perf_counter() - t_phase}")
-    return totals
+    return totals, typed
 
 
 def cli_phase(cols, csv_calls, rt, ops):
@@ -3136,7 +3191,9 @@ def cli_phase(cols, csv_calls, rt, ops):
     damaged, every tracked plan file read and written without ``msgpack``,
     and two ``python -m repro_torch`` children.  Each in-process call runs
     through ``cli.main(argv)`` with the launch counts reset just before and
-    read just after it.  Returns each kernel's launches summed over them."""
+    read just after it.  Returns each kernel's launches summed over them,
+    and the plans it compressed through as ``(label, plan, stream,
+    format_version)``."""
     import contextlib
     import glob
     import io
@@ -3208,6 +3265,9 @@ def cli_phase(cols, csv_calls, rt, ops):
         a = cols["A_timestamps_i64"].tobytes()
         with open(at("A.bin"), "wb") as f:
             f.write(a)
+        typed = [("cli A generic", rt.resolve_profile_spec("generic"), rt.serial(a), None),
+                 (f"cli A {CLI_RECORD_PROFILE}", rt.resolve_profile_spec(CLI_RECORD_PROFILE),
+                  rt.serial(a), None)]
         _, out, _, dt, launched = run("compress A", ["compress", at("A.bin")])
         if f"{len(a) // CHUNK_BYTES} chunk(s), container" not in out:
             fail(f"cli compress A: {out.strip()}")
@@ -3282,6 +3342,9 @@ def cli_phase(cols, csv_calls, rt, ops):
                 fail(f"cli {label}: no {family} plan accepts the full file")
             if not launched:
                 fail(f"cli compress {label}: launched no kernel")
+            comp = rt.Compressor.deserialize(slurp(plan_path), device="cpu")
+            typed.append((f"cli {label} {family}_{p}.ozp", comp.plan, rt.serial(raw),
+                          comp.format_version))
             ozl = src + ".ozl"
             packed = os.path.getsize(ozl)
             report(f"compress {label} --plan {family}_{p}", len(raw), packed, dt, out, launched)
@@ -3404,7 +3467,7 @@ def cli_phase(cols, csv_calls, rt, ops):
 
     print(f"cli launches {json.dumps(totals)}")
     print(f"cli phase seconds={time.perf_counter() - t_phase}")
-    return totals
+    return totals, typed
 
 
 def float32_bytes_plan(rt):
@@ -3794,8 +3857,10 @@ def service_phase(cols, rt, ops):
 
     print(f"service launches {json.dumps(totals)}")
     print(f"service phase seconds={time.perf_counter() - t_phase}")
+    typed = [(f"service {name}", plans[name], rt.serial(data), None)
+             for name, data in ((SERVICE_RECORD_PLAN, a), (SERVICE_FLOAT_PLAN, d))]
     return totals, {"frames": {"A": frame_a, "D": frame_d}, "cpu_prefix": cpu_prefix,
-                    "profile": profile}
+                    "profile": profile, "typed": typed}
 
 
 def request_bytes(SP, header: dict, data: bytes) -> bytes:
@@ -4360,6 +4425,370 @@ def graph_sweep(rt, files) -> None:
         print(line)
 
 
+def sig_sample(rt, atom, codec: str, nbytes: int):
+    """The reference probe's value-level sample of ``atom`` for ``codec``
+    (``tests/test_analysis.py``'s ``_sample``), its pattern repeated to at
+    least ``nbytes``, on the card -> (stream, params as ``_params_for``)."""
+    import torch
+
+    st, w = atom
+
+    def rep(unit: bytes) -> bytes:
+        return unit * -(-nbytes // len(unit))
+
+    if st == 0:
+        if codec == "csv_split":
+            raw = rep(b"1,2\n3,4\n5,6\n")
+        elif codec == "edge_list":
+            raw = rep(b"0 1\n0 2\n1 2\n2 3\n")
+        elif codec == "edge_list_bin":
+            raw = rep(np.array([0, 1, 0, 2, 1, 2], np.uint32).tobytes())
+        elif codec == "constant":
+            raw = rep(b"\x07")
+        else:
+            raw = rep(bytes(range(16)))
+        strm = rt.serial(np.frombuffer(raw, np.uint8).copy())
+    elif st == 3:
+        k = -(-nbytes // 19)  # "alphabetagammaalpha": 19 bytes a group of four
+        strm = rt.strings([b"alpha", b"beta", b"gamma", b"alpha"] * k)
+    elif st == 1:
+        raw = rep(b"abc") if codec == "constant" else rep(bytes(range(48)))
+        strm = rt.struct(np.frombuffer(raw, np.uint8).copy(), 3)
+    else:
+        n = -(-nbytes // w)
+        dt = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[w]
+        if codec == "constant":
+            vals = np.full(n, 5, dt)
+        else:  # the probe's ramp, stretched: deltas of 0 and 1 at every width
+            vals = (np.arange(n, dtype=np.uint64) * min(n, 1 << (8 * w)) // n).astype(dt)
+        strm = rt.numeric(vals)
+    strm = rt.Stream(strm.data.to("cuda"), strm.stype, strm.width, strm.lengths)
+    torch.cuda.synchronize()
+    if codec == "split_n":
+        params = {"sizes": [strm.n_elts // 2, strm.n_elts - strm.n_elts // 2]}
+    elif codec == "field_split":
+        params = {"widths": [1, 2]} if st == 1 else {"widths": [1]}
+    elif codec == "interpret_numeric":
+        params = {"width": 2}
+    elif codec == "float_split":
+        params = {"fmt": {2: 0, 4: 2, 8: 3}.get(w, 2)}
+    elif codec == "edge_list_bin":
+        params = {"width": 4}
+    else:
+        params = {}
+    return strm, params
+
+
+def same_on_card(got, want) -> bool:
+    """Two streams equal in type, lengths and bytes, compared on the card."""
+    import torch
+
+    if (got.stype, got.width) != (want.stype, want.width):
+        return False
+    if (got.lengths is None) != (want.lengths is None):
+        return False
+    if got.lengths is not None and not np.array_equal(np.asarray(got.lengths),
+                                                      np.asarray(want.lengths)):
+        return False
+    a, b = got.raw(), want.raw()
+    return a.device.type == "cuda" and a.numel() == b.numel() and bool(torch.equal(a, b))
+
+
+def signature_probe(rt, ops, totals: dict) -> None:
+    """Every single-input codec on each of the reference probe's seven atoms
+    at ``SIG_BYTES`` on the card (``SIG_HOST_BYTES`` for the host leaves):
+    where its signature accepts, the encode's outputs stay on the card and
+    the decode gives the input back; where it refuses, the encode raises
+    ``ValueError`` (never ``KernelError`` or another ``RuntimeError``) with
+    no launch, and ``check_plan`` flags the same wiring."""
+    import torch
+    from repro_torch.analysis import check_plan
+    from repro_torch.core.codec import all_codecs
+
+    matrix, launched_by = {}, {}
+    for name, spec in sorted(all_codecs().items()):
+        if spec.n_inputs != 1:
+            continue
+        row = ""
+        nbytes = SIG_HOST_BYTES if name in SIG_HOST_LEAVES else SIG_BYTES
+        for atom in SIG_ATOMS:
+            strm, params = sig_sample(rt, atom, name, nbytes)
+            accepts = spec.sig.inputs[0].accepts(atom)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            err = None
+            try:
+                outs, header = spec.run_encode([strm], params)
+            except Exception as e:  # noqa: BLE001 - the probe judges the type below
+                err = e
+            torch.cuda.synchronize()
+            enc = ops.launch_counts()
+            if not accepts:
+                if not isinstance(err, ValueError) or isinstance(err, ops.KernelError):
+                    fail(f"signatures {name} on {atom}: refused with"
+                         f" {type(err).__name__}: {err}, not a codec's ValueError")
+                if any(enc.values()):
+                    fail(f"signatures {name} on {atom}: refused after launching"
+                         f" {({k: v for k, v in enc.items() if v})}")
+                g = rt.GraphBuilder(1)
+                g.add(name, g.input(0), n_out=spec.n_outputs if spec.n_outputs >= 0 else 2,
+                      **params)
+                if check_plan(g.build(), input_atoms=[atom]).ok:
+                    fail(f"signatures {name} on {atom}: encode refuses, check_plan passes")
+                row += "r"
+                continue
+            if err is not None:
+                fail(f"signatures {name} on {atom}: accepted, but encode raised"
+                     f" {type(err).__name__}: {err}")
+            off_card = [o.data.device.type for o in outs if o.data.device.type != "cuda"]
+            if off_card:
+                fail(f"signatures {name} on {atom}: outputs left the card ({off_card})")
+            ops.reset_launches()
+            (back,) = spec.run_decode(outs, header, device="cuda")
+            torch.cuda.synchronize()
+            dec = ops.launch_counts()
+            if not same_on_card(back, strm):
+                fail(f"signatures {name} on {atom}: decode did not give the input back")
+            for k in totals:
+                totals[k] += enc[k] + dec[k]
+            launched_by[name] = sorted(set(launched_by.get(name, ())) | {
+                k for k in ops.KERNELS if enc[k] + dec[k]})
+            row += "A"
+        matrix[name] = row
+    for name, want in ENCODE_KERNELS_OF.items():
+        missing = [k for k in want + DECODE_KERNELS_OF[name] if k not in launched_by[name]]
+        if missing:
+            fail(f"signatures {name}: {missing} never launched ({launched_by[name]})")
+    missing = [k for k in ops.KERNELS if k != "lane_refill" and not totals[k]]
+    if missing:
+        fail(f"signatures: the probe never launched {missing}")
+    atoms = ",".join(f"({s},{w})" for s, w in SIG_ATOMS)
+    print(f"signatures matrix atoms=[{atoms}] (A accepted and round-tripped on the card,"
+          f" r refused with ValueError and no launch): {json.dumps(matrix)}")
+    print(f"signatures kernels by codec: {json.dumps(launched_by)}")
+
+
+def phase_plans(rt, cols, phase_calls: dict, typed: list):
+    """Every plan the other phases compress through, each with the atoms of
+    its real inputs (stype and width only: no card data is read) ->
+    [(label, plan, atoms, format_version)].  ``phase_calls`` holds the
+    container, records, csv and graph phases' calls by phase; ``typed``
+    the other phases' ``(label, plan, stream, format_version)``; the main
+    and level-7 phases' plans follow from ``column_plans`` and
+    ``LEVEL_COLUMNS``, which those phases read."""
+    from repro_torch.analysis import atoms_for_streams
+
+    sources = level_sources(cols)
+
+    def atoms_of(cname):
+        return atoms_for_streams([stream_of(rt, cname, sources[cname])])
+
+    out = [(f"main {cname} {pname}", PLANS[pname](rt), atoms_of(cname), None)
+           for cname, pname in column_plans(cols)]
+    for phase, calls in phase_calls.items():
+        for label, pname, plan, stream, *_rest in calls:
+            out.append((f"{phase} {label} {pname}", plan, atoms_for_streams([stream]), None))
+    out += [(label, plan, atoms_for_streams([stream]), fv)
+            for label, plan, stream, fv in typed]
+    out += [(f"level7 {cname} {pname}", PLANS[pname](rt), atoms_of(cname), None)
+            for cname, pname, _leaf in LEVEL_COLUMNS]
+    return out
+
+
+def signatures_phase(cols, frames, rt, ops, phase_calls: dict, typed: list):
+    """Codec signatures and the plan type-checker on the card
+    (``repro_torch.analysis``), after the frontend phase: the signature
+    probe (``signature_probe``); ``check_plan`` of every other phase's plan
+    at its inputs' real types, each clean, with its host ms; the resolve
+    check (``set_resolve_check``) on A's ``numeric_profile`` compress, frame
+    unchanged, and on the five ill-typed plans of ``tests/illtyped``, each
+    refused with its manifest's code and no launch; a ``RequestCore(device=
+    "cuda")``'s registry refusing them and serving A through ``struct:8``;
+    one ``python -m repro_torch lint --json`` child; ``inspect``'s typed node
+    lines on the main phase's A frame.  Returns each kernel's launches over
+    the probe's accepted calls and the A request."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from repro_torch import cli
+    from repro_torch.analysis import PlanTypeError, check_plan
+    from repro_torch.service import PlanRegistry, RequestCore
+    from repro_torch.service import protocol as SP
+
+    totals = {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+
+    # 1. every single-input codec's signature against its encoder on the card
+    t0 = time.perf_counter()
+    signature_probe(rt, ops, totals)
+    print(f"signatures probe seconds={time.perf_counter() - t0}")
+
+    # 2. every phase's plan at its real input types: clean, and what it costs
+    for label, plan, atoms, fv in phase_plans(rt, cols, phase_calls, typed):
+        t0 = time.perf_counter()
+        report = check_plan(plan, format_version=fv, input_atoms=atoms)
+        first = time.perf_counter() - t0
+        again = []
+        for _ in range(SIG_CHECK_REPEATS):
+            t0 = time.perf_counter()
+            check_plan(plan, format_version=fv, input_atoms=atoms)
+            again.append(time.perf_counter() - t0)
+        if not report.ok:
+            fail(f"signatures {label}: check_plan at {atoms} reports"
+                 f" {[str(d) for d in report.errors]}")
+        print(f"signatures check_plan {label} atoms={atoms} nodes={len(plan.nodes)}:"
+              f" clean, host_ms first={first * 1e3} min_of_{SIG_CHECK_REPEATS}="
+              f"{min(again) * 1e3} warnings={len(report.warnings)}")
+
+    # 3. the resolve check on the card
+    a_col = cols["A_timestamps_i64"]
+    a_plan = PLANS["numeric_profile"](rt)
+    a_stream = stream_of(rt, "A_timestamps_i64", a_col)
+    timed = {False: [], True: []}
+    for i in range(RESOLVE_CHECK_PAIRS):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            rt.resolve_cache_clear()  # the check runs on a resolve-cache miss
+            rt.set_resolve_check(on)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                frame = rt.compress(a_plan, a_stream, device="cuda")
+                torch.cuda.synchronize()
+                timed[on].append(time.perf_counter() - t0)
+            finally:
+                rt.set_resolve_check(False)
+            if frame != frames["A_timestamps_i64", "numeric_profile"]:
+                fail(f"signatures resolve check {'on' if on else 'off'}: A's frame differs"
+                     " from the main phase's")
+    med = {on: statistics.median(v) for on, v in timed.items()}
+    diff = statistics.median(b - a for a, b in zip(timed[False], timed[True]))
+    print(f"signatures resolve check A numeric_profile: frame equal on and off over"
+          f" {RESOLVE_CHECK_PAIRS} pairs in turns; compress seconds median off={med[False]}"
+          f" on={med[True]}, median of the pairs' on-off={diff};"
+          f" off={timed[False]} on={timed[True]}")
+    manifest_path = os.path.join(HERE, "tests", "illtyped", "manifest.json")
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    ill = {}
+    for fname, want in sorted(manifest.items()):
+        with open(os.path.join(HERE, "tests", "illtyped", fname), "rb") as f:
+            ill[fname] = f.read()
+        comp = rt.Compressor.deserialize(ill[fname])
+        atom = next(a for a in SIG_ATOMS if want["expect"] in {
+            d.code for d in check_plan(comp.plan, format_version=comp.format_version,
+                                       input_atoms=[a] * comp.plan.n_inputs).errors})
+        streams = [sig_sample(rt, atom, "", SIG_BYTES)[0] for _ in range(comp.plan.n_inputs)]
+        rt.resolve_cache_clear()
+        rt.set_resolve_check(True)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        try:
+            comp.compress(streams if len(streams) > 1 else streams[0], device="cuda",
+                          chunk_bytes=0)
+            fail(f"signatures resolve check {fname}: compressed an ill-typed plan")
+        except PlanTypeError as err:
+            codes = sorted({d["code"] for d in err.extra["diagnostics"]})
+        finally:
+            rt.set_resolve_check(False)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        if want["expect"] not in codes or got:
+            fail(f"signatures resolve check {fname}: codes {codes}, launches {got}")
+        print(f"signatures resolve check {fname} at {atom}: PlanTypeError {codes}, no launch")
+
+    # 4. the registry of a request core on the card, and lint in a child
+    reg = PlanRegistry()
+    core = RequestCore(reg, device="cuda", sessions_per_plan=1, request_timeout=300.0)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-sig-") as tmp:
+            for fname, blob in sorted(ill.items()):
+                path = os.path.join(tmp, fname)
+                with open(path, "wb") as f:
+                    f.write(blob)
+                t0 = time.perf_counter()
+                try:
+                    reg.register_file(path)
+                    fail(f"signatures registry: registered the ill-typed {fname}")
+                except PlanTypeError as err:
+                    kind = err.extra["error_kind"]
+                    codes = sorted({d["code"] for d in err.extra["diagnostics"]})
+                dt = time.perf_counter() - t0
+                if kind != "ill_typed_plan" or manifest[fname]["expect"] not in codes or len(reg):
+                    fail(f"signatures registry {fname}: {kind} {codes}, {len(reg)} registered")
+                print(f"signatures registry refuses {fname}: {kind} {codes}"
+                      f" host_ms={dt * 1e3}")
+        entry = reg.register_profile(SERVICE_RECORD_PLAN)
+        data = a_col.tobytes()
+        req = request_bytes(SP, {"plan": SERVICE_RECORD_PLAN, "size": len(data),
+                                 "chunk_bytes": CHUNK_BYTES}, data)
+
+        def one_request():
+            verb, header, body = SP.read_request(io.BytesIO(req))
+            resp, out = core.handle(verb, header, body)
+            try:
+                return resp, out.read()
+            finally:
+                out.close()
+
+        (resp, container), dt, launched = request_group(
+            ops, totals, "signatures registry A", one_request,
+            SERVICE_KERNELS[SERVICE_RECORD_PLAN][0])
+        if container != offline_container(entry.compressor.plan, data, CHUNK_BYTES):
+            fail("signatures registry: A's container differs from the offline one")
+        print(f"signatures registry A through {SERVICE_RECORD_PLAN} ({entry.digest[:12]}):"
+              f" container equal to the offline one, {len(container)} bytes,"
+              f" seconds={dt} launched={json.dumps(launched)}")
+    finally:
+        core.close()
+    files = [os.path.join("tests", "illtyped", f) for f in sorted(manifest)]
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", "repro_torch", "lint", "--json"]
+                           + files + ["generic"], capture_output=True, text=True,
+                           cwd=HERE, env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    if child.returncode != 1:
+        fail(f"signatures lint child: exit {child.returncode}: {child.stderr.strip()[-500:]}")
+    out = json.loads(child.stdout)
+    for t, fname in zip(out["targets"], sorted(manifest)):
+        codes = {d["code"] for d in t["diagnostics"]}
+        if t["target"] != os.path.join("tests", "illtyped", fname) or \
+                manifest[fname]["expect"] not in codes:
+            fail(f"signatures lint child: {t['target']} gave {sorted(codes)}")
+    if not out["targets"][-1]["ok"]:
+        fail("signatures lint child: generic is not clean")
+    print(f"signatures lint child: exit 1, {out['errors']} errors over"
+          f" {len(out['targets'])} targets, wall seconds={wall}")
+
+    # 5. inspect's typed node lines on the main phase's A frame
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sig-") as tmp:
+        path = os.path.join(tmp, "A.ozl")
+        with open(path, "wb") as f:
+            f.write(frames["A_timestamps_i64", "numeric_profile"])
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["inspect", path])
+        torch.cuda.synchronize()
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+    nodes = [ln for ln in buf.getvalue().splitlines() if ln.lstrip().startswith("node ")]
+    if rc != 0 or not nodes or got or not all("  :: " in ln for ln in nodes):
+        fail(f"signatures inspect: exit {rc}, launches {got}, lines {nodes}")
+    for ln in nodes:
+        print(f"signatures inspect A numeric_profile |{ln}")
+    print(f"signatures phase seconds={time.perf_counter() - t_phase}")
+    return totals
+
+
+def level_sources(cols) -> dict:
+    """The level-7 phase's columns by name: ``cols`` and H_tiled_f32."""
+    d = cols["D_weights_f32"]
+    return {**cols, "H_tiled_f32": np.resize(d[:TILE_VALUES], PREFIX_BYTES // d.itemsize)}
+
+
 def level_phase(cols, rt, ops) -> None:
     """The level-7 path on the card: each of ``LEVEL_COLUMNS`` through
     ``compress`` and back through ``decompress``, with the launch counts reset
@@ -4369,8 +4798,7 @@ def level_phase(cols, rt, ops) -> None:
     import torch
 
     ctx = rt.CompressionCtx(level=LEVEL)
-    d = cols["D_weights_f32"]
-    sources = {**cols, "H_tiled_f32": np.resize(d[:TILE_VALUES], PREFIX_BYTES // d.itemsize)}
+    sources = level_sources(cols)
     plans = {pname: PLANS[pname](rt) for _, pname, _ in LEVEL_COLUMNS}
     prefixes = {cname: sources[cname][: PREFIX_BYTES // sources[cname].itemsize]
                 for cname, _, _ in LEVEL_COLUMNS}
@@ -4614,11 +5042,16 @@ def main() -> None:
     record_calls, records_launches = records_phase(rt, ops, args.seed)
     csv_calls, csv_launches = csv_phase(rt, ops, args.seed)
     graph_calls, graph_launches = graph_phase(rt, ops, args.seed)
-    sessions_launches = sessions_phase(cols, graph_calls, rt, ops)
-    checkpoint_launches = checkpoint_phase(rt, ops, args.seed)
-    cli_launches = cli_phase(cols, csv_calls, rt, ops)
+    sessions_launches, sessions_typed = sessions_phase(cols, graph_calls, rt, ops)
+    checkpoint_launches, checkpoint_typed = checkpoint_phase(rt, ops, args.seed)
+    cli_launches, cli_typed = cli_phase(cols, csv_calls, rt, ops)
     service_launches, service_out = service_phase(cols, rt, ops)
     frontend_launches = frontend_phase(cols, rt, ops, service_out)
+    signatures_launches = signatures_phase(
+        cols, frames, rt, ops,
+        {"container": container_calls, "records": record_calls, "csv": csv_calls,
+         "graph": graph_calls},
+        sessions_typed + checkpoint_typed + cli_typed + service_out["typed"])
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
@@ -4630,6 +5063,7 @@ def main() -> None:
         r["cli_launches"] = cli_launches[r["name"]]
         r["service_launches"] = service_launches[r["name"]]
         r["frontend_launches"] = frontend_launches[r["name"]]
+        r["signatures_launches"] = signatures_launches[r["name"]]
     level_phase(cols, rt, ops)
     profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
     identity = nvidia_smi("name,power.limit")

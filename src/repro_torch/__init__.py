@@ -90,6 +90,7 @@ from .core import (  # noqa: F401
     resolve_cache_clear,
     resolve_cache_info,
     serial,
+    set_resolve_check,
     serialize_plan,
     strings,
     struct,

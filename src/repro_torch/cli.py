@@ -9,6 +9,7 @@ subcommands.
     python -m repro_torch inspect    corpus.ozl [--chunks N] [--verify]
     python -m repro_torch decompress corpus.ozl -o corpus.out [--salvage]
     python -m repro_torch profiles
+    python -m repro_torch lint       plan.ozp generic [--json]
     python -m repro_torch serve  --socket /tmp/ozl.sock --profile text --register plan.ozp
     python -m repro_torch client compress corpus.bin --socket /tmp/ozl.sock --plan-id text
 
@@ -19,11 +20,16 @@ the chosen device); without a card the default exits 2 with the
 :class:`~repro_torch.core.engine.CompressorSession` (``stream_io``), so a
 file above ``--chunk-bytes`` (4 MiB by default) becomes an ``OZLC``
 container.  ``inspect`` parses the embedded graph and stored streams on the
-host without decoding any payload; its node lines carry no ``:: in -> out``
-type annotation (the codec signatures are not ported).  ``serve`` runs the
+host without decoding any payload, and annotates each node with its inferred
+``  :: in -> out`` stream types (``repro_torch.analysis``).  ``lint``
+type-checks ``.ozp`` plans and profile specs statically: it takes no
+``--device``, launches nothing and exits 1 on a type error, 2 on an
+unreadable target.  ``serve`` runs the
 threaded compression daemon (``repro_torch.service``) in this process, on the
 card unless ``--device cpu`` is given (without a card it exits 2 with the
-``NoCardError`` message), until SIGINT or SIGTERM; the reference's
+``NoCardError`` message), until SIGINT or SIGTERM; an ill-typed
+``--register`` plan ends it with ``serve: plan ... is ill-typed: ...`` before
+any socket is bound.  The reference's
 ``--workers`` (its pre-forked plane) is not accepted yet.  ``client`` talks
 to a running daemon of either package and never touches the card.  Output
 files, exit codes and printed lines are the reference's.
@@ -167,17 +173,27 @@ def _codec_name(codec_id: int) -> str:
 
 def _print_frame(frame: bytes, indent: str = "") -> None:
     """Print one frame's embedded graph; its payloads stay on the host and
-    are never decoded."""
+    are never decoded.
+
+    Each node is annotated with its inferred input/output stream types
+    (``repro_torch.analysis`` over the codec signatures), still without
+    touching any payload bytes.
+    """
+    from .analysis import annotate_resolved_nodes
+
     version, n_inputs, nodes, stored = wire.read_frame(frame, "cpu")
     print(
         f"{indent}frame v{version}: {len(frame)} bytes, {n_inputs} input(s),"
         f" {len(nodes)} codec node(s), {len(stored)} stored stream(s)"
     )
+    node_types, _report = annotate_resolved_nodes(n_inputs, nodes, format_version=version)
     for i, node in enumerate(nodes):
         ins = ",".join(map(str, node.inputs))
+        in_t, out_t = node_types[i]
         print(
             f"{indent}  node {i:3d}  {_codec_name(node.codec_id):<20}"
             f" in=[{ins}] out={node.n_out} header={len(node.header)}B"
+            f"  :: {in_t or '-'} -> {out_t or '-'}"
         )
     payload_total = 0
     for eid in sorted(stored):
@@ -235,6 +251,57 @@ def _cmd_inspect(args) -> int:
             print(f"{path}: not an OZLJ frame or OZLC container", file=sys.stderr)
             return 2
     return 0
+
+
+def _cmd_lint(args) -> int:
+    """Static plan analysis: type-check ``.ozp`` plans / profile specs.
+
+    Exit 0 when every target is error-free (warnings and infos don't fail
+    the lint), 1 when any target has a type error, 2 on unreadable targets.
+    Nothing runs on a device.
+    """
+    import json
+
+    from .analysis import check_plan
+    from .codecs.profiles import resolve_profile_spec
+    from .core.serialize import deserialize_plan
+
+    results = []
+    broken = False
+    for target in args.targets:
+        path = Path(target)
+        try:
+            if path.exists():
+                plan, meta = deserialize_plan(path.read_bytes())
+                fv = meta.get("format_version")
+            else:  # not a file: treat as a profile spec (`generic`, `csv:3`)
+                plan, fv = resolve_profile_spec(target), None
+        except (ValueError, KeyError, OSError) as err:
+            broken = True
+            results.append({"target": str(target), "ok": False,
+                            "load_error": str(err), "diagnostics": []})
+            continue
+        report = check_plan(plan, format_version=fv)
+        results.append({"target": str(target), **report.to_dict()})
+
+    n_err = sum(
+        1 for r in results
+        for d in r["diagnostics"] if d["severity"] == "error"
+    )
+    if args.json:
+        print(json.dumps({"targets": results, "errors": n_err}, indent=1))
+    else:
+        for r in results:
+            verdict = "clean" if r["ok"] else "FAILED"
+            print(f"{r['target']}: {verdict}")
+            if r.get("load_error"):
+                print(f"  unreadable: {r['load_error']}")
+            for d in r["diagnostics"]:
+                loc = "".join(f" {k} {d[k]}" for k in ("node", "edge") if k in d)
+                print(f"  {d['severity']}[{d['code']}]{loc}: {d['message']}")
+    if broken:
+        return 2
+    return 1 if n_err else 0
 
 
 def _cmd_profiles(_args) -> int:
@@ -429,6 +496,15 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("profiles", help="list named profiles")
     p.set_defaults(fn=_cmd_profiles)
+
+    ln = sub.add_parser(
+        "lint", help="static type-check of .ozp plans / profile specs"
+    )
+    ln.add_argument("targets", nargs="+", metavar="PLAN.ozp|PROFILE",
+                    help="serialized plan files or profile specs to check")
+    ln.add_argument("--json", action="store_true",
+                    help="machine-readable diagnostics")
+    ln.set_defaults(fn=_cmd_lint)
 
     s = sub.add_parser(
         "serve", help="run the compression daemon (paper §VIII services)"

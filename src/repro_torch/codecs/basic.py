@@ -15,11 +15,23 @@ from typing import List
 import numpy as np
 import torch
 
-from ..core.codec import CodecSpec, register_codec
+from ..core.codec import (
+    ANY_STYPES,
+    FIXED_STYPES,
+    CodecSig,
+    CodecSpec,
+    InPort,
+    ParamSpec,
+    register_codec,
+)
 from ..core.message import Stream, SType
 from ._util import HeaderReader, HeaderWriter, expect_stream, fixed_records, rebuild_like
 
 _NO_LENGTHS = np.zeros(0, np.uint32)
+_SERIAL = int(SType.SERIAL)
+_STRUCT = int(SType.STRUCT)
+_NUMERIC = int(SType.NUMERIC)
+_STRING = int(SType.STRING)
 
 
 # --------------------------------------------------------------------- store
@@ -38,6 +50,10 @@ register_codec(
         encode=_store_enc,
         decode=_store_dec,
         doc="identity; terminal passthrough",
+        sig=CodecSig(
+            inputs=(InPort(ANY_STYPES),),
+            transfer=lambda atoms, params, n_out: [atoms[0]],
+        ),
     )
 )
 
@@ -61,6 +77,11 @@ register_codec(
         decode=_dup_dec,
         n_outputs=2,
         doc="explicit fan-out: one input, two identical outputs",
+        sig=CodecSig(
+            inputs=(InPort(ANY_STYPES),),
+            transfer=lambda atoms, params, n_out: [atoms[0], atoms[0]],
+            expansion=2.0,
+        ),
     )
 )
 
@@ -112,6 +133,10 @@ register_codec(
         n_outputs=0,
         wants_device=True,
         doc="all-equal stream -> header only (value + count); zero outputs",
+        sig=CodecSig(
+            inputs=(InPort(FIXED_STYPES),),
+            transfer=lambda atoms, params, n_out: [],
+        ),
     )
 )
 
@@ -161,6 +186,16 @@ register_codec(
         decode=_split_n_dec,
         n_outputs=-1,
         doc="split a stream into contiguous chunks (params: sizes=[...])",
+        sig=CodecSig(
+            inputs=(InPort(FIXED_STYPES),),
+            transfer=lambda atoms, params, n_out: (
+                None
+                if "sizes" in params and len(params["sizes"]) != n_out
+                else [atoms[0]] * n_out
+            ),
+            params=(ParamSpec("sizes", "int_list", required=True,
+                              doc="element counts per chunk; -1 => rest (last)"),),
+        ),
     )
 )
 
@@ -211,6 +246,17 @@ def _concat_dec(outs, header):
     return res
 
 
+def _concat_transfer(atoms, params, n_out):
+    # every input must share one (stype, width); unknowns stay compatible
+    stypes = {st for st, _ in atoms if st is not None}
+    widths = {w for _, w in atoms if w is not None}
+    if len(stypes) > 1 or len(widths) > 1:
+        return None
+    st = next(iter(stypes)) if stypes else None
+    w = next(iter(widths)) if widths else None
+    return [(st, w)]
+
+
 register_codec(
     CodecSpec(
         "concat",
@@ -220,11 +266,30 @@ register_codec(
         n_inputs=-1,
         n_outputs=1,
         doc="merge same-typed streams (the paper's cluster 'grouping' step)",
+        sig=CodecSig(
+            inputs=(InPort(ANY_STYPES),),
+            transfer=_concat_transfer,
+        ),
     )
 )
 
 
 # --------------------------------------------------------------- field_split
+def _field_split_transfer(atoms, params, n_out):
+    st, w = atoms[0]
+    widths = params.get("widths")
+    if widths is None:
+        # params unknown (e.g. inferring from a wire frame): columns are
+        # struct-or-serial of unknown width
+        return [(None, None)] * n_out
+    widths = list(widths)
+    if len(widths) != n_out or any(x < 1 for x in widths):
+        return None
+    if st == _STRUCT and w is not None and sum(widths) != w:
+        return None  # field widths must tile the record exactly
+    return [(_STRUCT, x) if x > 1 else (_SERIAL, 1) for x in widths]
+
+
 def _field_split_enc(streams, params):
     s = streams[0]
     widths = list(params["widths"])
@@ -281,6 +346,12 @@ register_codec(
         decode=_field_split_dec,
         n_outputs=-1,
         doc="record frontend: struct(k) -> per-field columns (params: widths=[...])",
+        sig=CodecSig(
+            inputs=(InPort(frozenset((_STRUCT, _SERIAL))),),
+            transfer=_field_split_transfer,
+            params=(ParamSpec("widths", "int_list", required=True,
+                              doc="byte widths per field; must sum to the record width"),),
+        ),
     )
 )
 
@@ -314,5 +385,10 @@ register_codec(
         decode=_string_split_dec,
         n_outputs=2,
         doc="string -> (content bytes, u32 lengths) so each can be compressed",
+        sig=CodecSig(
+            inputs=(InPort(frozenset((_STRING,))),),
+            transfer=lambda atoms, params, n_out: [(_SERIAL, 1), (_NUMERIC, 4)],
+            expansion=2.0,  # 4 length bytes per (possibly empty) string
+        ),
     )
 )

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.codec import CodecSpec, register_codec
+from ..core.codec import FIXED_STYPES, CodecSig, CodecSpec, InPort, ParamSpec, register_codec
 from ..core.message import CARRIER, Stream, SType
 from ._util import HeaderReader, HeaderWriter, rebuild_like
 
@@ -20,6 +20,22 @@ def _aligned(raw: torch.Tensor, width: int) -> torch.Tensor:
     """``raw`` (uint8) itself where ``view`` can reinterpret it at ``width``
     bytes, else its clone on the same device."""
     return raw.clone() if raw.storage_offset() % width else raw
+
+
+def _interpret_numeric_transfer(atoms, params, n_out):
+    st, w = atoms[0]
+    want = params.get("width")
+    if want is None:
+        # default: reinterpret at the stream's own width (1 for serial)
+        if st == int(SType.SERIAL):
+            want = 1
+        elif w is not None:
+            want = w
+        else:
+            return [(int(SType.NUMERIC), None)]
+    if int(want) not in CARRIER:
+        return None
+    return [(int(SType.NUMERIC), int(want))]
 
 
 def _interpret_numeric_enc(streams, params):
@@ -57,5 +73,11 @@ register_codec(
         encode=_interpret_numeric_enc,
         decode=_interpret_numeric_dec,
         doc="reinterpret struct/serial bytes as host-endian numeric(w)",
+        sig=CodecSig(
+            inputs=(InPort(FIXED_STYPES),),
+            transfer=_interpret_numeric_transfer,
+            params=(ParamSpec("width", "int", choices=(1, 2, 4, 8),
+                              doc="target numeric width (default: stream width)"),),
+        ),
     )
 )

@@ -25,11 +25,16 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from ..core.codec import CodecSpec, register_codec
+from ..core.codec import CodecSig, CodecSpec, InPort, register_codec
 from ..core.message import Stream, SType, narrow_unsigned, widen_unsigned
 from ..kernels import ops, ref
 from .coder_cache import active_cache
 from ._util import HeaderReader, HeaderWriter, expect_stream, numeric_stream, rebuild_like
+
+_BYTE_PORT = InPort(
+    frozenset((int(SType.SERIAL), int(SType.NUMERIC), int(SType.STRUCT))),
+    frozenset((1,)),
+)
 
 BLOCK_LOG = 12  # 4096 symbols per Huffman lane-block
 MAX_CODE_LEN = 15
@@ -284,6 +289,15 @@ register_codec(
         n_outputs=2,
         min_version=2,
         doc="canonical Huffman, lane-blocked for parallel decode (kernels K14, K15, K4)",
+        sig=CodecSig(
+            inputs=(_BYTE_PORT,),
+            transfer=lambda atoms, params, n_out: [
+                (int(SType.SERIAL), 1),
+                (int(SType.NUMERIC), 8),
+            ],
+            expansion=2.0,  # <= 15 bits/byte worst case + lane offsets
+            packed_outputs=(0,),
+        ),
     )
 )
 
@@ -504,5 +518,14 @@ register_codec(
         n_outputs=2,
         min_version=2,
         doc="tANS (FSE), lane-blocked (kernels K3 + K9, K10 + K4)",
+        sig=CodecSig(
+            inputs=(_BYTE_PORT,),
+            transfer=lambda atoms, params, n_out: [
+                (int(SType.SERIAL), 1),
+                (int(SType.NUMERIC), 4),
+            ],
+            expansion=2.0,
+            packed_outputs=(0,),
+        ),
     )
 )

@@ -19,7 +19,7 @@ payloads, infinities, -0.0 and subnormals pass bit for bit.
 """
 from __future__ import annotations
 
-from ..core.codec import CodecSpec, register_codec
+from ..core.codec import CodecSig, CodecSpec, InPort, ParamSpec, register_codec
 from ..core.message import CARRIER, Stream, SType
 from ..kernels import ops, ref
 from ._util import HeaderReader, HeaderWriter, expect_stream, numeric_stream
@@ -40,6 +40,22 @@ def _float_split_enc(streams, params):
     sign, exp, man = ops.float_split(s.data, fmt)
     h = HeaderWriter().u8(fmt).varint(s.data.numel()).done()
     return [Stream(sign, SType.SERIAL, 1), numeric_stream(exp), numeric_stream(man)], h
+
+
+def _float_split_transfer(atoms, params, n_out):
+    st, w = atoms[0]
+    fmt = params.get("fmt")
+    if fmt is None:
+        if w is None:
+            return [(int(SType.SERIAL), 1), (int(SType.NUMERIC), None),
+                    (int(SType.NUMERIC), None)]
+        fmt = _FMT_BY_WIDTH.get(w)
+    if fmt not in ref.FLOAT_FORMATS:
+        return None
+    fmt_w, _exp_bits, _man_bits, exp_w, man_w = ref.FLOAT_FORMATS[fmt]
+    if w is not None and w != fmt_w:
+        return None  # fmt tag must match the stream width
+    return [(int(SType.SERIAL), 1), (int(SType.NUMERIC), exp_w), (int(SType.NUMERIC), man_w)]
 
 
 def _float_split_dec(outs, header):
@@ -73,5 +89,12 @@ register_codec(
         n_outputs=3,
         min_version=3,
         doc="sign/exponent/mantissa planes (paper §VIII checkpoints; kernels K7, K8)",
+        sig=CodecSig(
+            inputs=(InPort(frozenset((int(SType.NUMERIC),)), frozenset((2, 4, 8))),),
+            transfer=_float_split_transfer,
+            params=(ParamSpec("fmt", "int", choices=(0, 1, 2, 3),
+                              doc="0=bf16 1=f16 2=f32 3=f64 (default by width)"),),
+            expansion=1.3,  # planes widen to whole dtypes + packed sign bits
+        ),
     )
 )

@@ -33,11 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.codec import CodecSpec, register_codec
+from ..core.codec import CodecSig, CodecSpec, InPort, ParamSpec, register_codec
 from ..core.engine import CompressionCtx, compress
 from ..core.graph import GraphBuilder, Plan
 from ..core.message import CARRIER, Stream, SType, narrow_unsigned, widen_unsigned
-from ..core.selector import SelectorSpec, register_selector
+from ..core.selector import SelectorSig, SelectorSpec, register_selector
 from ._util import HeaderReader, HeaderWriter, expect_stream, numeric_stream
 from .convert import _aligned
 from .parse import (
@@ -238,6 +238,18 @@ register_codec(
         n_outputs=4,
         min_version=4,
         doc="text edge list -> (src, dst, bitmap, exceptions); lossless always",
+        sig=CodecSig(
+            inputs=(InPort(frozenset((int(SType.SERIAL),))),),
+            transfer=lambda atoms, params, n_out: [
+                (int(SType.NUMERIC), 8),
+                (int(SType.NUMERIC), 8),
+                (int(SType.SERIAL), 1),
+                (int(SType.STRING), 1),
+            ],
+            params=(ParamSpec("sep", "str",
+                              doc="edge separator; 'auto' probes tab/space/,/;"),),
+            expansion=3.0,  # short decimal ids widen to u64 columns
+        ),
     )
 )
 
@@ -279,6 +291,16 @@ register_codec(
         n_outputs=2,
         min_version=4,
         doc="interleaved fixed-width (u, v) pairs -> (src, dst) columns",
+        sig=CodecSig(
+            inputs=(InPort(frozenset((int(SType.SERIAL),))),),
+            transfer=lambda atoms, params, n_out: (
+                None
+                if int(params.get("width", 4)) not in (2, 4, 8)
+                else [(int(SType.NUMERIC), int(params.get("width", 4)))] * 2
+            ),
+            params=(ParamSpec("width", "int", choices=(2, 4, 8),
+                              doc="bytes per node id (default 4)"),),
+        ),
     )
 )
 
@@ -301,6 +323,15 @@ def _copy_match(S, S_edge, R: int, rank, run_starts, degrees, i, j):
     pos = torch.searchsorted(S, q).clamp_max(S.numel() - 1)  # no pairs without S
     found = S[pos] == q
     return found, S_edge[pos[found]]
+
+
+def _adj_gap_transfer(atoms, params, n_out):
+    # both columns must share one concrete width; unknowns stay compatible
+    widths = {w for _, w in atoms if w is not None}
+    if len(widths) > 1 or int(params.get("window", 0) or 0) < 0:
+        return None
+    N = int(SType.NUMERIC)
+    return [(N, 8), (N, 8), (N, 8), (int(SType.SERIAL), 1), (N, 8)]
 
 
 def _adj_gap_enc(streams, params):
@@ -532,6 +563,16 @@ register_codec(
         n_outputs=5,
         min_version=4,
         doc="edge columns -> degree + delta-gap + reference coding (Zuckerli)",
+        sig=CodecSig(
+            inputs=(
+                InPort(frozenset((int(SType.NUMERIC),))),
+                InPort(frozenset((int(SType.NUMERIC),))),
+            ),
+            transfer=_adj_gap_transfer,
+            params=(ParamSpec("window", "int",
+                              doc="reference-list search window (0 = plain gaps)"),),
+            expansion=3.0,  # narrow ids widen to u64 planes + copy bitmap
+        ),
     )
 )
 
@@ -593,5 +634,9 @@ register_selector(
         "adjacency_auto",
         _adjacency_auto,
         doc="adjacency backend by trial: reference vs plain gaps vs columns",
+        sig=SelectorSig(inputs=(
+            InPort(frozenset((int(SType.NUMERIC),))),
+            InPort(frozenset((int(SType.NUMERIC),))),
+        )),
     )
 )

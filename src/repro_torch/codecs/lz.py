@@ -27,7 +27,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..core.codec import CodecSpec, register_codec
+from ..core.codec import FIXED_STYPES, CodecSig, CodecSpec, InPort, ParamSpec, register_codec
 from ..core.message import Stream, SType, from_numpy, from_wire
 from ._util import HeaderReader, HeaderWriter, expect_stream
 
@@ -485,6 +485,16 @@ register_codec(
         n_outputs=4,
         min_version=2,
         doc="greedy LZ77 -> (literals, lit-runs, match-lens, offsets) streams (host numpy)",
+        sig=CodecSig(
+            inputs=(InPort(FIXED_STYPES),),
+            transfer=lambda atoms, params, n_out: [
+                (int(SType.SERIAL), 1),
+                (int(SType.NUMERIC), 4),
+                (int(SType.NUMERIC), 4),
+                (int(SType.NUMERIC), 4),
+            ],
+            expansion=2.0,
+        ),
     )
 )
 
@@ -514,6 +524,13 @@ register_codec(
         decode=_lzma_dec,
         min_version=3,
         doc="stdlib LZMA leaf",
+        sig=CodecSig(
+            inputs=(InPort(FIXED_STYPES),),
+            transfer=lambda atoms, params, n_out: [(int(SType.SERIAL), 1)],
+            params=(ParamSpec("preset", "int", doc="stdlib compression level"),),
+            expansion=1.1,
+            packed_outputs=(0,),
+        ),
     )
 )
 
@@ -543,6 +560,13 @@ register_codec(
         decode=_bz2_dec,
         min_version=3,
         doc="stdlib BWT leaf",
+        sig=CodecSig(
+            inputs=(InPort(FIXED_STYPES),),
+            transfer=lambda atoms, params, n_out: [(int(SType.SERIAL), 1)],
+            params=(ParamSpec("level", "int", doc="stdlib compression level"),),
+            expansion=1.1,
+            packed_outputs=(0,),
+        ),
     )
 )
 
@@ -586,5 +610,12 @@ register_codec(
         decode=_zlib_dec,
         min_version=3,
         doc="stdlib DEFLATE leaf",
+        sig=CodecSig(
+            inputs=(InPort(FIXED_STYPES),),
+            transfer=lambda atoms, params, n_out: [(int(SType.SERIAL), 1)],
+            params=(ParamSpec("level", "int", doc="stdlib compression level"),),
+            expansion=1.1,
+            packed_outputs=(0,),
+        ),
     )
 )

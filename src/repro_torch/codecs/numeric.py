@@ -26,7 +26,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.codec import CodecSpec, register_codec
+from ..core.codec import (
+    ANY_STYPES,
+    FIXED_STYPES,
+    CodecSig,
+    CodecSpec,
+    InPort,
+    ParamSpec,
+    register_codec,
+)
 from ..core.message import (
     Stream,
     SType,
@@ -45,6 +53,11 @@ from ._util import (
     numeric_stream,
     rebuild_like,
 )
+
+_SERIAL = int(SType.SERIAL)
+_NUMERIC = int(SType.NUMERIC)
+_NUM_PORT = InPort(frozenset((_NUMERIC,)))
+_BYTEPLANE_PORT = InPort(frozenset((int(SType.STRUCT), _NUMERIC)))
 
 _SIGN = -(1 << 63)  # int64 sign bit: x ^ _SIGN orders bit patterns as unsigned
 _M32 = 0xFFFFFFFF
@@ -91,6 +104,10 @@ register_codec(
         encode=_delta_enc,
         decode=_delta_dec,
         doc="wrapping first-difference on the unsigned view (kernels K1, K2)",
+        sig=CodecSig(
+            inputs=(_NUM_PORT,),
+            transfer=lambda atoms, params, n_out: [atoms[0]],
+        ),
     )
 )
 
@@ -126,6 +143,10 @@ register_codec(
         encode=_zigzag_enc,
         decode=_zigzag_dec,
         doc="signed -> small-unsigned mapping ((x<<1) ^ (x>>w-1))",
+        sig=CodecSig(
+            inputs=(_NUM_PORT,),
+            transfer=lambda atoms, params, n_out: [atoms[0]],
+        ),
     )
 )
 
@@ -161,6 +182,10 @@ register_codec(
         encode=_transpose_enc,
         decode=_transpose_dec,
         doc="byte-plane shuffle (Blosc-style) (kernels K3, K4)",
+        sig=CodecSig(
+            inputs=(_BYTEPLANE_PORT,),
+            transfer=lambda atoms, params, n_out: [(_SERIAL, 1)],
+        ),
     )
 )
 
@@ -201,6 +226,14 @@ register_codec(
         decode=_transpose_split_dec,
         n_outputs=-1,
         doc="byte planes as separate outputs, each to its own backend (kernels K3, K4)",
+        sig=CodecSig(
+            inputs=(_BYTEPLANE_PORT,),
+            transfer=lambda atoms, params, n_out: (
+                None
+                if atoms[0][1] is not None and atoms[0][1] != n_out
+                else [(_SERIAL, 1)] * n_out
+            ),
+        ),
     )
 )
 
@@ -293,6 +326,11 @@ register_codec(
         encode=_range_pack_enc,
         decode=_range_pack_dec,
         doc="bounded ints: subtract min then bitpack",
+        sig=CodecSig(
+            inputs=(_NUM_PORT,),
+            transfer=lambda atoms, params, n_out: [(_SERIAL, 1)],
+            packed_outputs=(0,),
+        ),
     )
 )
 
@@ -372,6 +410,12 @@ register_codec(
         encode=_bitpack_enc,
         decode=_bitpack_dec,
         doc="pack values into ceil(log2(max+1)) bits, LSB-first (kernels K5, K6)",
+        sig=CodecSig(
+            inputs=(_NUM_PORT,),
+            transfer=lambda atoms, params, n_out: [(_SERIAL, 1)],
+            params=(ParamSpec("bits", "int", doc="explicit bits/value (0 = fit to max)"),),
+            packed_outputs=(0,),
+        ),
     )
 )
 
@@ -469,6 +513,13 @@ register_codec(
         decode=_fused_dec,
         min_version=4,
         doc="single-pass delta+bitpack; u32-domain deltas (kernels K11, K12)",
+        sig=CodecSig(
+            inputs=(InPort(frozenset((_NUMERIC,)), frozenset((1, 2, 4))),),
+            transfer=lambda atoms, params, n_out: [(_SERIAL, 1)],
+            params=(ParamSpec("bits", "int", choices=FUSED_BITS_CHOICES,
+                              doc="explicit packing width (0 = dynamic exact fit)"),),
+            packed_outputs=(0,),
+        ),
     )
 )
 
@@ -525,6 +576,11 @@ register_codec(
         decode=_rle_dec,
         n_outputs=2,
         doc="run-length: (values, u32 run lengths)",
+        sig=CodecSig(
+            inputs=(InPort(FIXED_STYPES),),
+            transfer=lambda atoms, params, n_out: [atoms[0], (_NUMERIC, 4)],
+            expansion=5.0,  # worst case: no runs -> values + 4B/element
+        ),
     )
 )
 
@@ -624,5 +680,10 @@ register_codec(
         n_outputs=2,
         min_version=2,
         doc="(alphabet, indices) split",
+        sig=CodecSig(
+            inputs=(InPort(ANY_STYPES),),
+            transfer=lambda atoms, params, n_out: [atoms[0], (_NUMERIC, 4)],
+            expansion=5.0,  # worst case: all-unique u8 -> alphabet + 4B indices
+        ),
     )
 )

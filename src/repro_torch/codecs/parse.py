@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.codec import CodecSpec, register_codec
+from ..core.codec import CodecSig, CodecSpec, InPort, ParamSpec, register_codec
 from ..core.message import Stream, SType, narrow_unsigned
 from ._util import HeaderReader, HeaderWriter, expect_stream, numeric_stream
 
@@ -212,6 +212,12 @@ register_codec(
         min_version=2,
         wants_device=True,
         doc="rectangular CSV -> per-column string streams (frontend, §IV)",
+        sig=CodecSig(
+            inputs=(InPort(frozenset((int(SType.SERIAL),))),),
+            transfer=lambda atoms, params, n_out: [(int(SType.STRING), 1)] * n_out,
+            params=(ParamSpec("sep", "str", doc="column separator (default ',')"),),
+            expansion=2.0,  # per-cell u32 lengths replace the separators
+        ),
     )
 )
 
@@ -373,5 +379,14 @@ register_codec(
         n_outputs=3,
         min_version=2,
         doc="ASCII ints -> (bitmap, i64 values, exceptions); lossless always",
+        sig=CodecSig(
+            inputs=(InPort(frozenset((int(SType.STRING),))),),
+            transfer=lambda atoms, params, n_out: [
+                (int(SType.SERIAL), 1),
+                (int(SType.NUMERIC), 8),
+                (int(SType.STRING), 1),
+            ],
+            expansion=2.0,  # short digit strings widen to 8-byte values
+        ),
     )
 )

@@ -20,7 +20,8 @@ import numpy as np
 from ..core.engine import CompressionCtx, compress
 from ..core.graph import GraphBuilder, Plan, pipeline
 from ..core.message import Stream, SType
-from ..core.selector import SelectorSpec, register_selector
+from ..core.codec import ANY_STYPES, FIXED_STYPES, InPort
+from ..core.selector import SelectorSig, SelectorSpec, register_selector
 
 SAMPLE_BYTES = 1 << 16  # trial compressions run on a bounded prefix
 
@@ -151,7 +152,17 @@ def _generic_auto(streams, params, ctx):
     return _bytes_auto(streams, params, ctx)
 
 
-register_selector(SelectorSpec("entropy_auto", _entropy_auto, doc="store/huffman/fse/zlib by trial"))
-register_selector(SelectorSpec("numeric_auto", _numeric_auto, doc="numeric backend by trial"))
-register_selector(SelectorSpec("bytes_auto", _bytes_auto, doc="entropy menu + lz77 graph by trial"))
-register_selector(SelectorSpec("generic_auto", _generic_auto, doc="type-dispatching default backend"))
+# declared input types (a mismatch is a lint warning: every trial menu
+# degrades to store)
+_ANY_SIG = SelectorSig(inputs=(InPort(ANY_STYPES),))
+_BYTES_SIG = SelectorSig(inputs=(InPort(FIXED_STYPES),))
+_NUM_SIG = SelectorSig(inputs=(InPort(frozenset((int(SType.NUMERIC),))),))
+
+register_selector(SelectorSpec(
+    "entropy_auto", _entropy_auto, doc="store/huffman/fse/zlib by trial", sig=_BYTES_SIG))
+register_selector(SelectorSpec(
+    "numeric_auto", _numeric_auto, doc="numeric backend by trial", sig=_NUM_SIG))
+register_selector(SelectorSpec(
+    "bytes_auto", _bytes_auto, doc="entropy menu + lz77 graph by trial", sig=_BYTES_SIG))
+register_selector(SelectorSpec(
+    "generic_auto", _generic_auto, doc="type-dispatching default backend", sig=_ANY_SIG))

@@ -13,6 +13,7 @@ from .engine import (  # noqa: F401
     resolve,
     resolve_cache_clear,
     resolve_cache_info,
+    set_resolve_check,
 )
 from .graph import GraphBuilder, Plan, pipeline, plan_from_dict  # noqa: F401
 from .message import Stream, SType, numeric, serial, strings, struct  # noqa: F401

@@ -16,6 +16,12 @@ library.  A decoder whose codec has no output streams (``constant``) has no
 tensor to learn the device from: its spec sets ``wants_device``, and
 ``run_decode`` hands it the decode device as the ``device`` keyword.
 
+Every codec declares the reference's stream-type signature (``CodecSig``:
+input ports, an abstract ``transfer``, a param schema, an expansion bound),
+which ``repro_torch.analysis`` interprets over whole plans.  An encoder
+refuses an input its signature rejects with ``ValueError`` before any
+kernel is launched.
+
 Every encoder call passes the fault point ``device.encode.<device
 type>.<codec>`` (``device.encode.cuda.float_split`` on the card), where the
 device is that of the call's input tensors: an armed
@@ -26,17 +32,104 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..reliability.faults import InjectedDeviceFault, fault_point
 from .message import Stream
 
-__all__ = ["CodecSpec", "register_codec", "get_codec", "get_codec_by_id", "all_codecs"]
+__all__ = [
+    "Atom",
+    "InPort",
+    "ParamSpec",
+    "CodecSig",
+    "ANY_STYPES",
+    "FIXED_STYPES",
+    "BYTE_STYPES",
+    "NUMERIC_WIDTHS",
+    "CodecSpec",
+    "register_codec",
+    "get_codec",
+    "get_codec_by_id",
+    "all_codecs",
+]
 
 EncodeFn = Callable[..., Tuple[List[Stream], bytes]]
 DecodeFn = Callable[[Sequence[Stream], bytes], List[Stream]]
+
+
+# ------------------------------------------------------- stream-type signatures
+#
+# The static contract of a codec over the stream-type lattice (paper §III-C:
+# edges are *typed*), the same data as the reference's.  An ``Atom`` is one
+# point of the lattice: ``(stype, width)`` with ``width is None`` meaning "any
+# width legal for that stype".  ``repro_torch.analysis`` interprets whole
+# plans over them before a byte is compressed; nothing here reads a tensor.
+
+Atom = Tuple[int, Optional[int]]  # (int(SType), width-or-None)
+
+# SType values as ints: SERIAL=0, STRUCT=1, NUMERIC=2, STRING=3.
+ANY_STYPES = frozenset((0, 1, 2, 3))
+FIXED_STYPES = frozenset((0, 1, 2))  # everything except STRING
+BYTE_STYPES = frozenset((0,))  # SERIAL only
+NUMERIC_WIDTHS = frozenset((1, 2, 4, 8))
+
+
+@dataclass(frozen=True)
+class InPort:
+    """Acceptance constraint for one codec input edge.
+
+    ``widths is None`` accepts any width legal for the stype; otherwise the
+    concrete width must be in the set (an unknown width *may* match: the
+    analyzer reports definite errors only).
+    """
+
+    stypes: frozenset
+    widths: Optional[frozenset] = None
+
+    def accepts(self, atom: Atom) -> bool:
+        st, w = atom
+        if st not in self.stypes:
+            return False
+        if self.widths is not None and w is not None and w not in self.widths:
+            return False
+        return True
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    """Schema entry for one codec parameter (documentation + lint surface)."""
+
+    name: str
+    kind: str  # "int" | "int_list" | "str" | "float"
+    required: bool = False
+    choices: Optional[tuple] = None
+    doc: str = ""
+
+
+@dataclass(frozen=True)
+class CodecSig:
+    """Declared stream-type signature of a codec.
+
+    * ``inputs``: one ``InPort`` per declared input; for a variadic codec
+      (``n_inputs == -1``) a single port applied to every wired input.
+    * ``transfer(atoms, params, n_out)``: the abstract output function.  Given
+      one ``Atom`` per input (widths may be ``None``) plus the node's params
+      and output count, it returns the output atoms, or ``None`` where the
+      encoder would refuse the combination (concat's "all same type",
+      adj_gap's equal widths, float_split's fmt).  Pure and total.
+    * ``params``: the declared parameter schema.
+    * ``expansion``: worst-case output-bytes/input-bytes bound over all
+      outputs together.
+    * ``packed_outputs``: output indices that carry entropy-packed bytes.
+    """
+
+    inputs: Tuple[InPort, ...]
+    transfer: Callable[[Tuple[Atom, ...], dict, int], Optional[List[Atom]]]
+    params: Tuple[ParamSpec, ...] = ()
+    expansion: float = 1.0
+    packed_outputs: Tuple[int, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -50,6 +143,7 @@ class CodecSpec:
     min_version: int = 1  # first format version that understands this codec
     doc: str = ""
     wants_device: bool = False  # decode(outs, header, device=...) is called
+    sig: Optional[CodecSig] = None  # stream-type signature (coverage-enforced)
 
     def run_encode(self, streams: Sequence[Stream], params=None):
         params = dict(params or {})
@@ -104,10 +198,7 @@ def get_codec(name: str) -> CodecSpec:
     try:
         return _BY_NAME[name]
     except KeyError:
-        raise KeyError(
-            f"codec {name!r} is not in repro_torch (not yet ported, or unknown);"
-            f" ported: {sorted(_BY_NAME)}"
-        ) from None
+        raise KeyError(f"unknown codec {name!r}; known: {sorted(_BY_NAME)}") from None
 
 
 def get_codec_by_id(codec_id: int) -> CodecSpec:

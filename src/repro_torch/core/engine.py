@@ -8,6 +8,10 @@ Compression is split into:
     Resolution is memoized on ``(plan, stream metas, level, format_version)``
     in an LRU cache, as the reference's is, so a caller pays for selector
     trials once per stream shape (``use_cache=False`` resolves afresh).
+    With the resolve check on (``REPRO_RESOLVE_CHECK=1`` or
+    ``set_resolve_check(True)``) every resolve that misses the cache first
+    type-checks the plan against its inputs' stream types and raises
+    ``PlanTypeError`` before any encoder runs.
   * **execute** — ``execute(resolved, streams) -> frame``: runs each codec's
     encoder over the concrete streams.  A stream's tensor stays on its device
     from codec to codec; on the card every codec with a kernel launches it.
@@ -105,6 +109,7 @@ __all__ = [
     "execute",
     "resolve_cache_info",
     "resolve_cache_clear",
+    "set_resolve_check",
     "compress",
     "decompress",
     "CompressorSession",
@@ -323,6 +328,35 @@ def resolve_cache_clear() -> None:
         _cache_stats["misses"] = 0
 
 
+# Opt-in debug assert: type-check every plan entering resolve() against the
+# concrete input types (repro_torch.analysis), before any encoder runs and so
+# before any kernel launches.  Off by default: the static check belongs at
+# registration.  It reads each input's stype and width, never its data.
+_RESOLVE_CHECK = os.environ.get("REPRO_RESOLVE_CHECK", "") not in ("", "0")
+
+
+def set_resolve_check(enabled: bool) -> None:
+    """Toggle the ``REPRO_RESOLVE_CHECK`` debug assert programmatically."""
+    global _RESOLVE_CHECK
+    _RESOLVE_CHECK = bool(enabled)
+
+
+def _debug_check_plan(plan: Plan, metas, ctx: CompressionCtx) -> None:
+    from ..analysis import PlanTypeError, check_plan  # lazy: no import cycle
+
+    report = check_plan(
+        plan,
+        format_version=ctx.format_version,
+        input_atoms=[(int(m.stype), int(m.width)) for m in metas],
+    )
+    if not report.ok:
+        raise PlanTypeError(
+            f"resolve check: plan {plan.name!r} is ill-typed for these"
+            f" inputs: {'; '.join(str(d) for d in report.errors)}",
+            report.errors,
+        )
+
+
 def _engine_after_fork() -> None:
     """Re-arm the module-level locks in a forked child.
 
@@ -402,6 +436,8 @@ def _resolve_impl(
             _cache_stats["misses"] += 1
 
     plan.validate()
+    if _RESOLVE_CHECK:
+        _debug_check_plan(plan, metas, ctx)
     if plan.is_resolved:
         steps = _flatten(plan, ctx)
     else:

@@ -8,14 +8,29 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+from .codec import InPort
 from .graph import Plan
 from .message import Stream
 
-__all__ = ["SelectorSpec", "register_selector", "get_selector"]
+__all__ = ["SelectorSig", "SelectorSpec", "register_selector", "get_selector", "all_selectors"]
 
 SelectorFn = Callable[[Sequence[Stream], dict, "CompressionCtx"], Plan]
+
+
+@dataclass(frozen=True)
+class SelectorSig:
+    """Declared input signature of a selector.
+
+    Selectors expand at compression time and have no static outputs: the
+    signature states which stream types the selector is designed for.  Every
+    selector degrades to ``store`` when its trial menu refuses the input, so
+    a mismatch is a lint warning, never a type error.  ``inputs`` holds one
+    ``InPort`` per declared input.
+    """
+
+    inputs: Tuple[InPort, ...]
 
 
 @dataclass(frozen=True)
@@ -23,6 +38,7 @@ class SelectorSpec:
     name: str
     fn: SelectorFn
     doc: str = ""
+    sig: Optional[SelectorSig] = None  # input signature (coverage-enforced)
 
 
 _SELECTORS: Dict[str, SelectorSpec] = {}
@@ -41,9 +57,13 @@ def get_selector(name: str) -> SelectorSpec:
         return _SELECTORS[name]
     except KeyError:
         raise KeyError(
-            f"selector {name!r} is not in repro_torch (not yet ported, or unknown);"
-            f" ported: {sorted(_SELECTORS)}"
+            f"unknown selector {name!r}; known: {sorted(_SELECTORS)}"
         ) from None
+
+
+def all_selectors() -> Dict[str, SelectorSpec]:
+    _ensure_loaded()
+    return dict(_SELECTORS)
 
 
 _loaded = False

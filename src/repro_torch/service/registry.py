@@ -10,9 +10,12 @@ registries that loaded the same plan agree on its address in either package
 and a client pinning a digest can never be served a silently different
 compressor.
 
-The reference also type-checks a plan at registration
-(``repro.analysis.check_plan``); the port has no codec signatures yet, so an
-ill-typed plan is refused by its first request instead of at the door.
+Every ``register_*`` type-checks the plan first
+(``repro_torch.analysis.check_plan``), as the reference's does, and fails
+closed: an ill-typed plan raises ``PlanTypeError`` (its ``extra`` carries
+``error_kind="ill_typed_plan"`` and the diagnostics) and nothing is
+registered.  The check reads the plan and the codecs' signatures only, so it
+launches nothing on the card.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
+from ..analysis import PlanTypeError, check_plan
 from ..core.engine import Compressor
 from ..core.serialize import plan_digest
 
@@ -65,6 +69,15 @@ class PlanRegistry:
         *,
         source: str = "api",
     ) -> RegisteredPlan:
+        # fail closed: an ill-typed plan would die mid-request on the first
+        # matching payload; refuse it at the door with the full diagnosis
+        report = check_plan(comp.plan, format_version=comp.format_version)
+        if not report.ok:
+            raise PlanTypeError(
+                f"plan {comp.name or comp.plan.name or '?'!s} is ill-typed:"
+                f" {'; '.join(str(d) for d in report.errors)}",
+                report.errors,
+            )
         digest = plan_digest(
             comp.plan, format_version=comp.format_version, level=comp.level
         )

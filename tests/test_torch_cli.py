@@ -8,15 +8,14 @@ and stderr compare as they are: the compressed files are byte-equal for
 ``--plan``; the compress, decompress and ``profiles`` lines, the errors (a bad
 profile spec, garbage given to ``inspect``, a corrupt container failing closed
 and leaving no output) and the salvage and verify case of
-``tests/test_salvage.py`` are equal.  ``inspect`` is equal once the
-reference's ``  :: in -> out`` suffix is cut from each node line.  The
+``tests/test_salvage.py`` are equal.  ``inspect`` is equal line for line,
+each node's ``  :: in -> out`` stream types included.  The
 in-place and default-path cases of ``tests/test_cli_edges.py`` hold, and one
 ``python -m repro_torch`` child runs with ``--device cpu``, one without a
 card exits 2 with the ``NoCardError`` message and writes nothing.  All on the
 CPU, tolerance 0.
 """
 import os
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -36,7 +35,6 @@ from repro_torch.core import wire  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 TRAINED = REPO / "results" / "trained"
 DATA = b"the quick brown fox jumps over the lazy dog\n" * 250  # 11,000 bytes
-SUFFIX = re.compile(r"  :: .*$")
 
 
 def _clear():
@@ -129,7 +127,7 @@ def test_compress_and_decompress_equal_the_reference(tmp_path, monkeypatch, caps
     assert (pd / "in").read_bytes() == data == (rd / "in").read_bytes()
     got, want, _, _ = _both(tmp_path, monkeypatch, capsys, ["inspect", "in.ozl", "--chunks", "2"])
     assert got[0] == want[0] == 0 and got[2] == want[2]
-    assert got[1].splitlines() == [SUFFIX.sub("", ln) for ln in want[1].splitlines()]
+    assert got[1] == want[1]
 
 
 def test_profiles_lists_the_references(tmp_path, monkeypatch, capsys):
@@ -247,7 +245,7 @@ def test_inspect_containers_frames_and_empty_as_the_reference(tmp_path, monkeypa
         got, want, _, _ = _both(tmp_path, monkeypatch, capsys, argv, files)
         files = {}
         assert got[0] == want[0] == 0 and got[2] == want[2], argv
-        assert got[1].splitlines() == [SUFFIX.sub("", ln) for ln in want[1].splitlines()]
+        assert got[1] == want[1], argv
 
 
 def test_inspect_stays_on_the_host(tmp_path, monkeypatch, capsys):

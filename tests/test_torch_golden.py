@@ -82,13 +82,10 @@ def test_port_decodes_frozen_frame(name):
 
 @pytest.mark.parametrize("name", ALL_PLANS)
 def test_every_golden_plan_crosses_over_or_names_what_is_missing(name):
+    # every codec is ported: each golden plan crosses over whole
     ref_plan, ref_meta = _ref_plan(name)
-    try:
-        plan, meta = _port_plan(name)
-    except KeyError as err:
-        assert "not yet ported" in str(err)
-        assert name not in IN_SLICE
-        return
+    plan, meta = _port_plan(name)
+    assert name in IN_SLICE
     assert meta == ref_meta
     assert plan.n_inputs == ref_plan.n_inputs and plan.name == ref_plan.name
     assert [(n.kind, n.name, n.inputs, n.n_out, n.param_dict()) for n in plan.nodes] == [
