@@ -364,7 +364,33 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              one ``python -m repro_torch lint --json`` child exits 1 with each
              file's code (its wall seconds); ``inspect`` of the main phase's
              A frame prints an ``  :: in -> out`` suffix on every node line.
-15. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
+15. train — the compressor trainer (``repro_torch.training``) on the card,
+             after the signatures phase: ``detect_frontend`` on the first
+             4 MiB of A, B, C, G, S, C1, C2, G1 and G2 (each choice
+             printed); C1, the PPMF person recipe (3,400,000 rows, ~66 MB),
+             written to a file and trained by a ``python -m repro_torch
+             train --all-points`` child at the CLI's defaults (a 4 MiB
+             sample, pop 16, 6 generations, 8 points, seed 0, all CPUs),
+             its lines, wall seconds and MiB/min printed, then all of C1
+             compressed with each emitted point on the card into one frame
+             (``csv_split`` needs whole rows) and decoded back to it, the
+             best-ratio point alone (the MB/s a user deploying it gets),
+             then the others at once, a thread and a CUDA stream each (MB/s
+             under that contention; ratios beside ``csv_profile(8)``'s and
+             the cli phase's trained plan's); A's first 4 MiB trained
+             in-process at ``detect_frontend``'s choice and the same
+             defaults under torch.profiler (stage seconds, evaluations,
+             invalid and pruned counts, the card's idle share), then at one
+             worker under cProfile (the largest host stages; equal plans),
+             its best-ratio plan round-tripping all 64 MiB of A at 4 MiB
+             chunks (ratio beside ``numeric_profile``'s at the same chunks);
+             a 256 KiB C1 prefix trained at
+             pop 8 and 2 generations on the card at the default workers and
+             at one, and on the CPU, with equal objectives and plan bytes;
+             ``device.encode.cuda.huffman`` armed for one small train, which
+             must raise ``InjectedDeviceFault``.  K1, K3, K13 and K14 must
+             launch over the phase's in-process calls.
+16. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -374,19 +400,20 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-16. profile — one more compress and one decompress per plan and column under
+17. profile — one more compress and one decompress per plan and column under
              torch.profiler (the card's busy time and its top kernels) and
              cProfile (the host's time by function), for the "where the time
              goes" record, then each kernel's device ms summed over them;
              then the container phase's calls and A's unchunked one, and
              the records phase's, the CSV phase's and the graph phase's calls.
-17. identity — the card's name and power limit.
+18. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
 ``records_launches``, ``csv_launches``, ``graph_launches``,
 ``sessions_launches``, ``checkpoint_launches``, ``cli_launches``,
-``service_launches``, ``frontend_launches`` and ``signatures_launches``), the
+``service_launches``, ``frontend_launches``, ``signatures_launches`` and
+``train_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -726,6 +753,24 @@ SIG_HOST_LEAVES = ("lz77", "zlib_backend", "lzma_backend", "bz2_backend")
 SIG_CHECK_REPEATS = 5
 # A's checked and unchecked compresses, timed in turns (the order flips each pair)
 RESOLVE_CHECK_PAIRS = 5
+# the train phase: detect_frontend on the first 4 MiB of these; C1 through a
+# `python -m repro_torch train` child at the CLI's defaults; A's first 4 MiB
+# trained in-process at the same defaults; a 256 KiB C1 prefix at pop 8 and
+# 2 generations on the card (the default workers and one) and on the CPU
+TRAIN_SNIFF = ("A", "B", "C", "G", "S", "C1", "C2", "G1", "G2")
+TRAIN_SAMPLE_BYTES = 4 << 20  # the CLI's --sample-bytes default
+TRAIN_POP, TRAIN_GENS, TRAIN_POINTS = 16, 6, 8  # the CLI's --pop, --gens, --points
+TRAIN_CHECK_BYTES = 256 << 10
+TRAIN_CHECK_POP, TRAIN_CHECK_GENS = 8, 2
+TRAIN_CHILD_TIMEOUT = 600
+TRAIN_FAULT_POINT = "device.encode.cuda.huffman"
+TRAIN_FAULT_BYTES = 64 << 10
+# K1, K3, K13, K14: the numeric seeds' delta, transpose -> huffman and fse
+TRAIN_KERNELS = ("delta_encode", "byteshuffle", "histogram", "huffman_map")
+TRAIN_HOST_STAGES = ("train", "cluster_streams", "_size_of", "nsga2", "evaluate_batch",
+                     "_evaluate_plan", "_statically_rejected", "compile_genome",
+                     "compress_traced", "decompress", "_same_stream", "pareto_prune",
+                     "_lzma_enc", "_bz2_enc", "_zlib_enc", "_lz77_enc", "choose_best")
 
 
 def fail(msg: str) -> None:
@@ -3192,8 +3237,8 @@ def cli_phase(cols, csv_calls, rt, ops):
     and two ``python -m repro_torch`` children.  Each in-process call runs
     through ``cli.main(argv)`` with the launch counts reset just before and
     read just after it.  Returns each kernel's launches summed over them,
-    and the plans it compressed through as ``(label, plan, stream,
-    format_version)``."""
+    the plans it compressed through as ``(label, plan, stream,
+    format_version)``, and each trained plan file's name and ratio by label."""
     import contextlib
     import glob
     import io
@@ -3204,6 +3249,7 @@ def cli_phase(cols, csv_calls, rt, ops):
     from repro_torch.core import serialize, wire
 
     totals = {k: 0 for k in ops.KERNELS}
+    ratios = {}
     t_phase = time.perf_counter()
 
     def run(label, argv, rc_want=(0,), launch=True):
@@ -3348,6 +3394,7 @@ def cli_phase(cols, csv_calls, rt, ops):
             ozl = src + ".ozl"
             packed = os.path.getsize(ozl)
             report(f"compress {label} --plan {family}_{p}", len(raw), packed, dt, out, launched)
+            ratios[label] = (f"{family}_{p}.ozp", len(raw) / packed)
             _, out, _, dt, launched = run(f"decompress {label}",
                                           ["decompress", ozl, "-o", at(f"{label}.out")])
             if not same_file(at(f"{label}.out"), raw):
@@ -3467,7 +3514,7 @@ def cli_phase(cols, csv_calls, rt, ops):
 
     print(f"cli launches {json.dumps(totals)}")
     print(f"cli phase seconds={time.perf_counter() - t_phase}")
-    return totals, typed
+    return totals, typed, ratios
 
 
 def float32_bytes_plan(rt):
@@ -4783,6 +4830,245 @@ def signatures_phase(cols, frames, rt, ops, phase_calls: dict, typed: list):
     return totals
 
 
+def train_phase(cols, frames, record_calls, csv_calls, graph_calls, cli_ratios, rt, ops):
+    """The compressor trainer on the card (``repro_torch.training``), after
+    the signatures phase: ``detect_frontend`` on the first 4 MiB of each of
+    ``TRAIN_SNIFF``; C1 (the PPMF person recipe, 66 MB) through a ``python
+    -m repro_torch train --all-points`` child at the CLI's defaults, each
+    emitted point then compressing all of C1 on the card into one frame and
+    decoding back to it (the best-ratio point alone, timed, then the others
+    at once, a thread and a CUDA stream each); A's first 4 MiB trained in-process at the same defaults under
+    torch.profiler, then at one worker under cProfile (equal plans), its
+    best-ratio plan round-tripping all of A at 4 MiB chunks
+    (``numeric_profile`` beside it); a 256 KiB C1 prefix trained on
+    the card at the default workers and at one, and on the CPU, with equal
+    objectives and plan bytes; a train with ``TRAIN_FAULT_POINT`` armed
+    raising ``InjectedDeviceFault``.  The launch counts are reset just before
+    and read just after each in-process call (the child's launches are its
+    own process's).  Returns each kernel's launches summed over them."""
+    import cProfile
+    import glob
+    import pstats
+    import tempfile
+
+    import torch
+    from repro_torch.core.serialize import serialize_plan
+    from repro_torch.reliability import FaultPlan, InjectedDeviceFault
+    from repro_torch.training import detect_frontend, train
+
+    totals = {k: 0 for k in ops.KERNELS}
+    t_phase = time.perf_counter()
+
+    def counted(fn):
+        """``fn()`` on the card, timed to a synchronize -> (result, seconds,
+        the kernels it launched)."""
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = ops.launch_counts()
+        for k in totals:
+            totals[k] += got[k]
+        return out, dt, {k: v for k, v in got.items() if v}
+
+    def outcome(tc):
+        return ([(p.est_size, p.est_time) for p in tc.points],
+                [serialize_plan(plan) for plan, _sz, _tm in tc.pareto_plans()])
+
+    def stats_line(tc) -> str:
+        keys = ("train_seconds", "parse_seconds", "cluster_seconds", "search_seconds",
+                "merge_seconds", "train_bytes", "train_speed_mib_min", "n_streams",
+                "n_clusters", "workers", "evaluations", "invalid_evaluations",
+                "pruned_static", "eval_wall_seconds", "session_hits", "session_misses")
+        return " ".join(f"{k}={tc.stats[k]}" for k in keys)
+
+    # 1. sniffing on the first 4 MiB of each recipe
+    heads = {label[0]: col.view(np.uint8)[:TRAIN_SAMPLE_BYTES].tobytes()
+             for label, col in cols.items()}
+    raws = {}
+    for calls in (record_calls, csv_calls, graph_calls):
+        for label, _pname, _plan, stream, *_ in calls:
+            raws[label] = stream
+            heads[label] = stream.data[:TRAIN_SAMPLE_BYTES].cpu().numpy().tobytes()
+    picked = {}
+    for label in TRAIN_SNIFF:
+        t0 = time.perf_counter()
+        picked[label] = detect_frontend(heads[label])
+        print(f"train sniff {label}: {len(heads[label])} bytes -> {picked[label]!r}"
+              f" host_ms={(time.perf_counter() - t0) * 1e3}")
+    if type(picked["C1"]).__name__ != "CsvFrontend" or picked["C1"].n_cols != 8:
+        fail(f"train sniff C1: {picked['C1']!r}, expected an 8-column CSV")
+
+    # 2. C1 at full width through the command line, as a user runs it
+    c1 = raws["C1"].content_bytes()
+    c1_stream = rt.serial(torch.from_numpy(np.frombuffer(c1, np.uint8).copy()).cuda())
+    csv_frame = next(frame for label, *_r, frame, _codecs in csv_calls if label == "C1")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        src = os.path.join(tmp, "C1.csv")
+        with open(src, "wb") as f:
+            f.write(c1)
+        env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-m", "repro_torch", "train", src, "--out",
+                                os.path.join(tmp, "c1.ozp"), "--all-points"],
+                               capture_output=True, text=True, cwd=tmp, env=env,
+                               timeout=TRAIN_CHILD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for line in child.stdout.splitlines():
+            print(f"train C1 child | {line}")
+        if child.returncode:
+            fail(f"train C1 child: exit {child.returncode}: {child.stderr.strip()[-800:]}")
+        sample = int(re.search(r"sample\(s\), (\d+) bytes", child.stdout).group(1))
+        wrote = re.findall(r"^wrote (\S+) \(", child.stdout, re.M)
+        if sorted(wrote) != sorted(glob.glob(os.path.join(tmp, "c1*.ozp"))) or not wrote:
+            fail(f"train C1 child: wrote {wrote}")
+        print(f"train C1 child: wall seconds={wall} (start-up included), sample_bytes={sample},"
+              f" MiB_per_min={sample / 2 ** 20 / (wall / 60)}, {len(wrote)} point(s)")
+        # one frame a point (csv_split needs whole rows, so a CSV plan is
+        # deployed unchunked, `compress --plan P --chunk-bytes 0`); the
+        # best-ratio point, the plan the child tells a user to deploy, alone
+        # first (the MB/s a user gets), then each frame a chain of host
+        # leaves, the others at once, a thread and a CUDA stream each, to keep
+        # the phase inside the run's limit
+        best = re.search(r"^wrote (\S+) \(\d+ bytes, best-ratio point", child.stdout,
+                         re.M).group(1)
+
+        def round_trip(path):
+            with open(path, "rb") as f:
+                comp = rt.Compressor.deserialize(f.read(), device="cuda")
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                t0 = time.perf_counter()
+                frame = comp.compress(c1_stream, chunk_bytes=0)
+                stream.synchronize()
+                t1 = time.perf_counter()
+                (back,) = rt.decompress(frame, device="cuda")
+                stream.synchronize()
+                t2 = time.perf_counter()
+                ok = same_stream(back, c1_stream)
+            return comp, frame, t1 - t0, t2 - t1, ok
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        alone, _, launched = counted(lambda: round_trip(best))
+        rest = [path for path in wrote if path != best]
+        with ThreadPoolExecutor(max_workers=max(len(rest), 1)) as pool:
+            done, wall, launched_rest = counted(lambda: list(pool.map(round_trip, rest)))
+        for path, (comp, frame, dt, ddt, ok) in [(best, alone), *zip(rest, done)]:
+            if not ok:
+                fail(f"train C1 {os.path.basename(path)}: all of C1 did not come back on the card")
+            how = (f"alone: compress_MBps={len(c1) / dt / 1e6} seconds={dt}"
+                   f" decompress_MBps={len(c1) / ddt / 1e6} decompress_seconds={ddt}"
+                   if path == best else
+                   f"under {len(rest)}-way contention, the others at once:"
+                   f" contended_compress_MBps={len(c1) / dt / 1e6}"
+                   f" contended_decompress_MBps={len(c1) / ddt / 1e6}")
+            print(f"train C1 point {wrote.index(path)} ({os.path.basename(path)},"
+                  f" {len(comp.plan.nodes)} nodes): all {len(c1)} bytes round-trip on the card,"
+                  f" ratio={len(c1) / len(frame)} {how} codecs={frame_codecs(rt, frame)}")
+        del alone, done
+        print(f"train C1 points: the best-ratio point alone, launches {json.dumps(launched)};"
+              f" the other {len(rest)} round trips at once in {wall} s,"
+              f" launches {json.dumps(launched_rest)}")
+    plan_name, cli_ratio = cli_ratios["C1"]
+    print(f"train C1 beside: csv_profile(8) ratio={len(c1) / len(csv_frame)} (csv phase),"
+          f" {plan_name} ratio={cli_ratio} (cli phase), both unchunked")
+    del c1_stream
+
+    # 3. A's first 4 MiB in-process at the CLI's defaults, profiled
+    a4 = heads["A"]
+    fe_a = picked["A"]
+
+    def train_a(workers=None):
+        rt.resolve_cache_clear()
+        return train([[rt.serial(a4)]], fe_a, pop_size=TRAIN_POP, generations=TRAIN_GENS,
+                     n_points=TRAIN_POINTS, seed=0, workers=workers)
+
+    prof = {}
+    _, (tc_a, dt, launched), _ = profile_device("train A 4 MiB", lambda: counted(train_a),
+                                                prof)
+    print(f"train A 4 MiB {fe_a!r}: wall seconds={dt} idle_share={prof['idle_share']}"
+          f" {stats_line(tc_a)} launches={json.dumps(launched)}")
+    host = cProfile.Profile()
+    host.enable()
+    tc_a1, dt1, launched1 = counted(lambda: train_a(1))
+    host.disable()
+    if outcome(tc_a1) != outcome(tc_a):
+        fail("train A: one worker gave other plans than the default pool")
+    stats = pstats.Stats(host).stats
+    rows = sorted(((v[2] * 1e3, f"{os.path.basename(k[0])}:{k[2]}") for k, v in stats.items()),
+                  reverse=True)
+    cum = {}
+    for k, v in stats.items():
+        if k[2] in TRAIN_HOST_STAGES:
+            cum[k[2]] = cum.get(k[2], 0.0) + v[3] * 1e3
+    print(f"train A 4 MiB workers=1: wall seconds={dt1} (cProfile on) {stats_line(tc_a1)},"
+          f" plans equal to the pool's; host_self_ms: "
+          + ", ".join(f"{name}={ms:.1f}" for ms, name in rows[:10])
+          + f" host_cumulative_ms: {json.dumps(cum)}")
+    col_a = cols["A_timestamps_i64"]
+    a_stream = rt.serial(torch.from_numpy(col_a.view(np.uint8)).cuda())
+    plan = tc_a.best_ratio_plan()
+    frame, dt, enc = counted(lambda: rt.compress(plan, a_stream, chunk_bytes=CHUNK_BYTES))
+    (back,), ddt, dec = counted(lambda: rt.decompress(frame, device="cuda"))
+    if not same_stream(back, a_stream):
+        fail("train A: the best-ratio plan did not round-trip all of A on the card")
+    del back, a_stream
+    base, bdt, _ = counted(lambda: rt.compress(
+        PLANS["numeric_profile"](rt), stream_of(rt, "A_timestamps_i64", col_a),
+        chunk_bytes=CHUNK_BYTES))
+    print(f"train A best-ratio plan on all {col_a.nbytes} bytes at {CHUNK_BYTES} B chunks:"
+          f" round-trip on the card, ratio={col_a.nbytes / len(frame)} beside"
+          f" numeric_profile's {col_a.nbytes / len(base)} at the same chunks"
+          f" ({col_a.nbytes / len(frames['A_timestamps_i64', 'numeric_profile'])} unchunked,"
+          f" main phase); compress_MBps={col_a.nbytes / dt / 1e6} (numeric_profile's"
+          f" {col_a.nbytes / bdt / 1e6}) decompress_MBps={col_a.nbytes / ddt / 1e6}"
+          f" codecs={first_codecs(rt, frame)} launches compress {json.dumps(enc)}"
+          f" decompress {json.dumps(dec)}")
+
+    # 4. the card against the CPU on a 256 KiB C1 prefix
+    small = c1[: c1.rfind(b"\n", 0, TRAIN_CHECK_BYTES) + 1]
+    fe_small = detect_frontend(small)
+    seen = {}
+    # the CPU leg runs one evaluation thread: the kernels' plain versions use
+    # torch's own threads, which a pool of one thread per core would crowd
+    for label, device, workers in (("card", "cuda", None), ("card workers=1", "cuda", 1),
+                                   ("cpu", "cpu", 1)):
+        rt.resolve_cache_clear()
+        tc, dt, launched = counted(lambda: train(
+            [[rt.serial(small)]], fe_small, pop_size=TRAIN_CHECK_POP,
+            generations=TRAIN_CHECK_GENS, seed=0, workers=workers, device=device))
+        seen[label] = outcome(tc)
+        if (device == "cpu") == bool(launched):
+            fail(f"train check {label}: launches {launched}")
+        print(f"train check C1 {len(small)} bytes {label}: wall seconds={dt}"
+              f" {stats_line(tc)} objectives={seen[label][0]} launches={json.dumps(launched)}")
+    if not seen["card"] == seen["card workers=1"] == seen["cpu"]:
+        fail("train check: the card and the CPU trained different plans")
+    print(f"check train C1 {len(small)} bytes: the card at the default workers and at one and"
+          f" the CPU give equal objectives and {len(seen['cpu'][1])} equal plan files")
+
+    # 5. a card fault ends training instead of scoring a genome
+    fault = FaultPlan().at(TRAIN_FAULT_POINT)
+    try:
+        with fault.arm(all_threads=True):
+            train([[rt.serial(a4[:TRAIN_FAULT_BYTES])]], fe_a, pop_size=4, generations=1,
+                  seed=0)
+        fail(f"train fault: {TRAIN_FAULT_POINT} armed and training finished")
+    except InjectedDeviceFault as err:
+        print(f"check train fault: {TRAIN_FAULT_POINT} raised {type(err).__name__}"
+              f" out of train ({err}); fired {fault.fired}")
+
+    missing = [k for k in TRAIN_KERNELS if not totals[k]]
+    if missing:
+        fail(f"train phase: never launched {missing}: {totals}")
+    print(f"train launches {json.dumps(totals)}")
+    print(f"train phase seconds={time.perf_counter() - t_phase}")
+    return totals
+
+
 def level_sources(cols) -> dict:
     """The level-7 phase's columns by name: ``cols`` and H_tiled_f32."""
     d = cols["D_weights_f32"]
@@ -5019,7 +5305,7 @@ def main() -> None:
     from repro_torch.codecs import entropy
     from repro_torch.kernels import _build, ops, ref
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     _build.library()
     print(f"build seconds={time.perf_counter() - t0} (compile {_build.build_seconds})")
     for text in _build.build_log:
@@ -5044,7 +5330,7 @@ def main() -> None:
     graph_calls, graph_launches = graph_phase(rt, ops, args.seed)
     sessions_launches, sessions_typed = sessions_phase(cols, graph_calls, rt, ops)
     checkpoint_launches, checkpoint_typed = checkpoint_phase(rt, ops, args.seed)
-    cli_launches, cli_typed = cli_phase(cols, csv_calls, rt, ops)
+    cli_launches, cli_typed, cli_ratios = cli_phase(cols, csv_calls, rt, ops)
     service_launches, service_out = service_phase(cols, rt, ops)
     frontend_launches = frontend_phase(cols, rt, ops, service_out)
     signatures_launches = signatures_phase(
@@ -5052,6 +5338,8 @@ def main() -> None:
         {"container": container_calls, "records": record_calls, "csv": csv_calls,
          "graph": graph_calls},
         sessions_typed + checkpoint_typed + cli_typed + service_out["typed"])
+    train_launches = train_phase(cols, frames, record_calls, csv_calls, graph_calls, cli_ratios,
+                                 rt, ops)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
@@ -5064,9 +5352,11 @@ def main() -> None:
         r["service_launches"] = service_launches[r["name"]]
         r["frontend_launches"] = frontend_launches[r["name"]]
         r["signatures_launches"] = signatures_launches[r["name"]]
+        r["train_launches"] = train_launches[r["name"]]
     level_phase(cols, rt, ops)
     profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
     identity = nvidia_smi("name,power.limit")
+    print(f"run seconds={time.perf_counter() - t_run} (the build included)")
     print(json.dumps({"kernels": rows}))
     print(identity)
     print(json.dumps({

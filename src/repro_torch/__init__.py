@@ -27,7 +27,11 @@ Entry points::
     stream_io.compress_file("in.bin", "out.ozl", generic_profile())  # repro_torch.core.stream_io
     comp = Compressor.deserialize(open("plan.ozp", "rb").read())  # a trained .ozp plan file
     frame = comp.compress(serial(csv_file), chunk_bytes=0)
+    from repro_torch.training import detect_frontend, train     # the trainer
+    tc = train([[serial(sample)]], detect_frontend(sample))     # candidates on the card
+    comp = Compressor(tc.best_ratio_plan())                     # deploy its best point
     # the command line: python -m repro_torch compress F [--plan P.ozp] [--device cpu]
+    #                   python -m repro_torch train SAMPLE --out P.ozp [--device cpu]
 
 Both entry points run on the card unless the caller names the CPU, and
 raise without a card.  On the card every codec whose encoder or decoder had
@@ -45,8 +49,10 @@ the reference's.  The chunks are encoded in parallel on a session's pool
 through them.  Resolutions are memoized (``resolve_cache_info``) and coder
 tables too (``coder_cache_info``), as the reference's are.  ``Compressor``
 reads and writes ``.ozp`` plan files without ``msgpack``
-(``repro_torch.core.serialize``), and ``python -m repro_torch`` is the
-command line (``repro_torch.cli``).
+(``repro_torch.core.serialize``), ``repro_torch.training`` trains plans
+from sample files with the reference's NSGA-II search (the same seed gives
+the reference's plans), and ``python -m repro_torch`` is the command line
+(``repro_torch.cli``), ``train`` included.
 """
 from .codecs.profiles import (  # noqa: F401
     SAO_FIELDS,

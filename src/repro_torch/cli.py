@@ -10,6 +10,7 @@ subcommands.
     python -m repro_torch decompress corpus.ozl -o corpus.out [--salvage]
     python -m repro_torch profiles
     python -m repro_torch lint       plan.ozp generic [--json]
+    python -m repro_torch train      samples/*.bin --out plan.ozp [--all-points]
     python -m repro_torch serve  --socket /tmp/ozl.sock --profile text --register plan.ozp
     python -m repro_torch client compress corpus.bin --socket /tmp/ozl.sock --plan-id text
 
@@ -29,10 +30,17 @@ threaded compression daemon (``repro_torch.service``) in this process, on the
 card unless ``--device cpu`` is given (without a card it exits 2 with the
 ``NoCardError`` message), until SIGINT or SIGTERM; an ill-typed
 ``--register`` plan ends it with ``serve: plan ... is ill-typed: ...`` before
-any socket is bound.  The reference's
-``--workers`` (its pre-forked plane) is not accepted yet.  ``client`` talks
+any socket is bound.  ``train`` is the ``zli-train`` analogue (paper
+§VI-C): it sniffs the sample format (``--frontend auto``), runs the NSGA-II
+trainer (``repro_torch.training``) with every candidate encoded and decoded
+on the card unless ``--device cpu`` is given (without a card it exits 2 with
+the ``NoCardError`` message and writes nothing), and writes deployable
+``.ozp`` plans through an atomic sink, byte for byte the reference's for the
+same ``--seed`` and any ``--workers``.  The reference's ``serve
+--workers`` (its pre-forked plane) is not accepted yet.  ``client`` talks
 to a running daemon of either package and never touches the card.  Output
-files, exit codes and printed lines are the reference's.
+files, exit codes and printed lines are the reference's, but for timings and
+``train``'s deploy hint, which names ``python -m repro_torch``.
 """
 from __future__ import annotations
 
@@ -250,6 +258,183 @@ def _cmd_inspect(args) -> int:
         else:
             print(f"{path}: not an OZLJ frame or OZLC container", file=sys.stderr)
             return 2
+    return 0
+
+
+# ------------------------------------------------------------------ training
+def _parse_frontend(spec: str, first_sample: bytes):
+    """Resolve ``--frontend``: auto-sniffing or an explicit frontend form."""
+    from .codecs.parse import sniff_csv
+    from .training import (
+        CsvFrontend,
+        Frontend,
+        GraphFrontend,
+        NumericFrontend,
+        StructFrontend,
+        detect_frontend,
+    )
+
+    if spec == "auto":
+        return detect_frontend(first_sample)
+    if spec == "raw":
+        return Frontend()
+    if spec == "csv" or spec.startswith("csv:"):
+        parts = spec.split(":")
+        sep = parts[2] if len(parts) > 2 else ","
+        if len(parts) > 1 and parts[1]:
+            return CsvFrontend(n_cols=int(parts[1]), sep=sep)
+        sniffed = sniff_csv(first_sample, seps=(sep.encode(),))
+        if sniffed is None:
+            raise SystemExit(
+                f"--frontend csv: samples are not rectangular {sep!r}-separated"
+                f" CSV; pass csv:N to force a column count"
+            )
+        return CsvFrontend(n_cols=sniffed[0], sep=sniffed[1])
+    if spec.startswith("struct:"):
+        widths = tuple(int(w) for w in spec[len("struct:") :].split(",") if w)
+        if not widths or any(w < 1 for w in widths):
+            raise SystemExit(f"--frontend {spec!r}: field widths must be >= 1")
+        return StructFrontend(widths=widths)
+    if spec == "numeric" or spec.startswith("numeric:"):
+        width = int(spec.split(":")[1]) if ":" in spec else 4
+        if width not in (1, 2, 4, 8):
+            raise SystemExit(f"--frontend {spec!r}: width must be 1/2/4/8")
+        return NumericFrontend(width=width)
+    if spec == "graph" or spec.startswith("graph:"):
+        parts = spec.split(":")
+        if len(parts) > 1 and parts[1] == "bin":
+            try:
+                width = int(parts[2]) if len(parts) > 2 and parts[2] else 4
+            except ValueError:
+                raise SystemExit(f"--frontend {spec!r}: bad pair width") from None
+            if width not in (2, 4, 8) or len(parts) > 3:
+                raise SystemExit(
+                    f"--frontend {spec!r}: expected graph:bin:W with W in 2/4/8"
+                )
+            return GraphFrontend(binary_width=width)
+        sep = ":".join(parts[1:]) if len(parts) > 1 else "auto"
+        if not sep or "\n" in sep or "\r" in sep:
+            raise SystemExit(
+                f"--frontend {spec!r}: separator must be non-empty, newline-free"
+            )
+        return GraphFrontend(sep=sep)
+    raise SystemExit(
+        f"unknown frontend {spec!r}; known: auto, raw, csv[:N[:sep]],"
+        f" struct:W1,W2,.., numeric[:W], graph[:sep], graph:bin[:W]"
+    )
+
+
+def _trim_sample(frontend, blob: bytes) -> bytes:
+    """Cut a sample so the frontend parses it whole (line/record aligned)."""
+    name = getattr(frontend, "name", "raw")
+    if name == "csv":
+        cut = blob.rfind(b"\n")
+        return blob[: cut + 1] if cut >= 0 else blob
+    if name == "numeric":
+        return blob[: len(blob) - len(blob) % frontend.width]
+    if name == "struct":
+        rec = sum(frontend.widths) or 1
+        return blob[: len(blob) - len(blob) % rec]
+    if name == "graph":
+        if frontend.binary_width:
+            pair = 2 * frontend.binary_width
+            return blob[: len(blob) - len(blob) % pair]
+        cut = blob.rfind(b"\n")
+        return blob[: cut + 1] if cut >= 0 else blob
+    return blob
+
+
+def _frontend_desc(frontend) -> str:
+    name = getattr(frontend, "name", "raw")
+    if name == "csv":
+        return f"csv ({frontend.n_cols} cols, sep {frontend.sep!r})"
+    if name == "numeric":
+        return f"numeric (width {frontend.width})"
+    if name == "struct":
+        return f"struct (record {sum(frontend.widths)}B, {len(frontend.widths)} fields)"
+    if name == "graph":
+        if frontend.binary_width:
+            return f"graph (binary pairs, width {frontend.binary_width})"
+        return f"graph (edge list, sep {frontend.sep!r})"
+    return name
+
+
+def _cmd_train(args) -> int:
+    from .core.message import serial
+    from .training import train
+
+    device = _device.resolve_device(args.device)  # no card: exit 2, nothing written
+    paths = [Path(p) for p in args.samples]
+    limit = _parse_size(args.sample_bytes)
+    blobs = [p.read_bytes()[:limit] for p in paths]
+    if not blobs or not any(blobs):
+        raise SystemExit("train: no sample bytes")
+    frontend = _parse_frontend(args.frontend, blobs[0])
+    blobs = [_trim_sample(frontend, b) for b in blobs]
+    blobs = [b for b in blobs if b]
+    if not blobs:
+        raise SystemExit(
+            "train: no usable sample bytes after frontend alignment"
+            f" ({_frontend_desc(frontend)})"
+        )
+    total = sum(len(b) for b in blobs)
+    print(
+        f"training on {len(blobs)} sample(s), {total} bytes,"
+        f" frontend: {_frontend_desc(frontend)}"
+    )
+    tc = train(
+        [[serial(b)] for b in blobs],
+        frontend,
+        pop_size=args.pop,
+        generations=args.gens,
+        n_points=args.points,
+        seed=args.seed,
+        workers=args.workers,
+        verbose=args.verbose,
+        device=device,
+    )
+    st = tc.stats
+    print(
+        f"trained in {st['train_seconds']:.1f}s: {st['evaluations']:.0f} candidate"
+        f" evaluations on {st['workers']:.0f} worker(s)"
+        f" ({st['eval_wall_seconds']:.1f}s candidate encode time),"
+        f" {st['n_streams']:.0f} stream(s) -> {st['n_clusters']:.0f} cluster(s)"
+    )
+    plans = tc.pareto_plans()  # size-ascending (best ratio first)
+    if not plans:
+        raise SystemExit(
+            "train: no Pareto point survived training — nothing to emit"
+            " (try more samples, a higher --pop, or more --gens)"
+        )
+    print("pareto tradeoff points (training-sample size vs encode-cost estimate):")
+    for i, (plan, sz, tm) in enumerate(plans):
+        print(f"  [{i}] {sz:>10.0f} B  {tm * 1e3:>8.2f} ms  {len(plan.nodes)} codec node(s)")
+
+    out = Path(args.out) if args.out else paths[0].with_suffix(".ozp")
+    emitted = []
+    for i, (plan, _sz, _tm) in enumerate(plans):
+        if i == 0:
+            path = out
+        elif args.all_points:
+            path = out.with_name(f"{out.stem}.p{i}{out.suffix or '.ozp'}")
+        else:
+            continue
+        comp = Compressor(
+            plan, level=args.level if args.level is not None else 5, device=device
+        )
+        if not all(comp.roundtrip_check(b) for b in blobs):
+            raise SystemExit(f"train: point {i} failed the losslessness check")
+        with stream_io._atomic_sink(path) as f:
+            f.write(comp.serialize())
+        emitted.append((i, path))
+    if not emitted:
+        raise SystemExit(
+            "train: no plan emitted (every tradeoff point was skipped)"
+        )
+    for i, path in emitted:
+        tag = "best-ratio point" if i == 0 else f"tradeoff point {i}"
+        print(f"wrote {path} ({path.stat().st_size} bytes, {tag}; verified lossless)")
+    print(f"deploy with: python -m repro_torch compress FILE --plan {emitted[0][1]}")
     return 0
 
 
@@ -493,6 +678,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="walk every chunk's CRC (no payload decode); nonzero"
                    " exit + damage report when anything fails")
     i.set_defaults(fn=_cmd_inspect)
+
+    t = sub.add_parser(
+        "train", help="train a compressor from sample files (paper §VI-C)"
+    )
+    t.add_argument("samples", nargs="+", help="sample files (one input each)")
+    t.add_argument("--out", default=None,
+                   help="output plan path (default: FIRST_SAMPLE.ozp)")
+    t.add_argument("--frontend", default="auto",
+                   help="auto (sniff graph/csv/struct/numeric/raw), raw,"
+                   " csv[:N[:sep]], struct:W1,W2,.., numeric[:W],"
+                   " graph[:sep], graph:bin[:W]")
+    t.add_argument("--pop", type=int, default=16, help="NSGA-II population")
+    t.add_argument("--gens", type=int, default=6, help="NSGA-II generations")
+    t.add_argument("--points", type=int, default=8,
+                   help="max Pareto tradeoff points kept")
+    t.add_argument("--seed", type=int, default=0,
+                   help="training seed (same seed => byte-identical plans)")
+    t.add_argument("--workers", type=int, default=None,
+                   help="evaluation threads (default: all CPUs)")
+    t.add_argument("--level", type=int, default=None,
+                   help="effort 1-9 recorded in the emitted plan")
+    t.add_argument("--sample-bytes", default="4MiB",
+                   help="per-file training sample cap (default 4MiB)")
+    t.add_argument("--all-points", action="store_true",
+                   help="also write every tradeoff point as OUT.pN.ozp")
+    t.add_argument("--device", default="cuda", help="device the candidates are"
+                   " encoded and decoded on (default cuda; cpu runs the"
+                   " kernels' plain versions)")
+    t.add_argument("-v", "--verbose", action="store_true")
+    t.set_defaults(fn=_cmd_train)
 
     p = sub.add_parser("profiles", help="list named profiles")
     p.set_defaults(fn=_cmd_profiles)

@@ -18,8 +18,15 @@ window of each string and formatted back from their digits.  The host sees
 the header's scalars, the STRING lengths arrays (one device-to-host copy
 for each codec's lengths) and the lengths of an input STRING stream (one
 host-to-device copy).
+
+The format sniffers at the end (``sniff_csv``, ``sniff_edge_list``,
+``sniff_edge_list_bin``, ``sniff_numeric_width``, ``sniff_struct_width``)
+are the reference's, on a bounded host prefix of sample bytes: the
+trainer's ``detect_frontend`` reads them before any stream exists.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -390,3 +397,241 @@ register_codec(
         ),
     )
 )
+
+
+# -------------------------------------------------------------- sniffers
+# The format sniffers behind ``detect_frontend`` and ``train --frontend``:
+# copies of ``repro.codecs.parse``'s.  They read a bounded prefix of the
+# sample bytes on the host, before any stream exists, so they stay numpy.
+
+
+def _canonical_int(b: bytes):
+    """Return int value if `b` is a canonical decimal i64 rendering, else None."""
+    if not b or len(b) > 20:
+        return None
+    neg = b[0:1] == b"-"
+    digits = b[1:] if neg else b
+    if not digits or not digits.isdigit():
+        return None
+    if len(digits) > 1 and digits[0:1] == b"0":
+        return None  # leading zeros don't round-trip
+    if neg and digits == b"0":
+        return None  # "-0" doesn't round-trip
+    v = int(b)
+    if not (-(1 << 63) <= v < (1 << 63)):
+        return None
+    return v
+
+
+SNIFF_PROBE_BYTES = 1 << 16  # all sniffing runs on a bounded prefix
+
+_PRINTABLE_MASK = np.zeros(256, dtype=bool)
+_PRINTABLE_MASK[32:127] = True
+_PRINTABLE_MASK[[9, 10, 13]] = True  # tab / newline / carriage return
+
+_NUMERIC_SNIFF_DTYPES = {2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+def sniff_csv(
+    raw: bytes,
+    *,
+    seps: Tuple[bytes, ...] = (b",", b"\t", b";", b"|"),
+    max_probe: int = SNIFF_PROBE_BYTES,
+) -> Optional[Tuple[int, str]]:
+    """Detect a rectangular CSV prefix -> ``(n_cols, sep)``, else None.
+
+    The acceptance rule is ``csv_split``'s own: every probed (complete) line
+    must split into the same column count under one separator.  Of the
+    separators that pass, the one yielding the most columns wins — a file
+    whose fields contain no separator at all still parses as 1 column, so
+    at least 2 columns are required to call it CSV.
+
+    CRLF files are handled exactly as ``csv_split`` does: when every probed
+    line ends with ``\\r`` the terminator is stripped before the
+    rectangularity check, so a CRLF file no longer trains a plan whose last
+    column drags a ``\\r`` suffix through every row.  A lone ``\\r`` inside
+    a line (mixed endings) still counts as field bytes, matching the codec.
+    """
+    probe = bytes(raw[:max_probe])
+    if len(probe) < 8:
+        return None
+    arr = np.frombuffer(probe, dtype=np.uint8)
+    if float(_PRINTABLE_MASK[arr].mean()) < 0.95:
+        return None
+    cut = probe.rfind(b"\n")
+    if cut <= 0:
+        return None
+    lines = probe[:cut].split(b"\n")
+    if all(ln.endswith(b"\r") for ln in lines):
+        lines = [ln[:-1] for ln in lines]
+    if len(lines) < 2 or any(not ln for ln in lines):
+        return None
+    best: Optional[Tuple[int, bytes]] = None
+    for sep in seps:
+        n_cols = lines[0].count(sep) + 1
+        if n_cols < 2:
+            continue
+        if any(ln.count(sep) + 1 != n_cols for ln in lines[1:]):
+            continue
+        if best is None or n_cols > best[0]:
+            best = (n_cols, sep)
+    if best is None:
+        return None
+    return best[0], best[1].decode()
+
+
+def sniff_edge_list(
+    raw: bytes,
+    *,
+    seps: Tuple[bytes, ...] = (b"\t", b" "),
+    max_probe: int = SNIFF_PROBE_BYTES,
+) -> Optional[str]:
+    """Detect a SNAP-style text edge list -> separator, else None.
+
+    Acceptance: mostly printable, >= 32 non-comment probed lines of which
+    >= 95% split into exactly two canonical decimal integers under one
+    separator (``#`` comment lines are ignored, as ``edge_list`` routes them
+    to its exception stream).  Only whitespace separators are probed — a
+    two-integer-column *comma* file keeps sniffing as CSV, which subsumes it.
+    """
+    probe = bytes(raw[:max_probe])
+    if len(probe) < 16:
+        return None
+    arr = np.frombuffer(probe, dtype=np.uint8)
+    if float(_PRINTABLE_MASK[arr].mean()) < 0.95:
+        return None
+    cut = probe.rfind(b"\n")
+    if cut <= 0:
+        return None
+    lines = probe[:cut].split(b"\n")
+    data = [ln for ln in lines if ln and not ln.startswith(b"#")]
+    if len(data) < 32:
+        return None
+    best: Optional[Tuple[int, bytes]] = None
+    for sep in seps:
+        n_ok = 0
+        for ln in data:
+            parts = ln.split(sep)
+            if (
+                len(parts) == 2
+                and _canonical_int(parts[0]) is not None
+                and _canonical_int(parts[1]) is not None
+            ):
+                n_ok += 1
+        if n_ok >= max(32, int(0.95 * len(data))) and (
+            best is None or n_ok > best[0]
+        ):
+            best = (n_ok, sep)
+    if best is None:
+        return None
+    return best[1].decode()
+
+
+def sniff_edge_list_bin(
+    raw: bytes,
+    *,
+    widths: Tuple[int, ...] = (4, 8),
+    max_probe: int = SNIFF_PROBE_BYTES,
+) -> Optional[int]:
+    """Detect a binary interleaved (src, dst) edge array -> pair width.
+
+    Signals, probed narrowest-first like ``sniff_numeric_width``: the src
+    column is >= 98% non-decreasing (CSR dumps sort by source), src repeats
+    often enough to form adjacency runs (>= 20%), and neighbors within a run
+    are >= 90% increasing (sorted adjacency lists).  Plain sorted integer
+    arrays fail the run test, so the numeric sniffer still claims them.
+    """
+    n = len(raw)
+    for w in widths:
+        if n % (2 * w) or n // (2 * w) < 64:
+            continue
+        take = (min(n, max_probe) // (2 * w)) * (2 * w)
+        pairs = np.frombuffer(raw[:take], dtype=_NUMERIC_SNIFF_DTYPES[w]).reshape(
+            -1, 2
+        )
+        src, dst = pairs[:, 0], pairs[:, 1]
+        if float(np.mean(src[1:] >= src[:-1])) < 0.98:
+            continue
+        same = src[1:] == src[:-1]
+        if float(same.mean()) < 0.2:
+            continue
+        if float(np.mean(dst[1:][same] > dst[:-1][same])) < 0.9:
+            continue
+        return w
+    return None
+
+
+def sniff_numeric_width(
+    raw: bytes,
+    *,
+    widths: Tuple[int, ...] = (2, 4, 8),
+    require_monotone: bool = False,
+    max_probe: int = SNIFF_PROBE_BYTES,
+) -> Optional[int]:
+    """Detect a fixed-width little-endian integer array -> element width.
+
+    Two independent signals, probed narrowest-first (a sorted w-wide array
+    read at width 2w still looks sorted — its high halves carry the order —
+    while a 2w-wide array read at w interleaves random low halves, so the
+    narrowest width that fires is the true one): *sortedness* (>= 90% of
+    adjacent deltas non-negative — index-like columns) and *bounded range*
+    (>= 95% of the values share one top byte — measurements far narrower
+    than their storage width).  ``require_monotone=True`` keeps only the
+    strong first signal; the bounded-range signal also fires on multi-field
+    records, so callers try struct detection in between.
+    """
+    n = len(raw)
+    for w in widths:
+        if n % w or n // w < 64:
+            continue
+        take = (min(n, max_probe) // w) * w
+        a = np.frombuffer(raw[:take], dtype=_NUMERIC_SNIFF_DTYPES[w])
+        mono = float(np.mean(a[1:] >= a[:-1]))
+        if mono >= 0.9:
+            return w
+        if require_monotone:
+            continue
+        top = np.frombuffer(raw[:take], dtype=np.uint8).reshape(-1, w)[:, -1]
+        counts = np.bincount(top, minlength=256)
+        if (
+            float(counts.max()) / top.size >= 0.95
+            or int((counts > 0).sum()) <= 2
+        ):
+            return w
+    return None
+
+
+def sniff_struct_width(
+    raw: bytes,
+    *,
+    min_width: int = 2,
+    max_width: int = 16,
+    max_probe: int = SNIFF_PROBE_BYTES,
+) -> Optional[int]:
+    """Detect a fixed-size record layout -> record width, else None.
+
+    Signal: byte equality at lag ``w`` (same field offset, adjacent records)
+    far above the lag-1 baseline — fixed-width records repeat their
+    near-constant field bytes with period exactly ``w``.  The smallest width
+    within 95% of the best score wins, so a ``2w`` multiple never shadows
+    the true record size.
+    """
+    n = len(raw)
+    x = np.frombuffer(raw[:max_probe], dtype=np.uint8).astype(np.int16)
+    if x.size < 64:
+        return None
+    base = float(np.mean(x[1:] == x[:-1]))
+    scores = {}
+    for w in range(min_width, max_width + 1):
+        if n % w or n // w < 16 or x.size <= 2 * w:
+            continue
+        scores[w] = float(np.mean(x[w:] == x[:-w]))
+    if not scores:
+        return None
+    best_w = min(scores, key=lambda w: (-scores[w], w))
+    if scores[best_w] < max(0.35, 1.5 * base):
+        return None
+    for w in sorted(scores):
+        if scores[w] >= 0.95 * scores[best_w]:
+            return w
+    return best_w

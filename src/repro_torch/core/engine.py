@@ -744,6 +744,25 @@ def _check_chunkable(streams: List[Stream], ctx: CompressionCtx) -> None:
 _DRAW_END = object()  # sentinel: the chunk source is exhausted
 
 
+def on_caller_stream(device: torch.device, fn: Callable) -> Callable:
+    """``fn`` bound to the CUDA stream current in the calling thread.
+
+    A pool thread's current stream is the default stream, not the one a
+    caller runs under (``torch.cuda.stream(s)``); every launch, copy and
+    allocation of the call goes to the caller's stream instead, so a
+    worker's reads are ordered after the caller's writes to its input.
+    """
+    if device.type != "cuda":
+        return fn
+    caller = torch.cuda.current_stream(device)
+
+    def bound(*args):
+        with torch.cuda.stream(caller):
+            return fn(*args)
+
+    return bound
+
+
 class _SessionBase:
     """Shared pool, scratch and device plumbing for the two session classes."""
 
@@ -829,24 +848,6 @@ class _SessionBase:
             return max(1, self._window)
         return 2 * (self.n_workers or len(os.sched_getaffinity(0)))
 
-    def _on_caller_stream(self, fn: Callable) -> Callable:
-        """``fn`` bound to the CUDA stream current in the calling thread.
-
-        A pool thread's current stream is the default stream, not the one a
-        caller runs under (``torch.cuda.stream(s)``); every launch, copy and
-        allocation of the call goes to the caller's stream instead, so a
-        worker's reads are ordered after the caller's writes to its chunk.
-        """
-        if self.device.type != "cuda":
-            return fn
-        caller = torch.cuda.current_stream(self.device)
-
-        def bound(*args):
-            with torch.cuda.stream(caller):
-                return fn(*args)
-
-        return bound
-
     def _window_map(
         self, fn: Callable, items: Iterable, head: Optional[list] = None
     ) -> Iterator:
@@ -861,11 +862,11 @@ class _SessionBase:
         """
         pool = self._pool_get()
         window = self.window
-        fn = self._on_caller_stream(fn)
+        fn = on_caller_stream(self.device, fn)
         it = iter(items)
         pending: "deque" = deque(pool.submit(fn, x) for x in (head or []))
         drawer = self._draw_pool_get() if self.prefetch else None
-        draw_next = self._on_caller_stream(next)
+        draw_next = on_caller_stream(self.device, next)
         draw = drawer.submit(draw_next, it, _DRAW_END) if drawer is not None else None
         exhausted = False
         try:
