@@ -375,8 +375,8 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              compressed with each emitted point on the card into one frame
              (``csv_split`` needs whole rows) and decoded back to it, the
              best-ratio point alone (the MB/s a user deploying it gets),
-             then the others at once, a thread and a CUDA stream each (MB/s
-             under that contention; ratios beside ``csv_profile(8)``'s and
+             then the others at once on C1's first 4 MiB of whole rows, a
+             thread and a CUDA stream each (MB/s under that contention; ratios beside ``csv_profile(8)``'s and
              the cli phase's trained plan's); A's first 4 MiB trained
              in-process at ``detect_frontend``'s choice and the same
              defaults under torch.profiler (stage seconds, evaluations,
@@ -385,12 +385,39 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              its best-ratio plan round-tripping all 64 MiB of A at 4 MiB
              chunks (ratio beside ``numeric_profile``'s at the same chunks);
              a 256 KiB C1 prefix trained at
-             pop 8 and 2 generations on the card at the default workers and
+             pop 4 and 2 generations on the card at the default workers and
              at one, and on the CPU, with equal objectives and plan bytes;
              ``device.encode.cuda.huffman`` armed for one small train, which
              must raise ``InjectedDeviceFault``.  K1, K3, K13 and K14 must
              launch over the phase's in-process calls.
-16. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
+16. lm      — the LM train and serve drivers (``repro_torch.models``,
+             ``repro_torch.launch``) on the card, after the train phase:
+             Llama-3.2-1B's widths (d_model 2048, 32 heads, 8 KV heads,
+             d_ff 8192, vocab 128256, tied, rope theta 500,000) at one
+             layer, batch 1 and 16 tokens, from one numpy tree made from
+             ``--seed``, on the card and on the CPU: logits, loss, every
+             gradient, one ``adamw`` step, and ``decode_step`` over the 16
+             tokens against ``forward``, each largest absolute error
+             printed beside its tolerance; the same for the reduced
+             olmoe-1b-7b (MoE) and h2o-danube-3-4b (SWA, 40 tokens past its
+             window of 16, so its ring wraps); then
+             ``repro_torch.launch.train.main`` in-process at Llama-3.2-1B's
+             full config (16 layers, remat) with ``--steps 5
+             --save-interval 3 --fail-at-step 4``, which must return 42
+             after saving step 3, and again, which must print the restored
+             step 3 and its data cursor and end at step 5 with a final
+             save; finite losses; the step-3 leaves restored on the card
+             equal a host copy of what was saved, bit for bit, and the
+             small leaves and the params' ``wk`` leaf also their frames'
+             CPU decode; each save's and restore's seconds, MB/s, ratio and
+             peak allocated card memory, and each train step's tokens/s;
+             one ``python -m repro_torch.launch.serve --arch llama3.2-1b
+             --batch 8 --prompt-len 32 --gen 32`` child from step 5 (its
+             prefill and decode tok/s, the 33.6 MB KV cache, its wall
+             seconds).  The launch counts are reset before the first train
+             run and read after the second; K1, K3, K4, K7, K8, K9, K10,
+             K13 and K14 must launch.
+17. level7 — ``float32_profile()`` on a 4 MiB prefix of D and
              ``bfloat16_profile()`` on one of C at ``CompressionCtx(level=7)``,
              whose selectors try ``lzma_backend``; ``float32_profile()`` on 4
              MiB of D's first 40,000 weights repeated, whose frame must record
@@ -400,20 +427,22 @@ Phases, in order; any failure exits non-zero, and no result line is printed:
              (float split, histogram and byte shuffle must launch, then float
              merge and byte unshuffle); each frame equals the CPU's and
              decodes to its prefix on the card; one profiled call each way.
-17. profile — one more compress and one decompress per plan and column under
-             torch.profiler (the card's busy time and its top kernels) and
-             cProfile (the host's time by function), for the "where the time
-             goes" record, then each kernel's device ms summed over them;
+18. profile — one more compress and one decompress per plan and column, each
+             under torch.profiler (the card's busy time and its top kernels)
+             and cProfile (the host's time by function) at once, so its wall
+             ms and idle share include cProfile's overhead, for the "where
+             the time goes" record, then each kernel's device ms summed over
+             them;
              then the container phase's calls and A's unchunked one, and
              the records phase's, the CSV phase's and the graph phase's calls.
-18. identity — the card's name and power limit.
+19. identity — the card's name and power limit.
 
 Output: a line per phase; then the ``{"kernels": [...]}`` JSON line (each
 kernel's ``launches`` in the main and decode phases, ``container_launches``,
 ``records_launches``, ``csv_launches``, ``graph_launches``,
 ``sessions_launches``, ``checkpoint_launches``, ``cli_launches``,
-``service_launches``, ``frontend_launches``, ``signatures_launches`` and
-``train_launches``), the
+``service_launches``, ``frontend_launches``, ``signatures_launches``,
+``train_launches`` and ``lm_launches``), the
 ``nvidia-smi`` name/power line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -755,13 +784,14 @@ SIG_CHECK_REPEATS = 5
 RESOLVE_CHECK_PAIRS = 5
 # the train phase: detect_frontend on the first 4 MiB of these; C1 through a
 # `python -m repro_torch train` child at the CLI's defaults; A's first 4 MiB
-# trained in-process at the same defaults; a 256 KiB C1 prefix at pop 8 and
+# trained in-process at the same defaults; a 256 KiB C1 prefix at pop 4 and
 # 2 generations on the card (the default workers and one) and on the CPU
 TRAIN_SNIFF = ("A", "B", "C", "G", "S", "C1", "C2", "G1", "G2")
 TRAIN_SAMPLE_BYTES = 4 << 20  # the CLI's --sample-bytes default
 TRAIN_POP, TRAIN_GENS, TRAIN_POINTS = 16, 6, 8  # the CLI's --pop, --gens, --points
 TRAIN_CHECK_BYTES = 256 << 10
-TRAIN_CHECK_POP, TRAIN_CHECK_GENS = 8, 2
+TRAIN_REST_BYTES = 4 << 20  # the other points round-trip this much of C1, the best all of it
+TRAIN_CHECK_POP, TRAIN_CHECK_GENS = 4, 2
 TRAIN_CHILD_TIMEOUT = 600
 TRAIN_FAULT_POINT = "device.encode.cuda.huffman"
 TRAIN_FAULT_BYTES = 64 << 10
@@ -771,6 +801,30 @@ TRAIN_HOST_STAGES = ("train", "cluster_streams", "_size_of", "nsga2", "evaluate_
                      "_evaluate_plan", "_statically_rejected", "compile_genome",
                      "compress_traced", "decompress", "_same_stream", "pareto_prune",
                      "_lzma_enc", "_bz2_enc", "_zlib_enc", "_lz77_enc", "choose_best")
+# the lm phase: Llama-3.2-1B's widths at depth 1 on the card against the CPU
+# (batch 1, 16 tokens), the reduced MoE and SWA archs (the SWA arch fed
+# past its window of 16, so its ring wraps), the full-width train driver
+# crashed at step 4 and resumed to a final save at step 5, and a serve child
+LM_ARCH = "llama3.2-1b"
+LM_TOKENS = 16
+LM_REDUCED = (("olmoe-1b-7b", 24), ("h2o-danube-3-4b", 40))  # (arch, tokens)
+LM_LR = 3e-3  # launch.train's --lr default
+LM_ATOL = {"logits": 1e-4, "loss": 1e-4, "decode": 3e-4}
+LM_GRAD_RTOL = 1e-4  # of each leaf's largest gradient
+LM_ADAM_ATOL = 1e-6  # m, v and params where no gradient sits at a sign flip
+LM_SIGN_FLIP = 1e-3  # a param may move 2 lr apart where |g| < this x its leaf's max
+LM_TRAIN_ARGS = ("--arch", LM_ARCH, "--steps", "5", "--save-interval", "3", "--log-every", "1")
+LM_FAIL_AT = 4
+LM_SAVED, LM_LAST = 3, 5
+LM_SERVE_ARGS = ("--arch", LM_ARCH, "--batch", "8", "--prompt-len", "32", "--gen", "32")
+LM_SERVE_TIMEOUT = 600
+# the step-3 leaves decoded on the CPU beside the card's restore: every leaf
+# under 1 MiB and the params' 67 MB wk leaf (the CPU decodes ~16 MB/s)
+LM_CPU_LEAF_BYTES = 1 << 20
+LM_CPU_LEAVES = ("params/layers/wk",)
+# the leaf codec of f32 leaves, the int32 count and the int32 token shards
+LM_KERNELS = ("delta_encode", "byteshuffle", "byteunshuffle", "float_split", "float_merge",
+              "fse_encode", "fse_decode", "histogram", "huffman_map")
 
 
 def fail(msg: str) -> None:
@@ -1505,14 +1559,22 @@ def huffman_decode_sweep(rt, ops, ref, entropy, huff, seed) -> float:
     buf, pos, lut, max_rem, _n, _stype = huff
     n_data = buf.numel() - 16 - ((15 * max_rem + 7) >> 3)  # the glue's pad
     err = 0.0
+    # the plain version decodes each lane alone from its start (one column of
+    # its (max_rem, lanes) result a lane), so its result for every lane in
+    # order and for one lane at the stream's end gives each set of starts'
+    # expected columns
+    every = ref.huffman_decode_lanes(buf, pos, lut, max_rem)
+    at_end = ref.huffman_decode_lanes(buf, torch.full_like(pos[:1], 8 * n_data), lut, max_rem)
     for k in HUFF_LANE_COUNTS:
-        p = pos[:k]
-        starts = {"in order": p, "reversed": p.flip(0),
-                  "equal": p[:1].expand(k).contiguous(),
-                  "at the end": torch.full_like(p, 8 * n_data)}
-        for q in starts.values():
-            err = max(err, max_abs_err([ops.huffman_decode(buf, q, lut, max_rem)],
-                                       [ref.huffman_decode_lanes(buf, q, lut, max_rem)]))
+        lanes = torch.arange(k, device=pos.device)
+        starts = {"in order": lanes, "reversed": lanes.flip(0),
+                  "equal": torch.zeros_like(lanes)}
+        for order in starts.values():
+            err = max(err, max_abs_err([ops.huffman_decode(buf, pos[order], lut, max_rem)],
+                                       [every[:, order]]))
+        err = max(err, max_abs_err(
+            [ops.huffman_decode(buf, torch.full_like(pos[:k], 8 * n_data), lut, max_rem)],
+            [at_end.expand(-1, k)]))
     rng = np.random.default_rng(seed + 15)
     tables = {  # counts 1, 1, 2, 4, ..., 2^14 give codes of 15 bits down to 1
         "15-bit codes": rng.permutation(np.repeat(np.arange(16, dtype=np.uint8),
@@ -4837,7 +4899,8 @@ def train_phase(cols, frames, record_calls, csv_calls, graph_calls, cli_ratios, 
     -m repro_torch train --all-points`` child at the CLI's defaults, each
     emitted point then compressing all of C1 on the card into one frame and
     decoding back to it (the best-ratio point alone, timed, then the others
-    at once, a thread and a CUDA stream each); A's first 4 MiB trained in-process at the same defaults under
+    at once on C1's first ``TRAIN_REST_BYTES`` of whole rows, a thread and a
+    CUDA stream each); A's first 4 MiB trained in-process at the same defaults under
     torch.profiler, then at one worker under cProfile (equal plans), its
     best-ratio plan round-tripping all of A at 4 MiB chunks
     (``numeric_profile`` beside it); a 256 KiB C1 prefix trained on
@@ -4935,43 +4998,51 @@ def train_phase(cols, frames, record_calls, csv_calls, graph_calls, cli_ratios, 
         best = re.search(r"^wrote (\S+) \(\d+ bytes, best-ratio point", child.stdout,
                          re.M).group(1)
 
-        def round_trip(path):
+        def round_trip(path, stream=c1_stream):
             with open(path, "rb") as f:
                 comp = rt.Compressor.deserialize(f.read(), device="cuda")
-            stream = torch.cuda.Stream()
-            with torch.cuda.stream(stream):
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
                 t0 = time.perf_counter()
-                frame = comp.compress(c1_stream, chunk_bytes=0)
-                stream.synchronize()
+                frame = comp.compress(stream, chunk_bytes=0)
+                side.synchronize()
                 t1 = time.perf_counter()
                 (back,) = rt.decompress(frame, device="cuda")
-                stream.synchronize()
+                side.synchronize()
                 t2 = time.perf_counter()
-                ok = same_stream(back, c1_stream)
+                ok = same_stream(back, stream)
             return comp, frame, t1 - t0, t2 - t1, ok
 
         from concurrent.futures import ThreadPoolExecutor
 
+        # the best-ratio point on all of C1; the others on its first
+        # TRAIN_REST_BYTES of whole rows
+        head = c1[: c1.rfind(b"\n", 0, TRAIN_REST_BYTES) + 1]
+        head_stream = rt.serial(torch.from_numpy(np.frombuffer(head, np.uint8).copy()).cuda())
         alone, _, launched = counted(lambda: round_trip(best))
         rest = [path for path in wrote if path != best]
         with ThreadPoolExecutor(max_workers=max(len(rest), 1)) as pool:
-            done, wall, launched_rest = counted(lambda: list(pool.map(round_trip, rest)))
+            done, wall, launched_rest = counted(
+                lambda: list(pool.map(lambda path: round_trip(path, head_stream), rest)))
         for path, (comp, frame, dt, ddt, ok) in [(best, alone), *zip(rest, done)]:
+            n = len(c1) if path == best else len(head)
             if not ok:
-                fail(f"train C1 {os.path.basename(path)}: all of C1 did not come back on the card")
-            how = (f"alone: compress_MBps={len(c1) / dt / 1e6} seconds={dt}"
-                   f" decompress_MBps={len(c1) / ddt / 1e6} decompress_seconds={ddt}"
+                fail(f"train C1 {os.path.basename(path)}: {n} bytes of C1 did not come back on"
+                     " the card")
+            how = (f"alone: compress_MBps={n / dt / 1e6} seconds={dt}"
+                   f" decompress_MBps={n / ddt / 1e6} decompress_seconds={ddt}"
                    if path == best else
                    f"under {len(rest)}-way contention, the others at once:"
-                   f" contended_compress_MBps={len(c1) / dt / 1e6}"
-                   f" contended_decompress_MBps={len(c1) / ddt / 1e6}")
+                   f" contended_compress_MBps={n / dt / 1e6}"
+                   f" contended_decompress_MBps={n / ddt / 1e6}")
             print(f"train C1 point {wrote.index(path)} ({os.path.basename(path)},"
-                  f" {len(comp.plan.nodes)} nodes): all {len(c1)} bytes round-trip on the card,"
-                  f" ratio={len(c1) / len(frame)} {how} codecs={frame_codecs(rt, frame)}")
-        del alone, done
-        print(f"train C1 points: the best-ratio point alone, launches {json.dumps(launched)};"
-              f" the other {len(rest)} round trips at once in {wall} s,"
-              f" launches {json.dumps(launched_rest)}")
+                  f" {len(comp.plan.nodes)} nodes): {'all ' if path == best else 'the first '}"
+                  f"{n} bytes round-trip on the card, ratio={n / len(frame)} {how}"
+                  f" codecs={frame_codecs(rt, frame)}")
+        del alone, done, head_stream
+        print(f"train C1 points: the best-ratio point alone on all of C1, launches"
+              f" {json.dumps(launched)}; the other {len(rest)} round trips of {len(head)} bytes"
+              f" at once in {wall} s, launches {json.dumps(launched_rest)}")
     plan_name, cli_ratio = cli_ratios["C1"]
     print(f"train C1 beside: csv_profile(8) ratio={len(c1) / len(csv_frame)} (csv phase),"
           f" {plan_name} ratio={cli_ratio} (cli phase), both unchunked")
@@ -5067,6 +5138,351 @@ def train_phase(cols, frames, record_calls, csv_calls, graph_calls, cli_ratios, 
     print(f"train launches {json.dumps(totals)}")
     print(f"train phase seconds={time.perf_counter() - t_phase}")
     return totals
+
+
+def lm_numpy_tree(cfg, rng) -> dict:
+    """A parameter tree of the transformer config ``cfg`` as float32 numpy
+    arrays drawn from ``rng`` with ``init_params``'s distributions
+    (normal(0, 0.02) embeddings, normal / sqrt(fan-in) matrices, unit norms),
+    layers stacked on a leading ``n_layers`` axis."""
+    D, H, KV, dh, F, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff,
+                          cfg.n_layers)
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    layers = {"attn_norm": np.ones((L, D), np.float32), "mlp_norm": np.ones((L, D), np.float32),
+              "wq": normal((L, D, H * dh), D ** -0.5), "wk": normal((L, D, KV * dh), D ** -0.5),
+              "wv": normal((L, D, KV * dh), D ** -0.5), "wo": normal((L, H * dh, D), (H * dh) ** -0.5)}
+    if cfg.n_experts:
+        E = cfg.n_experts
+        layers.update(router=normal((L, D, E), D ** -0.5), w_gate=normal((L, E, D, F), D ** -0.5),
+                      w_up=normal((L, E, D, F), D ** -0.5), w_down=normal((L, E, F, D), F ** -0.5))
+    else:
+        layers.update(w_gate=normal((L, D, F), D ** -0.5), w_up=normal((L, D, F), D ** -0.5),
+                      w_down=normal((L, F, D), F ** -0.5))
+    tree = {"embed": normal((cfg.vocab, D), 0.02), "final_norm": np.ones(D, np.float32),
+            "layers": layers}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = normal((D, cfg.vocab), D ** -0.5)
+    return tree
+
+
+def lm_side(tree_np, tokens, labels, cfg, device: str, decode: bool) -> dict:
+    """On ``device``: the logits and loss of ``tree_np`` on ``tokens``, every
+    gradient, one ``adamw`` step from a fresh state, and (``decode``) the
+    logits of ``decode_step`` over the tokens one at a time -> flat dict of
+    results keyed as the checkpoint keys them."""
+    import torch
+    from repro_torch.distributed import optimizer as opt
+    from repro_torch.distributed.checkpoint import flatten_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy
+
+    params = params_from_numpy(tree_np, device=device)
+    toks = torch.from_numpy(tokens).to(device)
+    batch = {"tokens": toks, "labels": torch.from_numpy(labels).to(device)}
+    out = {}
+    with torch.no_grad():
+        out["logits"] = T.forward(params, toks, cfg)
+    leaves = opt.tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = T.loss_fn(leaves, batch, cfg)
+    flat = flatten_tree(leaves)
+    grads = torch.autograd.grad(loss, [t for _k, t in flat])
+    out["loss"] = loss.detach()
+    by_id = {id(t): g for (_k, t), g in zip(flat, grads)}
+    out.update({f"grad/{k}": g for (k, _t), g in zip(flat, grads)})
+    adam = opt.adamw(lr=LM_LR)
+    new_p, state = adam.update(opt.tree_map(lambda t: by_id[id(t)], leaves), adam.init(params),
+                               params)
+    del leaves, flat, grads, by_id
+    out.update({f"adamw/{k}": t for k, t in flatten_tree({"params": new_p, "m": state["m"],
+                                                         "v": state["v"]})})
+    if decode:
+        B, S = tokens.shape
+        with torch.no_grad():
+            cache = T.init_kv_cache(cfg, B, S, device=device)
+            steps = []
+            for t in range(S):
+                logits, cache = T.decode_step(params, cache, toks[:, t:t + 1], t, cfg)
+                steps.append(logits)
+        out["decode"] = torch.stack(steps, dim=1)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def lm_compare(label: str, card: dict, cpu: dict, cfg, decode_vs_forward: bool) -> None:
+    """Hold the card's results against the CPU's (both on the card): logits,
+    loss, decode within ``LM_ATOL``; each gradient within ``LM_GRAD_RTOL`` of
+    its leaf's largest; the adamw step's m and v within ``LM_ADAM_ATOL``, its
+    params too except where a gradient near 0 takes the sign the other side
+    did not (``LM_SIGN_FLIP``).  Prints each largest absolute error."""
+    import torch
+
+    def err(a, b):
+        return float((a.float() - b.float().to(a.device)).abs().max())
+
+    errs = {k: err(card[k], cpu[k]) for k in ("logits", "loss")}
+    grad_abs = grad_rel = 0.0
+    flips = 0
+    adam = {"params": 0.0, "m": 0.0, "v": 0.0}
+    for key in card:
+        if key.startswith("grad/"):
+            want = cpu[key].to(card[key].device)
+            e = err(card[key], want)
+            grad_abs = max(grad_abs, e)
+            grad_rel = max(grad_rel, e / max(float(want.abs().max()), 1e-30))
+        elif key.startswith("adamw/params/"):
+            leaf = key[len("adamw/params/"):]
+            diff = (card[key].float() - cpu[key].float().to(card[key].device)).abs()
+            g = cpu[f"grad/{leaf}"].to(diff.device).abs()
+            moved = diff > LM_ADAM_ATOL
+            flips += int(moved.sum())
+            if bool((moved & (g >= LM_SIGN_FLIP * g.max())).any()) or \
+                    float(diff.max()) > 2 * LM_LR + 1e-6:
+                fail(f"lm {label}: adamw moved {leaf} by {float(diff.max())} where its"
+                     " gradient is not near 0")
+            adam["params"] = max(adam["params"], float(diff.masked_fill(moved, 0).max()))
+        elif key.startswith("adamw/"):
+            part = key.split("/")[1]
+            adam[part] = max(adam[part], err(card[key], cpu[key]))
+    if "decode" in card:
+        errs["decode card vs cpu"] = err(card["decode"], cpu["decode"])
+        if decode_vs_forward:
+            errs["decode vs forward (card)"] = err(card["decode"], card["logits"])
+    print(f"lm {label}: max_abs_err " + " ".join(f"{k}={v}" for k, v in errs.items())
+          + f" grads: max_abs_err={grad_abs} max_rel_err={grad_rel} (of each leaf's largest)"
+          f" adamw(lr={LM_LR}) step: m max_abs_err={adam['m']} v max_abs_err={adam['v']}"
+          f" params max_abs_err={adam['params']} outside {flips} weights whose gradient"
+          f" sits at a sign flip; tolerances logits {LM_ATOL['logits']} loss {LM_ATOL['loss']}"
+          f" decode {LM_ATOL['decode']} grads {LM_GRAD_RTOL} relative adamw {LM_ADAM_ATOL}")
+    for k, v in errs.items():
+        tol = LM_ATOL["decode" if k.startswith("decode") else k]
+        if not v <= tol:
+            fail(f"lm {label}: {k} max_abs_err {v} above {tol}")
+    if not grad_rel <= LM_GRAD_RTOL:
+        fail(f"lm {label}: a gradient is {grad_rel} of its leaf's largest off the CPU's")
+    if not max(adam.values()) <= LM_ADAM_ATOL:
+        fail(f"lm {label}: the adamw step is {adam} off the CPU's")
+
+
+def lm_phase(ops, seed: int):
+    """The LM train and serve drivers on the card (``repro_torch.models``,
+    ``repro_torch.launch``), after the train phase: Llama-3.2-1B's widths at
+    one layer, then the reduced MoE and SWA archs, card against CPU
+    (``lm_side``, ``lm_compare``); the train driver in-process at
+    Llama-3.2-1B's full config crashed at step 4 (exit 42, step 3 saved),
+    then resumed from step 3 and its data cursor to a final save at step 5,
+    each save, restore and train step timed (the step-3 leaves held bit for
+    bit against a host copy of what was saved, and those of
+    ``LM_CPU_LEAVES`` and every leaf under ``LM_CPU_LEAF_BYTES`` against
+    the frames' CPU decode); one ``python -m repro_torch.launch.serve``
+    child from step 5.  The launch counts are reset just before the first
+    train run and read just after the second -> each kernel's launches."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.codecs import entropy
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import checkpoint as ck
+    from repro_torch.launch import train as lm_train
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("lm: TF32 matmul is on; the card would not meet the CPU in float32")
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 35)
+
+    # 1. Llama-3.2-1B's widths at depth 1, batch 1, 16 tokens
+    full = get_arch(LM_ARCH).model_cfg
+    cfg = dataclasses.replace(full, n_layers=1, remat=False)
+    t0 = time.perf_counter()
+    tree = lm_numpy_tree(cfg, rng)
+    tokens = rng.integers(0, cfg.vocab, (1, LM_TOKENS)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (1, LM_TOKENS)).astype(np.int32)
+    t1 = time.perf_counter()
+    card = lm_side(tree, tokens, labels, cfg, "cuda", decode=True)
+    t2 = time.perf_counter()
+    cpu = lm_side(tree, tokens, labels, cfg, "cpu", decode=True)
+    t3 = time.perf_counter()
+    lm_compare(f"{LM_ARCH} widths (d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads}"
+               f" kv heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied, rope theta"
+               f" {cfg.rope_theta}) at 1 layer, batch 1, {LM_TOKENS} tokens", card, cpu, cfg,
+               decode_vs_forward=True)
+    print(f"lm widths seconds: data={t1 - t0} card={t2 - t1} cpu={t3 - t2}")
+    del card, cpu, tree
+
+    # 2. the reduced MoE and SWA archs (the SWA one past its window)
+    for arch, n in LM_REDUCED:
+        rcfg = get_arch(arch).reduced_cfg
+        tree = lm_numpy_tree(rcfg, rng)
+        tokens = rng.integers(0, rcfg.vocab, (2, n)).astype(np.int32)
+        labels = rng.integers(0, rcfg.vocab, (2, n)).astype(np.int32)
+        card = lm_side(tree, tokens, labels, rcfg, "cuda", decode=True)
+        cpu = lm_side(tree, tokens, labels, rcfg, "cpu", decode=True)
+        # a full forward drops picks past an expert's capacity, one decoded
+        # token never does: MoE decode is held against the CPU's decode only
+        lm_compare(f"{arch} reduced ({rcfg.n_experts} experts top {rcfg.top_k},"
+                   f" window {rcfg.sliding_window}) batch 2, {n} tokens", card, cpu, rcfg,
+                   decode_vs_forward=not rcfg.n_experts)
+
+    # 3. the train driver at full width: crash at step 4, resume to step 5
+    saves, restores, steps, snapshot, capped = [], [], [], {}, []
+    orig_save, orig_restore, orig_step = ck.save_checkpoint, ck.restore_tree, lm_train.train_step
+    orig_capped = entropy._package_merge_lengths
+
+    def counted_capped(*args):  # Huffman lengths the count flattening could not cap
+        capped.append(1)
+        return orig_capped(*args)
+
+    def bits(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    def timed_save(directory, step, tree, metadata=None, *, device="cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        capped.clear()
+        t0 = time.perf_counter()
+        manifest = orig_save(directory, step, tree, metadata, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        saves.append((step, dt, manifest, torch.cuda.max_memory_allocated(), len(capped)))
+        if step == LM_SAVED:  # what was saved, kept on the host for the resume
+            snapshot.update((k, t.detach().cpu()) for k, t in ck.flatten_tree(tree))
+        return manifest
+
+    def timed_restore(directory, like, step=None, *, device="cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree, manifest = orig_restore(directory, like, step, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        restores.append((manifest["step"], dt, manifest, torch.cuda.max_memory_allocated(), 0))
+        if manifest["step"] == LM_SAVED:
+            t1 = time.perf_counter()
+            restored = dict(ck.flatten_tree(tree))
+            if sorted(restored) != sorted(snapshot):
+                fail(f"lm resume: restored leaves {sorted(restored)} are not the saved ones")
+            for key, t in restored.items():
+                if not torch.equal(bits(t.cpu()), bits(snapshot[key])):
+                    fail(f"lm resume: leaf {key} differs from what was saved")
+            step_dir = os.path.join(directory, f"step_{LM_SAVED:010d}")
+            on_cpu = 0
+            for leaf in manifest["leaves"]:
+                if leaf["raw_bytes"] >= LM_CPU_LEAF_BYTES and leaf["key"] not in LM_CPU_LEAVES:
+                    continue
+                with open(os.path.join(step_dir, leaf["file"]), "rb") as f:
+                    want = ck.decompress_leaf(f.read(), leaf["shape"], leaf["dtype"],
+                                              device="cpu")
+                if not torch.equal(bits(restored[leaf["key"]].cpu()), bits(want)):
+                    fail(f"lm resume: leaf {leaf['key']} differs from its frame's CPU decode")
+                on_cpu += leaf["raw_bytes"]
+            print(f"check lm resume: all {len(restored)} step-{LM_SAVED} leaves"
+                  f" ({manifest['raw_bytes']} bytes) restored on the card equal what was saved,"
+                  f" bit for bit; {on_cpu} bytes of them also equal their frames' CPU decode"
+                  f" (host seconds {time.perf_counter() - t1})")
+            snapshot.clear()
+        return tree, manifest
+
+    def timed_step(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_step(*args, **kw)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        return out
+
+    def run(argv, label):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = lm_train.main(argv)
+        finally:
+            for line in buf.getvalue().splitlines():
+                print(f"lm train {label} | {line}")
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-") as tmp:
+        ckpt, data = os.path.join(tmp, "ckpt"), os.path.join(tmp, "data")
+        argv = [*LM_TRAIN_ARGS, "--ckpt-dir", ckpt, "--data-dir", data]
+        ck.save_checkpoint, ck.restore_tree, lm_train.train_step = (timed_save, timed_restore,
+                                                                    timed_step)
+        entropy._package_merge_lengths = counted_capped
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            rc1, out1, wall1 = run(argv + ["--fail-at-step", str(LM_FAIL_AT)], "crash")
+            torch.cuda.empty_cache()
+            rc2, out2, wall2 = run(argv, "resume")
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        finally:
+            ck.save_checkpoint, ck.restore_tree, lm_train.train_step = (orig_save, orig_restore,
+                                                                        orig_step)
+            entropy._package_merge_lengths = orig_capped
+        if rc1 != 42 or f"[failure-sim] crashing at step {LM_FAIL_AT}" not in out1:
+            fail(f"lm train: the crash run returned {rc1}")
+        if [s for s, *_ in saves] != [LM_SAVED, LM_LAST] or rc2 != 0:
+            fail(f"lm train: saves {[s for s, *_ in saves]}, resume returned {rc2}")
+        cursor = saves[0][2]["metadata"]["data_cursor"]
+        resumed = re.search(rf"^\[resume\] restored step {LM_SAVED} .*data cursor (\d+)$", out2,
+                            re.M)
+        if not resumed or int(resumed.group(1)) != cursor:
+            fail(f"lm train: no resume from step {LM_SAVED} at its data cursor {cursor}")
+        if f"[done] {LM_LAST} steps" not in out2 or [s for s, *_ in restores] != [LM_SAVED]:
+            fail("lm train: the resume did not end with its final save")
+        losses = [float(v) for v in re.findall(r"^step\s+\d+ loss (\S+)", out1 + out2, re.M)]
+        if len(losses) != LM_FAIL_AT + LM_LAST - LM_SAVED or not all(map(math.isfinite, losses)):
+            fail(f"lm train: losses {losses}")
+        tokens_per_step = 8 * 64  # launch.train's --batch and --seq defaults
+        steady = steps[1:LM_FAIL_AT] + steps[LM_FAIL_AT + 1:]  # each run's first step left out
+        for label, items in (("save", saves), ("restore", restores)):
+            for step, dt, m, peak, n_capped in items:
+                print(f"lm {label} step {step}: {len(m['leaves'])} leaves raw_bytes={m['raw_bytes']}"
+                      f" compressed_bytes={m['compressed_bytes']} ratio={m['ratio']}"
+                      f" seconds={dt} MBps={m['raw_bytes'] / dt / 1e6}"
+                      f" peak_allocated_GB={peak / 1e9} package_merge_calls={n_capped}")
+        print(f"lm train: {full.n_layers} layers, remat={full.remat}, {tokens_per_step} tokens a"
+              f" step; step seconds {steps}; tokens_per_s"
+              f" {[tokens_per_step / dt for dt in steps]}; steady (each run's first step left"
+              f" out) tokens_per_s={tokens_per_step * len(steady) / sum(steady)};"
+              f" losses {losses}; crash run wall seconds={wall1}, resume run {wall2}")
+
+        # 4. serve from step 5, as a user starts it
+        torch.cuda.empty_cache()
+        env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *LM_SERVE_ARGS,
+                                "--ckpt-dir", ckpt], capture_output=True, text=True, cwd=tmp,
+                               env=env, timeout=LM_SERVE_TIMEOUT)
+        wall = time.perf_counter() - t0
+    for line in child.stdout.splitlines():
+        print(f"lm serve child | {line}")
+    if child.returncode:
+        fail(f"lm serve child: exit {child.returncode}: {child.stderr.strip()[-800:]}")
+    prefill = re.search(r"prefill: (\d+) tokens in (\S+)s \((\d+) tok/s", child.stdout)
+    decode = re.search(r"decode:\s+(\d+) tokens in (\S+)s \((\d+) tok/s", child.stdout)
+    cache_mb = re.search(r"kv-cache: (\S+) MB \(linear\)", child.stdout)
+    want_mb = 2 * full.n_layers * 8 * 64 * full.n_kv_heads * full.d_head * 4 / 1e6
+    if f"[serve] loaded checkpoint step {LM_LAST}" not in child.stdout or not (
+            prefill and decode and cache_mb) or abs(float(cache_mb.group(1)) - want_mb) > 0.05:
+        fail(f"lm serve child: {child.stdout[-800:]}")
+    print(f"lm serve child: wall seconds={wall} (start-up, init and the restore of all"
+          f" {restores[0][2]['raw_bytes']} bytes included), prefill tok/s={prefill.group(3)},"
+          f" decode tok/s={decode.group(3)}, kv-cache MB={cache_mb.group(1)} (expected {want_mb})")
+    missing = [k for k in LM_KERNELS if not launches[k]]
+    if missing:
+        fail(f"lm phase: never launched {missing}: {launches}")
+    print(f"lm launches {json.dumps(launches)}")
+    print(f"lm phase seconds={time.perf_counter() - t_phase}")
+    return launches
 
 
 def level_sources(cols) -> dict:
@@ -5174,7 +5590,8 @@ def profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls,
                   graph_calls) -> None:
     """Where one compress and one decompress call's time goes: the card's busy
     time from ``torch.profiler`` (its kernels, by name) and the host's time
-    from ``cProfile`` (its functions, by cumulative time); the main and
+    from ``cProfile`` (its functions, by cumulative time) in a second call
+    (``profile_call``); the main and
     decode phases' calls, summed per kernel, then the container phase's, the
     records phase's, the CSV phase's and the graph phase's."""
     plans = {name: make(rt) for name, make in PLANS.items()}
@@ -5206,7 +5623,8 @@ def profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls,
 
 def profile_call(label: str, fn) -> dict:
     """``fn`` once under ``profile_device`` and once under ``profile_host``
-    -> the port's kernels' device ms."""
+    -> the port's kernels' device ms.  The passes are apart, so that the
+    wall ms and idle share carry no cProfile overhead."""
     ours, _, _ = profile_device(label, fn)
     profile_host(label, fn)
     return ours
@@ -5229,9 +5647,10 @@ def profile_device(label: str, fn, into=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels and copies as the card ran them (op-level rows would count the
     # same time twice; the buffer request is the tracer's own)
+    averages = prof.key_averages()  # one pass over the trace's events
     dev = [
         (e.self_device_time_total / 1e3, e.key[:48])
-        for e in prof.key_averages()
+        for e in averages
         if e.device_type == DeviceType.CUDA and e.key != "Activity Buffer Request"
     ]
     busy_ms = sum(ms for ms, _ in dev)
@@ -5241,7 +5660,7 @@ def profile_device(label: str, fn, into=None):
         m = PORT_KERNEL.match(k)
         if m:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms
-    for e in prof.key_averages():  # launches and ms of K13's two configurations
+    for e in averages:  # launches and ms of K13's two configurations
         m = PORT_KERNEL.match(e.key) if e.device_type == DeviceType.CUDA else None
         if m and m.group(2) in HIST_CONFIGS:
             name = HIST_CONFIGS[m.group(2)]
@@ -5320,10 +5739,14 @@ def main() -> None:
     t0 = time.perf_counter()
     cols = columns(args.seed)
     print(f"data seconds={time.perf_counter() - t0} seed={args.seed}")
+    t0 = time.perf_counter()
     rows = kernel_phase(cols, rt, ops, ref, entropy, args.seed, sm_hz)
+    print(f"kernel phase seconds={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
     launches, frames = main_path(cols, rt, ops)
     launches.update({k: v for k, v in decode_phase(cols, frames, rt, ops).items()
                      if k not in ENCODE_KERNELS})
+    print(f"main and decode phases seconds={time.perf_counter() - t0}")
     container_calls, container_launches = container_phase(cols, rt, ops)
     record_calls, records_launches = records_phase(rt, ops, args.seed)
     csv_calls, csv_launches = csv_phase(rt, ops, args.seed)
@@ -5340,6 +5763,7 @@ def main() -> None:
         sessions_typed + checkpoint_typed + cli_typed + service_out["typed"])
     train_launches = train_phase(cols, frames, record_calls, csv_calls, graph_calls, cli_ratios,
                                  rt, ops)
+    lm_launches = lm_phase(ops, args.seed)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["container_launches"] = container_launches[r["name"]]
@@ -5353,8 +5777,13 @@ def main() -> None:
         r["frontend_launches"] = frontend_launches[r["name"]]
         r["signatures_launches"] = signatures_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
+        r["lm_launches"] = lm_launches[r["name"]]
+    t0 = time.perf_counter()
     level_phase(cols, rt, ops)
+    print(f"level7 phase seconds={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
     profile_phase(cols, frames, rt, container_calls, record_calls, csv_calls, graph_calls)
+    print(f"profile phase seconds={time.perf_counter() - t0}")
     identity = nvidia_smi("name,power.limit")
     print(f"run seconds={time.perf_counter() - t_run} (the build included)")
     print(json.dumps({"kernels": rows}))

@@ -25,7 +25,7 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from ..core.codec import CodecSig, CodecSpec, InPort, register_codec
+from ..core.codec import CodecSig, CodecSpec, InPort, in_trial, register_codec
 from ..core.message import Stream, SType, narrow_unsigned, widen_unsigned
 from ..kernels import ops, ref
 from .coder_cache import active_cache
@@ -128,10 +128,35 @@ def _huffman_code_lengths(counts: np.ndarray) -> np.ndarray:
         if lens.max() <= MAX_CODE_LEN:
             return lens
         c = np.maximum(c, c[sym].sum() / (1 << MAX_CODE_LEN))  # flatten tail
-    # the reference raises AssertionError here, which its trial selectors
-    # take as "inapplicable"; the port's trials take only a codec's
-    # ValueError as a refusal, so the same counts refuse with one
-    raise ValueError("huffman: the 15-bit length cap failed to converge")
+    if in_trial():
+        # the reference raises AssertionError here, which its trials take
+        # as "inapplicable"; the port's trials take only a codec's
+        # ValueError as a refusal, so the same counts refuse with one
+        raise ValueError("huffman: the 15-bit length cap failed to converge")
+    # outside a trial the reference's encode fails; the port writes the
+    # optimal lengths under the cap, which both packages' decoders read
+    return _package_merge_lengths(counts, sym)
+
+
+def _package_merge_lengths(counts: np.ndarray, sym: np.ndarray) -> np.ndarray:
+    """Optimal code lengths of at most ``MAX_CODE_LEN`` bits for the present
+    symbols ``sym`` (>= 2 of them): package-merge (Larmore and Hirschberg).
+    Each item carries how often each symbol lies under it; the 2n - 2
+    lightest items of the last merge give each symbol its length."""
+    n = sym.size
+    w = counts[sym].astype(np.int64)
+    eye = np.eye(n, dtype=np.int64)
+    leaves = [(int(w[i]), eye[i]) for i in np.argsort(w, kind="stable")]
+    items = leaves
+    for _ in range(MAX_CODE_LEN - 1):
+        packages = [
+            (items[k][0] + items[k + 1][0], items[k][1] + items[k + 1][1])
+            for k in range(0, len(items) - 1, 2)
+        ]
+        items = sorted(leaves + packages, key=lambda item: item[0])
+    lens = np.zeros(256, dtype=np.uint8)
+    lens[sym] = sum(item[1] for item in items[: 2 * n - 2])
+    return lens
 
 
 def _canonical_order(lens: np.ndarray) -> np.ndarray:

@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.codec import CodecSig, CodecSpec, InPort, ParamSpec, register_codec
+from ..core.codec import CodecSig, CodecSpec, InPort, ParamSpec, register_codec, trial
 from ..core.engine import CompressionCtx, compress
 from ..core.graph import GraphBuilder, Plan
 from ..core.message import CARRIER, Stream, SType, narrow_unsigned, widen_unsigned
@@ -621,7 +621,8 @@ def _adjacency_auto(streams, params, ctx):
     for _name, plan in candidates:
         try:
             trial_ctx = CompressionCtx(ctx.format_version, ctx.level)
-            sz = len(compress(plan, samples, ctx=trial_ctx, device=s_src.device))
+            with trial():
+                sz = len(compress(plan, samples, ctx=trial_ctx, device=s_src.device))
         except ValueError:
             continue
         if sz < best_sz:

@@ -9,7 +9,9 @@ resolve cache, as the reference's trials do.
 
 Only a codec's own refusal (a ``ValueError``) marks a candidate as
 inapplicable; any other error — a CUDA fault, a failed kernel build, a
-kernel wrapper's precondition (``ops.KernelError``) — propagates.
+kernel wrapper's precondition (``ops.KernelError``) — propagates.  Trials
+run under ``core.codec.trial``, where a codec refuses what the reference's
+raises on.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 from ..core.engine import CompressionCtx, compress
 from ..core.graph import GraphBuilder, Plan, pipeline
 from ..core.message import Stream, SType
-from ..core.codec import ANY_STYPES, FIXED_STYPES, InPort
+from ..core.codec import ANY_STYPES, FIXED_STYPES, InPort, trial
 from ..core.selector import SelectorSig, SelectorSpec, register_selector
 
 SAMPLE_BYTES = 1 << 16  # trial compressions run on a bounded prefix
@@ -44,7 +46,8 @@ def _sample(s: Stream) -> Stream:
 def _trial_size(plan: Plan, s: Stream, ctx: CompressionCtx) -> int:
     try:
         trial_ctx = CompressionCtx(ctx.format_version, ctx.level)
-        return len(compress(plan, [s], ctx=trial_ctx, device=s.device))
+        with trial():
+            return len(compress(plan, [s], ctx=trial_ctx, device=s.device))
     except ValueError:
         return 1 << 62  # candidate inapplicable to this data
 

@@ -27,9 +27,18 @@ type>.<codec>`` (``device.encode.cuda.float_split`` on the card), where the
 device is that of the call's input tensors: an armed
 :class:`~repro_torch.reliability.faults.FaultPlan` makes the call fail there
 as a card fault would, before the encoder runs.
+
+A compression that only measures a candidate (a selector's trial, the
+trainer's size probe and genome evaluation) runs under :func:`trial`.  A
+codec whose reference raises on some input refuses it there as well, so that
+the candidate is judged as the reference judges it; outside a trial the
+codec may encode what the reference cannot (Huffman's length cap,
+``codecs/entropy.py``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -53,7 +62,26 @@ __all__ = [
     "get_codec",
     "get_codec_by_id",
     "all_codecs",
+    "trial",
+    "in_trial",
 ]
+
+_IN_TRIAL: contextvars.ContextVar[bool] = contextvars.ContextVar("in_trial", default=False)
+
+
+@contextlib.contextmanager
+def trial():
+    """Mark the compressions inside as measurements of a candidate."""
+    token = _IN_TRIAL.set(True)
+    try:
+        yield
+    finally:
+        _IN_TRIAL.reset(token)
+
+
+def in_trial() -> bool:
+    return _IN_TRIAL.get()
+
 
 EncodeFn = Callable[..., Tuple[List[Stream], bytes]]
 DecodeFn = Callable[[Sequence[Stream], bytes], List[Stream]]

@@ -1,2 +1,3 @@
 """repro_torch.distributed -- the port's checkpointing of torch tensor
-trees (``repro_torch.distributed.checkpoint``)."""
+trees (``repro_torch.distributed.checkpoint``) and the optimizers over them
+(``repro_torch.distributed.optimizer``)."""

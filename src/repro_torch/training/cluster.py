@@ -7,10 +7,11 @@ repeating until a local minimum.  Only same-signature streams may merge
 (concat requires it), which also bounds the pair set.
 
 Streams stay on their device: a merge is one ``torch.cat`` there, and each
-size probe is a ``compress`` on that device.  A probe that a codec refuses
-(a ``ValueError``) is sized as the raw bytes plus 64, as the reference does;
-any other error, a card fault or a ``KernelError`` among them, propagates
-instead of being read as a size.
+size probe is a ``compress`` on that device, under ``core.codec.trial``
+(a codec refuses there what the reference's raises on).  A probe that a
+codec refuses (a ``ValueError``) is sized as the raw bytes plus 64, as the
+reference does; any other error, a card fault or a ``KernelError`` among
+them, propagates instead of being read as a size.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.codec import trial
 from ..core.engine import CompressionCtx, compress
 from ..core.graph import GraphBuilder, Plan
 from ..core.message import Stream, SType
@@ -53,15 +55,16 @@ def _size_of(streams: Sequence[Stream], level: int) -> int:
     try:
         # bypass the resolve cache: probes compare selector choices across
         # many same-shape streams, so each must expand on its own data
-        return len(
-            compress(
-                _probe_plan(sig),
-                [s],
-                ctx=CompressionCtx(level=level),
-                device=s.device,
-                use_resolve_cache=False,
+        with trial():
+            return len(
+                compress(
+                    _probe_plan(sig),
+                    [s],
+                    ctx=CompressionCtx(level=level),
+                    device=s.device,
+                    use_resolve_cache=False,
+                )
             )
-        )
     except ValueError:  # a codec's refusal; a card fault propagates
         return s.nbytes + 64
 

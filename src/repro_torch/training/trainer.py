@@ -28,7 +28,9 @@ Where the card changes the code:
   ``FrameError`` and ``PlanTypeError`` are ones) scores a genome
   ``INVALID``.  The reference scores any exception so; here a card fault, a
   ``KernelError``, ``NoCardError`` or an ``InjectedDeviceFault`` propagates
-  out of :func:`train`, since it says nothing of the genome;
+  out of :func:`train`, since it says nothing of the genome.  A candidate's
+  compression runs under ``core.codec.trial``, where a codec refuses what
+  the reference's raises on;
 * the evaluation threads launch on the caller's CUDA stream, as the
   session pool's do.
 """
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from .. import _device
-from ..core.codec import get_codec
+from ..core.codec import get_codec, trial
 from ..core.engine import (
     CompressionCtx,
     CompressorSession,
@@ -534,7 +536,8 @@ class TrainerService:
             return INVALID
         try:
             sess = self._session_for(plan)
-            frame, trace, wall = sess.compress_traced([sample])
+            with trial():
+                frame, trace, wall = sess.compress_traced([sample])
         except ValueError:  # a codec refused: the genome is broken
             self._bump(evaluations=1, invalid=1)
             return INVALID

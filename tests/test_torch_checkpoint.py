@@ -35,6 +35,8 @@ from repro_torch.core.message import Stream  # noqa: E402
 from repro_torch.distributed import checkpoint as tck  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+from _torch_huffman_cap import prefix_converges_whole_refuses  # noqa: E402
+
 CPU = "cpu"
 
 
@@ -410,6 +412,27 @@ def test_restore_tree_missing_leaf_raises(tmp_path):
 
 
 # ------------------------------------------------------ sessions, overrides
+def test_a_leaf_whose_exponents_refuse_the_trials_pick_still_saves(tmp_path):
+    """float32 weights whose exponent plane's prefix picks Huffman while the
+    whole plane's counts refuse it (as an optimizer state leaf's did at
+    Llama-3.2-1B's full width): the reference's save raises, the port's
+    codes the plane with Huffman lengths under the cap from package-merge,
+    and the leaf restores bit for bit in both packages."""
+    exps = prefix_converges_whole_refuses().astype(np.uint32)
+    mant = np.random.default_rng(1).integers(0, 1 << 23, exps.size, dtype=np.uint32)
+    w = ((exps << np.uint32(23)) | mant).view(np.float32)
+    with pytest.raises(AssertionError, match="length cap"):
+        rck.compress_leaf(w)
+    frame = tck.compress_leaf(torch.from_numpy(w), device=CPU)
+    got = tck.decompress_leaf(frame, w.shape, "float32", device=CPU)
+    assert torch.equal(got.view(torch.int32), torch.from_numpy(w.view(np.int32)))
+    np.testing.assert_array_equal(rck.decompress_leaf(frame, w.shape, "float32").view(np.int32),
+                                  w.view(np.int32))
+    tck.save_checkpoint(tmp_path, 1, {"w": torch.from_numpy(w)}, device=CPU)
+    leaves, _ = rck.restore_checkpoint(tmp_path, 1)
+    np.testing.assert_array_equal(leaves["w"].view(np.int32), w.view(np.int32))
+
+
 def test_session_registry_is_keyed_by_plan_and_device():
     tck.close_codec_sessions()
     arrays = route_arrays()

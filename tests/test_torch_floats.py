@@ -34,6 +34,8 @@ from repro_torch.core.codec import get_codec  # noqa: E402
 from repro_torch.core.message import Stream, SType, from_numpy  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
+from _torch_huffman_cap import prefix_converges_whole_refuses  # noqa: E402
+
 UNSIGNED = {2: np.uint16, 4: np.uint32, 8: np.uint64}
 SIGNED = {2: np.int16, 4: np.int32, 8: np.int64}
 TORCH_SIGNED = {2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -269,11 +271,20 @@ def _fibonacci_bytes():
 
 
 def test_huffman_refuses_counts_whose_length_cap_does_not_converge():
+    """In a trial the port refuses what the reference's encoder raises on;
+    outside one it writes package-merge lengths that both packages decode."""
+    from repro_torch.core.codec import trial
+    from repro_torch.core.graph import pipeline
+
     x = _fibonacci_bytes()
     with pytest.raises(AssertionError):  # the reference's encoder
         ref_get_codec("huffman").run_encode([RefStream(x, RefSType.SERIAL, 1)], {})
-    with pytest.raises(ValueError):
+    with trial(), pytest.raises(ValueError):
         get_codec("huffman").run_encode([from_numpy(x, SType.SERIAL, 1)], {})
+    frame = repro_torch.compress(pipeline("huffman"), repro_torch.serial(x.tobytes()), device="cpu",
+                                 use_resolve_cache=False)
+    assert repro_torch.decompress(frame, device="cpu")[0].content_bytes() == x.tobytes()
+    assert np.asarray(ref_decompress(frame)[0].data).tobytes() == x.tobytes()
     # so the trial selectors skip Huffman on both sides and agree
     g = repro_torch.GraphBuilder(1)
     g.select("entropy_auto", g.input(0))
@@ -281,6 +292,78 @@ def test_huffman_refuses_counts_whose_length_cap_does_not_converge():
     rg.select("entropy_auto", rg.input(0))
     frame = repro_torch.compress(g.build("e"), repro_torch.serial(x.tobytes()), device="cpu", use_resolve_cache=False)
     assert frame == ref_compress(rg.build("e"), [RefStream(x, RefSType.SERIAL, 1)], use_resolve_cache=False)
+
+
+def _kraft_and_cost(lens, counts):
+    present = lens > 0
+    kraft = np.sum(2.0 ** -lens[present].astype(np.float64))
+    return kraft, int(np.sum(counts.astype(np.int64) * lens))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_package_merge_lengths_are_optimal_under_the_cap(seed):
+    """Package-merge's lengths form a complete code of at most 15 bits whose
+    cost lies between plain Huffman's (no cap) and the count flattening's."""
+    from repro_torch.codecs import entropy as TE
+
+    rng = np.random.default_rng(seed)
+    n_sym = int(rng.integers(2, 257))
+    counts = np.zeros(256, np.int64)
+    syms = rng.choice(256, n_sym, replace=False)
+    counts[syms] = (rng.pareto(0.5 + seed / 4, n_sym) * 10).astype(np.int64) + 1
+    pm = TE._package_merge_lengths(counts, np.nonzero(counts)[0])
+    kraft, cost = _kraft_and_cost(pm, counts)
+    assert kraft == 1.0 and pm.max() <= TE.MAX_CODE_LEN and (pm[counts > 0] > 0).all()
+    flat = TE._huffman_code_lengths(counts)  # converges on these counts
+    heap = sorted(counts[counts > 0].tolist())
+    huffman_cost = 0  # the sum of merged weights is the tree's cost
+    while len(heap) > 1:
+        a, b = heap.pop(0), heap.pop(0)
+        huffman_cost += a + b
+        heap.append(a + b)
+        heap.sort()
+    assert huffman_cost <= cost <= _kraft_and_cost(flat, counts)[1]
+
+
+def test_outside_a_trial_a_prefix_chosen_huffman_encodes_the_whole_input():
+    """The trial picks Huffman on the first 64 KiB, whose counts the cap's
+    flattening meets; the whole stream's counts defeat it.  The reference's
+    compress raises; the port's writes the pick with package-merge lengths,
+    a frame both packages decode."""
+    from repro_torch.core import engine
+
+    x = prefix_converges_whole_refuses()
+    g = repro_torch.GraphBuilder(1)
+    g.select("entropy_auto", g.input(0))
+    plan = g.build("e")
+    rg = RefGraphBuilder(1)
+    rg.select("entropy_auto", rg.input(0))
+    with pytest.raises(AssertionError, match="length cap"):
+        ref_compress(rg.build("e"), [RefStream(x, RefSType.SERIAL, 1)], use_resolve_cache=False)
+    s = repro_torch.serial(x.tobytes())
+    assert "huffman" in engine.resolve(plan, [s], use_cache=False).codec_names()
+    frame = repro_torch.compress(plan, s, device="cpu", use_resolve_cache=False)
+    assert len(frame) < x.size // 2
+    (back,) = repro_torch.decompress(frame, device="cpu")
+    assert back.content_bytes() == x.tobytes()
+    (ref_back,) = ref_decompress(frame)
+    assert np.asarray(ref_back.data).tobytes() == x.tobytes()
+
+
+def test_inside_a_trial_the_refusal_still_rejects_the_candidate():
+    """A pipeline whose nested selector's pick refuses its whole input is,
+    as a trial candidate, inapplicable, as the reference's trials find it."""
+    from repro_torch.codecs import selectors
+    from repro_torch.core.codec import trial
+
+    x = prefix_converges_whole_refuses()
+    g = repro_torch.GraphBuilder(1)
+    g.select("entropy_auto", g.input(0))
+    with trial(), pytest.raises(ValueError, match="length cap"):
+        repro_torch.compress(g.build("e"), repro_torch.serial(x.tobytes()), device="cpu",
+                             use_resolve_cache=False)
+    ctx = repro_torch.CompressionCtx()
+    assert selectors._trial_size(g.build("e"), repro_torch.serial(x.tobytes()), ctx) == 1 << 62
 
 
 # ------------------------------------------------------------------ wrappers

@@ -78,6 +78,35 @@ def test_the_scan_covers_the_service_slices_modules():
         assert port / rel in PORT_FILES
 
 
+def test_the_scan_covers_the_lm_slices_modules():
+    port = REPO / "src" / "repro_torch"
+    for rel in ("configs/__init__.py", "configs/base.py", "configs/lm_common.py",
+                "configs/llama3_2_1b.py", "configs/h2o_danube3_4b.py", "configs/yi_9b.py",
+                "configs/olmoe_1b_7b.py", "configs/kimi_k2_1t_a32b.py",
+                "models/__init__.py", "models/layers.py", "models/transformer.py",
+                "models/convert.py", "launch/__init__.py", "launch/train.py",
+                "launch/serve.py", "data/pipeline.py", "data/synthetic.py",
+                "distributed/optimizer.py"):
+        assert port / rel in PORT_FILES
+
+
+def test_importing_the_lm_drivers_loads_nothing_forbidden_and_no_cuda():
+    code = (
+        "import sys, torch, repro_torch.launch.train, repro_torch.launch.serve,"
+        " repro_torch.models, repro_torch.configs, repro_torch.distributed.optimizer\n"
+        "from repro_torch.configs import all_archs\n"
+        "archs = sorted(all_archs())\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(bad, torch.cuda.is_initialized(), len(archs))\n" % (FORBIDDEN,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] False 5"
+
+
 def test_importing_the_port_loads_nothing_forbidden_and_no_cuda():
     code = (
         "import sys, torch, repro_torch, repro_torch.codecs, repro_torch.kernels.ops,"

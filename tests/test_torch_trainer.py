@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_huffman_cap import prefix_converges_whole_refuses  # noqa: E402
 from _torch_train_ref import clear_caches, ref_device_trainer  # noqa: E402
 
 import repro.training as RT  # noqa: E402
@@ -311,6 +312,37 @@ def test_cluster_streams_is_the_references(index):
         want = RT.cluster_streams([ref_numeric(a) for a in arrays])
     assert got.clusters == want.clusters and got.sizes == want.sizes
     assert got.assignment() == want.assignment()
+
+
+def test_a_probe_whose_pick_the_whole_stream_refuses_is_sized_as_the_references():
+    """Huffman wins the probe's trial on the first 64 KiB and its cap fails on
+    the whole stream: the reference's probe raises and sizes the stream as
+    raw bytes + 64, its service scores a Huffman genome INVALID, and its
+    clusters follow; the port's probes and evaluations, run as trials, give
+    the same sizes, scores and clusters."""
+    from repro.training import cluster as ref_cluster
+
+    x = prefix_converges_whole_refuses()
+    y = prefix_converges_whole_refuses(seed=1)
+    small = np.random.default_rng(2).integers(0, 9, 1 << 14).astype(np.uint8)
+    clear_caches()
+    assert PC._size_of([serial(x.tobytes())], 5) == x.size + 64
+    got = P.cluster_streams([serial(x.tobytes()), serial(y.tobytes()), serial(small.tobytes())])
+    svc = P.TrainerService(workers=1, static_prune=False, device="cpu")
+    try:
+        got_score = svc.evaluate_genome(P.GNode("huffman"), serial(x.tobytes()), (0, 1))
+    finally:
+        svc.close()
+    with ref_device_trainer():
+        assert ref_cluster._size_of([ref_serial(x.tobytes())], 5) == x.size + 64
+        want = RT.cluster_streams([ref_serial(b.tobytes()) for b in (x, y, small)])
+        ref_svc = RT.TrainerService(workers=1)
+        try:
+            want_score = ref_svc.evaluate_genome(RT.GNode("huffman"), ref_serial(x.tobytes()), (0, 1))
+        finally:
+            ref_svc.close()
+    assert got.clusters == want.clusters and got.sizes == want.sizes
+    assert got_score == want_score == PT.INVALID
 
 
 def test_clustering_merges_identical_streams_and_respects_signatures():
